@@ -7,7 +7,8 @@
    hand-written kernels from distributedmnist_tpu_torch/csrc/ (one nvcc
    per source, all at once) and prints each build's -Xptxas -v report.
 2. Holds every kernel against its plain PyTorch version on the card at
-   the serving path's shapes (buckets 1, 7, 128 and 512) and times it
+   the serving path's shapes (buckets 1, 7, 128 and 512), checks that
+   the two split-K kernels give the same bits on two calls, and times it
    with CUDA events beside the plain version, one PyTorch library call
    for the same function (timed here only; the port never calls it) and
    its bound: the larger of bytes over 3.35 TB/s and operations over the
@@ -49,6 +50,9 @@ TPU_KERNELS = {
     "quant_dense": "distributedmnist_tpu/ops/fused.py:160",
     "mlp_megakernel": "distributedmnist_tpu/ops/fused.py:222",
 }
+# kernels whose K is split over a thread-block cluster: held to give the
+# same bits on two calls
+SPLIT_K_KERNELS = ("dense_relu", "mlp_megakernel")
 
 
 def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -224,6 +228,10 @@ def check_kernels(params: dict, images) -> list:
          tol) in kernel_cases(params, images):
         got, want = kernel(), plain()
         torch.cuda.synchronize()
+        if name in SPLIT_K_KERNELS and not torch.equal(got, kernel()):
+            raise RuntimeError(f"{name} {case}: two calls on the same "
+                               f"inputs differ (the cluster reduction "
+                               f"must sum in a fixed order)")
         err = float((got.float() - want.float()).abs().max())
         # f32 sums of 784 terms in another order: the error scales with
         # the output's magnitude, so atol is relative to it
@@ -373,7 +381,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     for source, report in sorted(reports.items()):
         for line in report.splitlines():
-            if "ptxas" in line or "error" in line.lower():
+            if ("ptxas" in line or "spill" in line
+                    or "error" in line.lower()):
                 print(f"{source}: {line.strip()}", flush=True)
 
     params = fit_params(FIT_SEED)

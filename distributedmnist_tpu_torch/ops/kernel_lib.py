@@ -5,9 +5,9 @@ shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), and loaded with ctypes. All missing libraries are built
 together — one nvcc process per source, started at once — into
 `csrc/build/`, which git ignores. A library's file name carries a hash of
-its source and flags, so an edited source is never served by a stale
-build. Nothing here runs at import time: the CPU tests import every module
-of the port on machines without nvcc or a card.
+its source, the shared headers and the flags, so an edited source is
+never served by a stale build. Nothing here runs at import time: the CPU
+tests import every module of the port on machines without nvcc or a card.
 """
 
 from __future__ import annotations
@@ -62,7 +62,10 @@ def nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    text = (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+    # the shared headers (csrc/*.cuh) are part of every source's text
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    text = ((CSRC / source).read_bytes() + headers
+            + " ".join(NVCC_FLAGS).encode())
     digest = hashlib.sha256(text).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 

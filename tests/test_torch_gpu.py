@@ -1,6 +1,8 @@
 """The PyTorch port's hand-written CUDA kernels against their plain
-PyTorch versions, on the card, at the serving path's shapes (buckets 1,
-7, 128 and 512). Every test is marked `gpu` and skips without a card.
+PyTorch versions, on the card: at the serving path's shapes (buckets 1,
+7, 128 and 512), at the ragged K slices of the split-K kernels and at
+LeNet's dense shapes, and two calls on the same inputs bit for bit. Every
+test is marked `gpu` and skips without a card.
 
 This file imports no jax (the card's machine has none), and
 tests/conftest.py does, so on the card run it without the conftest:
@@ -8,9 +10,11 @@ tests/conftest.py does, so on the card run it without the conftest:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 
 Tolerances: float32 rtol=1e-5, atol=1e-5 (the plain version's cuBLAS
-product sums in another order; TF32 is off); bfloat16 rtol=2e-2 and
-atol=2e-2 times the output scale (one bf16 rounding is 2**-8 relative);
-int8 rtol=1e-6, atol=0 (exact int32 products, epilogues rounded alike).
+product sums in another order; TF32 is off), the megakernel's atol times
+the logits' scale where it exceeds 1 (its sums are of raw pixels, which
+run to 255); bfloat16 rtol=2e-2 and atol=2e-2 times the output scale
+(one bf16 rounding is 2**-8 relative); int8 rtol=1e-6, atol=0 (exact
+int32 products, epilogues rounded alike).
 """
 
 import numpy as np
@@ -105,3 +109,94 @@ def test_mlp_megakernel_on_card(m):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, fused.mlp_megakernel_reference(*args),
                                rtol=1e-5, atol=1e-5)
+
+
+# (k, n): the MLP's hidden layer, then LeNet's dense stack (400->120->84)
+# and a K that is neither a multiple of a stage nor of 8 (the bf16
+# 16-byte chunk), with a width of 10 (no 16-byte rows at all). m=2048
+# reaches the 64x64 tile in bf16 too.
+DENSE_SHAPES = ((K, HIDDEN), (400, 120), (120, 84), (100, CLASSES))
+
+
+def _check_dense(x, w, b):
+    """The kernel against its plain version at the header's tolerance."""
+    got = fused.dense_relu_inference(x, w, b)
+    ref = fused.dense_relu_reference(x, w, b)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.shape == ref.shape
+    if x.dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    else:
+        scale = max(1.0, float(ref.float().abs().max()))
+        torch.testing.assert_close(got.float(), ref.float(), rtol=2e-2,
+                                   atol=2e-2 * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("k,n", DENSE_SHAPES)
+@pytest.mark.parametrize("m", (1, 3, 17, 128, 512, 2048))
+def test_dense_relu_shapes_on_card(m, k, n, dtype):
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _check_dense(*_cuda(*_dense_inputs(m, k, n, seed=m * 1000 + k + n),
+                        dtype=getattr(torch, dtype)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_dense_relu_unaligned_rows_on_card(dtype):
+    """x whose rows do not start on 16-byte boundaries takes the masked
+    element-wise copy instead of cp.async."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tdt = getattr(torch, dtype)
+    x, w, b = _cuda(*_dense_inputs(33, K, HIDDEN, seed=5), dtype=tdt)
+    shifted = torch.empty(x.numel() + 1, dtype=tdt, device=x.device)
+    shifted = shifted[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    _check_dense(shifted, w, b)
+
+
+def _mega_inputs(m, k, seed):
+    r = _rng(seed)
+    return (r.integers(0, 256, (m, k)).astype(np.float32),
+            (r.normal(size=(k, HIDDEN)) * 0.05 / 255).astype(np.float32),
+            r.normal(size=HIDDEN).astype(np.float32) * 0.1,
+            (r.normal(size=(HIDDEN, CLASSES)) * 0.1).astype(np.float32),
+            r.normal(size=CLASSES).astype(np.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", (K, 100))
+@pytest.mark.parametrize("m", (1, 7, 9, 33, 512))
+def test_mlp_megakernel_shapes_on_card(m, k):
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _cuda(*_mega_inputs(m, k, seed=m + k))
+    got = fused.mlp_megakernel(*args)
+    ref = fused.mlp_megakernel_reference(*args)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(ref.abs().max()))
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", (1, 128, 512))
+@pytest.mark.parametrize("kernel", ("dense_relu_f32", "dense_relu_bf16",
+                                    "mlp_megakernel"))
+def test_split_k_kernels_deterministic_on_card(kernel, m):
+    """The cluster reduction sums partials in a fixed rank order: two calls
+    on the same inputs give the same bits."""
+    _need_card()
+    if kernel == "mlp_megakernel":
+        args = _cuda(*_mega_inputs(m, K, seed=m))
+        fn = fused.mlp_megakernel
+    else:
+        dtype = torch.float32 if kernel.endswith("f32") else torch.bfloat16
+        args = _cuda(*_dense_inputs(m, K, HIDDEN, seed=m), dtype=dtype)
+        fn = fused.dense_relu_inference
+    first, second = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
