@@ -8,7 +8,7 @@
    per source, all at once) and prints each build's -Xptxas -v report.
 2. Holds every kernel against its plain PyTorch version on the card at
    the serving path's shapes (buckets 1, 7, 128 and 512), checks that
-   the two split-K kernels give the same bits on two calls, and times it
+   the split-K kernels give the same bits on two calls, and times it
    with CUDA events beside the plain version, one PyTorch library call
    for the same function (timed here only; the port never calls it) and
    its bound: the larger of bytes over 3.35 TB/s and operations over the
@@ -52,7 +52,7 @@ TPU_KERNELS = {
 }
 # kernels whose K is split over a thread-block cluster: held to give the
 # same bits on two calls
-SPLIT_K_KERNELS = ("dense_relu", "mlp_megakernel")
+SPLIT_K_KERNELS = ("dense_relu", "mlp_megakernel", "quant_dense")
 
 
 def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -251,7 +251,40 @@ def check_kernels(params: dict, images) -> list:
                                    else None)}
         records.append(rec)
         print("kernel " + json.dumps(rec), flush=True)
+        print(f"  {name} {case}: {rec['ms'] * 1e3:.2f} us on the card, "
+              f"{rec['call_ms'] * 1e3:.2f} us a call, bound "
+              f"{b_ms * 1e3:.4g} us ({b_by})", flush=True)
     return records
+
+
+def time_forwards(params: dict, images) -> None:
+    """Print the device time and time per call of each serving variant's
+    whole forward (uint8 pixels on the card -> float32 logits), per
+    bucket."""
+    import torch
+
+    from distributedmnist_tpu_torch import models
+    from distributedmnist_tpu_torch.serve.quantize import prepare_inference
+
+    dev = torch.device("cuda")
+    forwards = {}
+    for dt in ("float32", "bfloat16", "int8", "megakernel"):
+        if dt == "float32":
+            net = models.build("mlp", device=dev)
+            net.load_state_dict({k: v.to(dev) for k, v in params.items()})
+            net.eval()
+            forwards[dt] = lambda x, net=net: net(x.to(torch.float32) / 255.0)
+        else:
+            prep, fwd = prepare_inference("mlp", params, dt)
+            prep = {k: v.to(dev) for k, v in prep.items()}
+            forwards[dt] = lambda x, prep=prep, fwd=fwd: fwd(prep, x)
+    with torch.inference_mode():
+        for m in BUCKETS:
+            x = torch.from_numpy(images[:m].reshape(m, 28, 28, 1)).to(dev)
+            for dt, fwd in forwards.items():
+                print("forward " + json.dumps({
+                    "variant": dt, "b": m, "ms": graph_ms(lambda: fwd(x)),
+                    "call_ms": cuda_ms(lambda: fwd(x))}), flush=True)
 
 
 def drive_serving_path(params: dict) -> dict:
@@ -389,6 +422,7 @@ def main() -> int:
     images = synthetic_mnist(seed=SEED, train_n=16,
                              test_n=max(BUCKETS))["test_x"]
     records = check_kernels(params, np.asarray(images))
+    time_forwards(params, np.asarray(images))
 
     fused.reset_launches()
     phases = drive_serving_path(params)

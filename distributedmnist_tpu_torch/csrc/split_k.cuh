@@ -1,7 +1,8 @@
-// What the split-K kernels (dense_relu.cu, mlp_megakernel.cu) share:
-// shared-memory tile loads (cp.async 16-byte copies where a matrix's rows
-// are 16-byte aligned, a masked element-wise copy where they are not) and
-// how a cluster deals out the elements it reduces; its barriers.
+// What the split-K kernels (dense_relu.cu, mlp_megakernel.cu,
+// quant_dense.cu) share: shared-memory tile loads (cp.async 16-byte
+// copies where a matrix's rows are 16-byte aligned, a masked element-wise
+// copy where they are not) and how a cluster deals out the elements it
+// reduces; its barriers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -56,13 +57,17 @@ inline bool rows_aligned(const void* base, int cols, int elem) {
 // SSTRIDE elements). Elements outside the matrix become zero. With `vec`
 // (rows_aligned) the copy is asynchronous, 16 bytes a chunk, a chunk
 // crossing the matrix's right edge reading only its valid bytes; without
-// it, each element is a plain load and store. THREADS threads share the
-// work; `tid` is this thread's index among them.
+// it, each element is a plain load and store; for 1-byte elements every
+// load of a thread is issued before its first store, so that the copy
+// waits for one round trip to memory rather than one per element.
+// THREADS threads share the work; `tid` is this thread's index among
+// them.
 template <typename T, int ROWS, int COLS, int SSTRIDE, int THREADS>
 __device__ __forceinline__ void load_tile(T* s, const T* g, int nrows,
                                           int ncols, int row0, int col0,
                                           bool vec, int tid) {
-  static_assert(sizeof(T) == 2 || sizeof(T) == 4, "2- or 4-byte elements");
+  static_assert(sizeof(T) == 1 || sizeof(T) == 2 || sizeof(T) == 4,
+                "1-, 2- or 4-byte elements");
   constexpr int V = 16 / sizeof(T);
   static_assert(COLS % V == 0 && SSTRIDE % V == 0, "16-byte chunks");
   if (vec) {
@@ -75,6 +80,24 @@ __device__ __forceinline__ void load_tile(T* s, const T* g, int nrows,
       const T* src = valid > 0 ? g + static_cast<size_t>(gr) * ncols + gc : g;
       cp_async16(s + r * SSTRIDE + cc, src,
                  valid * static_cast<int>(sizeof(T)));
+    }
+  } else if constexpr (sizeof(T) == 1) {
+    constexpr int N = (ROWS * COLS + THREADS - 1) / THREADS;
+    const unsigned char* gb = reinterpret_cast<const unsigned char*>(g);
+    unsigned char* sb = reinterpret_cast<unsigned char*>(s);
+    unsigned char v[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int e = tid + i * THREADS;
+      const int gr = row0 + e / COLS, gc = col0 + e % COLS;
+      v[i] = (e < ROWS * COLS && gr < nrows && gc < ncols)
+                 ? gb[static_cast<size_t>(gr) * ncols + gc]
+                 : 0;
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int e = tid + i * THREADS;
+      if (e < ROWS * COLS) sb[e / COLS * SSTRIDE + e % COLS] = v[i];
     }
   } else {
     using U = typename std::conditional<sizeof(T) == 2, unsigned short,

@@ -3,13 +3,15 @@
     python -m distributedmnist_tpu_torch.kernel_profile [--trace-dir DIR]
 
 1. A K sweep: device time (calls captured in a CUDA graph and replayed)
-   of dense_relu (f32, bf16) and mlp_megakernel at b=1 and b=512, for K
-   from 32 (one stage: a cluster of one CTA) up to the MLP's 784. Beside
+   of dense_relu (f32, bf16), mlp_megakernel and quant_dense (784->128
+   with relu; 128->10 where K <= 128) at b=1 and b=512, for K from 32
+   (one stage: a cluster of one CTA) up to the MLP's 784. Beside
    it, the floor of any kernel in a graph: a one-element fill. The sweep
    separates what a launch, its cluster barriers and its reduction cost
    from what the cluster's size and each K stage cost.
 2. A torch.profiler trace of each kernel at the serving path's buckets
-   (1, 7, 128, 512), at the MLP's widths: for every kernel the trace
+   (1, 7, 128, 512), at the MLP's widths (quant_dense's second layer at
+   its own K, 128): for every kernel the trace
    records, its mean device time and the launch geometry the profiler
    reports (grid, block, registers per thread, shared memory, blocks and
    warps per SM, estimated achieved occupancy). The chrome traces go to
@@ -84,8 +86,20 @@ def _inputs(m: int, k: int, seed: int) -> dict:
             "b2": t(r.normal(size=CLASSES))}
 
 
-def _cases(m: int, k: int):
-    """(name, fn) of each split-K kernel at (m, k) on the MLP's widths."""
+def _quant_inputs(m: int, k: int, n: int, seed: int) -> tuple:
+    r = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    return (torch.from_numpy(r.integers(-128, 128, (m, k)).astype(
+                np.int8)).to(dev),
+            torch.from_numpy(r.integers(-127, 128, (k, n)).astype(
+                np.int8)).to(dev),
+            torch.from_numpy((r.random(n) * 1e-3).astype(np.float32)).to(dev),
+            torch.from_numpy(r.normal(size=n).astype(np.float32)).to(dev))
+
+
+def _cases(m: int, k: int, k2=None):
+    """(name, fn) of each split-K kernel at (m, k) on the MLP's widths;
+    quant_dense's 128->10 layer too, at K=k2, when k2 is given."""
     a = _inputs(m, k, seed=m + k)
     xs = a["x"] / 255.0
     xb, wb, bb = (t.bfloat16() for t in (xs, a["w1"] * 255, a["b1"]))
@@ -94,6 +108,12 @@ def _cases(m: int, k: int):
     yield "dense_relu bf16", lambda: fused.dense_relu_inference(xb, wb, bb)
     yield "mlp_megakernel", lambda: fused.mlp_megakernel(
         a["x"], a["w1"], a["b1"], a["w2"], a["b2"])
+    q1 = _quant_inputs(m, k, HIDDEN, seed=m + k)
+    yield "quant_dense layer1", lambda: fused.quant_dense(*q1)
+    if k2 is not None:
+        q2 = _quant_inputs(m, k2, CLASSES, seed=m + k2)
+        yield "quant_dense layer2", lambda: fused.quant_dense(*q2,
+                                                              relu=False)
 
 
 def sweep() -> None:
@@ -102,7 +122,7 @@ def sweep() -> None:
                       "us": graph_us(lambda: one.fill_(1.0))}), flush=True)
     for m in (1, 512):
         for k in SWEEP_K:
-            for name, fn in _cases(m, k):
+            for name, fn in _cases(m, k, k if k <= HIDDEN else None):
                 print(json.dumps({"sweep": "k", "kernel": name, "m": m,
                                   "k": k, "us": graph_us(fn)}), flush=True)
 
@@ -113,7 +133,7 @@ def trace(trace_dir: Path) -> None:
     trace_dir.mkdir(parents=True, exist_ok=True)
     calls = 20
     for m in BUCKETS:
-        for name, fn in _cases(m, 784):
+        for name, fn in _cases(m, 784, HIDDEN):
             for _ in range(5):
                 fn()
             torch.cuda.synchronize()

@@ -2,13 +2,14 @@
 
     python -m distributedmnist_tpu_torch.kernel_variants
 
-Each variant is the source of csrc/dense_relu.cu or csrc/mlp_megakernel.cu
-with one edit (below), built by nvcc like the real kernel into
-csrc/build/variants/ and called through ctypes at the MLP's widths
-(k=784, n=128, n2=10) at the serving path's buckets. Its device time
-(calls in a CUDA graph, replayed) and its largest difference from the
-plain PyTorch version are printed as one JSON line per variant and case,
-after the card's name and power limit.
+Each variant is the source of csrc/dense_relu.cu, csrc/mlp_megakernel.cu
+or csrc/quant_dense.cu with one edit (below), built by nvcc like the real
+kernel into csrc/build/variants/ and called through ctypes at the MLP's
+widths (k=784, n=128, n2=10; quant_dense at both int8 layers, 784->128
+with relu and 128->10 without) at the serving path's buckets. Its device
+time (calls in a CUDA graph, replayed) and its largest difference from
+the plain PyTorch version are printed as one JSON line per variant and
+case, after the card's name and power limit.
 
 - launch_only: every CTA returns at once (the cost of the cluster launch);
 - no_loads: no tile is copied to shared memory (the arithmetic runs on
@@ -16,10 +17,14 @@ after the card's name and power limit.
 - no_math: the K loop does no arithmetic (copies, barriers, reduction);
 - stages_of_32_rows: 4 stages of 128 bytes of each x row instead of 2 of
   256 bytes;
-- split_8 (dense_relu): clusters of at most 8 CTAs (the portable
-  size), not 16;
+- split_8 (dense_relu, quant_dense): clusters of at most 8 CTAs (the
+  portable size), not 16;
 - no_k_groups: every thread walks all K rows of a stage, so each w
-  element is read from shared memory by every row of threads.
+  element is read from shared memory by every row of threads;
+- no_repack (quant_dense): w's stage is not transposed into the [n][k]
+  tile the mma reads (the cost of the byte transpose and its barrier);
+- no_reduce (quant_dense): no rank copies its partials to their owners
+  (the cost of the reduction through distributed shared memory).
 
 An edit that no longer matches its source raises: the variants are
 edits of this revision's sources. Without a card it exits nonzero.
@@ -81,6 +86,21 @@ MEGA = {
                      "  static constexpr int KG = 1;")],
 }
 
+QUANT = {
+    "base": [],
+    "launch_only": [(
+        "  extern __shared__ __align__(16) unsigned char smem[];",
+        "  if (m > 0) return;\n"
+        "  extern __shared__ __align__(16) unsigned char smem[];")],
+    "no_loads": [(_LOAD_PROLOGUE, ""), (_LOAD_LOOP, "")],
+    "no_math": [("    mm.step(xs, wt, tid);", "    (void)xs;")],
+    "no_repack": [("    repack_w<BN>(wt, xs + L::X_BYTES, tid);", "")],
+    "no_reduce": [("    *reinterpret_cast<int4*>(slot) = v[u];",
+                   "    if (m < 0) *reinterpret_cast<int4*>(slot) = v[u];")],
+    "split_8": [("constexpr int MAX_SPLIT = 16;",
+                 "constexpr int MAX_SPLIT = 8;")],
+}
+
 
 def build(variants: dict, source: str) -> dict:
     """{variant: loaded library}, all built at once, one nvcc each."""
@@ -135,7 +155,9 @@ def _time(name, kernel, m, call, got, want) -> None:
 def run() -> None:
     dense = build(DENSE, "dense_relu.cu")
     mega = build(MEGA, "mlp_megakernel.cu")
+    quant = build(QUANT, "quant_dense.cu")
     rng = np.random.default_rng(0)
+    rq = np.random.default_rng(1)
     dev = torch.device("cuda")
     for m in BUCKETS:
         xs = torch.from_numpy(rng.random((m, K), np.float32)).to(dev)
@@ -166,6 +188,25 @@ def run() -> None:
                       x.data_ptr(), w1.data_ptr(), b.data_ptr(),
                       w2.data_ptr(), b2.data_ptr(), out.data_ptr(), m, K,
                       HIDDEN, CLASSES, _stream()), out, want)
+        for layer, (k, n, relu) in (("layer1", (K, HIDDEN, 1)),
+                                    ("layer2", (HIDDEN, CLASSES, 0))):
+            xq = torch.from_numpy(rq.integers(-128, 128, (m, k)).astype(
+                np.int8)).to(dev)
+            wq = torch.from_numpy(rq.integers(-127, 128, (k, n)).astype(
+                np.int8)).to(dev)
+            sc = torch.from_numpy((rq.random(n) * 1e-3).astype(
+                np.float32)).to(dev)
+            bq = torch.from_numpy(rq.normal(size=n).astype(
+                np.float32)).to(dev)
+            want = fused.quant_dense_reference(xq, wq, sc, bq,
+                                               relu=bool(relu))
+            for name, lib in quant.items():
+                out = torch.empty((m, n), device=dev)
+                _time(name, f"quant_dense_s8 {layer}", m,
+                      lambda lib=lib, out=out: lib.quant_dense_s8(
+                          xq.data_ptr(), wq.data_ptr(), sc.data_ptr(),
+                          bq.data_ptr(), out.data_ptr(), m, n, k, relu,
+                          _stream()), out, want)
 
 
 def main() -> int:

@@ -1,7 +1,9 @@
 """The PyTorch port's hand-written CUDA kernels against their plain
 PyTorch versions, on the card: at the serving path's shapes (buckets 1,
 7, 128 and 512), at the ragged K slices of the split-K kernels and at
-LeNet's dense shapes, and two calls on the same inputs bit for bit. Every
+LeNet's dense and int8 dense shapes, at rows that do not start on a
+16-byte boundary, at quant_dense's largest accumulator, and two calls on
+the same inputs bit for bit. Every
 test is marked `gpu` and skips without a card.
 
 This file imports no jax (the card's machine has none), and
@@ -80,17 +82,61 @@ def test_dense_relu_kernel_on_card(m):
     torch.testing.assert_close(got16, ref16, rtol=2e-2, atol=2e-2 * scale)
 
 
+# (k, n, relu): the MLP's two int8 layers, LeNet's three int8 dense
+# layers (rows of 120, 84 and 10 bytes: the masked byte copies), and a
+# ragged k and n
+QUANT_SHAPES = ((K, HIDDEN, True), (HIDDEN, CLASSES, False),
+                (400, 120, True), (120, 84, True), (84, CLASSES, False),
+                (83, 5, True))
+
+
+def _check_quant(xq, wq, scale, b, relu):
+    before = fused.LAUNCHES["quant_dense"]
+    got = fused.quant_dense(xq, wq, scale, b, relu=relu)
+    ref = fused.quant_dense_reference(xq, wq, scale, b, relu=relu)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["quant_dense"] == before + 1
+    torch.testing.assert_close(got, ref, rtol=1e-6, atol=0.0)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", (1, 7, 128, 512))
-def test_quant_dense_kernel_on_card(m):
+@pytest.mark.parametrize("k,n,relu", QUANT_SHAPES)
+@pytest.mark.parametrize("m", (1, 3, 17, 128, 512, 2048))
+def test_quant_dense_kernel_on_card(m, k, n, relu):
     _need_card()
-    for k, n, relu in ((K, HIDDEN, True), (HIDDEN, CLASSES, False),
-                       (83, 5, True)):        # ragged k and n
-        xq, wq, scale, b = _cuda(*_quant_inputs(m, k, n, seed=m + k))
-        got = fused.quant_dense(xq, wq, scale, b, relu=relu)
-        ref = fused.quant_dense_reference(xq, wq, scale, b, relu=relu)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, ref, rtol=1e-6, atol=0.0)
+    _check_quant(*_cuda(*_quant_inputs(m, k, n, seed=m * 1000 + k + n)),
+                 relu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", ((K, HIDDEN), (400, 120), (HIDDEN, CLASSES)))
+def test_quant_dense_unaligned_rows_on_card(k, n):
+    """x that does not start on a 16-byte boundary takes the masked byte
+    copy instead of cp.async."""
+    _need_card()
+    xq, wq, scale, b = _cuda(*_quant_inputs(33, k, n, seed=k + n))
+    shifted = torch.empty(xq.numel() + 1, dtype=torch.int8,
+                          device=xq.device)[1:].view(xq.shape)
+    shifted.copy_(xq)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    _check_quant(shifted, wq, scale, b, True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", (1, 128, 512))
+def test_quant_dense_extreme_values_on_card(m):
+    """Every x at -128 and every w at -127 at k=784: the largest |acc|,
+    784*128*127 = 12,744,704, exact (unit scale, zero bias)."""
+    _need_card()
+    xq = torch.full((m, K), -128, dtype=torch.int8, device="cuda")
+    wq = torch.full((K, HIDDEN), -127, dtype=torch.int8, device="cuda")
+    ones = torch.ones(HIDDEN, device="cuda")
+    zeros = torch.zeros(HIDDEN, device="cuda")
+    got = fused.quant_dense(xq, wq, ones, zeros, relu=False)
+    torch.cuda.synchronize()
+    assert (got == float(K * 128 * 127)).all()
+    _check_quant(xq, wq, torch.rand(HIDDEN, device="cuda") * 1e-3, zeros,
+                 True)
 
 
 @pytest.mark.gpu
@@ -185,7 +231,7 @@ def test_mlp_megakernel_shapes_on_card(m, k):
 @pytest.mark.gpu
 @pytest.mark.parametrize("m", (1, 128, 512))
 @pytest.mark.parametrize("kernel", ("dense_relu_f32", "dense_relu_bf16",
-                                    "mlp_megakernel"))
+                                    "mlp_megakernel", "quant_dense"))
 def test_split_k_kernels_deterministic_on_card(kernel, m):
     """The cluster reduction sums partials in a fixed rank order: two calls
     on the same inputs give the same bits."""
@@ -193,6 +239,9 @@ def test_split_k_kernels_deterministic_on_card(kernel, m):
     if kernel == "mlp_megakernel":
         args = _cuda(*_mega_inputs(m, K, seed=m))
         fn = fused.mlp_megakernel
+    elif kernel == "quant_dense":
+        args = _cuda(*_quant_inputs(m, K, HIDDEN, seed=m))
+        fn = fused.quant_dense
     else:
         dtype = torch.float32 if kernel.endswith("f32") else torch.bfloat16
         args = _cuda(*_dense_inputs(m, K, HIDDEN, seed=m), dtype=dtype)

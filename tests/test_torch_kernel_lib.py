@@ -76,7 +76,8 @@ def _variant_cases():
     from distributedmnist_tpu_torch import kernel_variants as kv
 
     for source, variants in (("dense_relu.cu", kv.DENSE),
-                             ("mlp_megakernel.cu", kv.MEGA)):
+                             ("mlp_megakernel.cu", kv.MEGA),
+                           ("quant_dense.cu", kv.QUANT)):
         for name, edits in variants.items():
             yield pytest.param(source, edits, id=f"{source}-{name}")
 

@@ -153,11 +153,20 @@ def _quant_inputs(m, k, n, seed):
             r.normal(size=n).astype(np.float32))
 
 
+# (k, n, relu): the MLP's two int8 layers, then LeNet's three int8 dense
+# layers (distributedmnist_tpu/serve/quantize.py), and every x at -128
+# with every w at -127 at k=784: the largest |acc|, 784*128*127.
+QUANT_SHAPES = [(K, HIDDEN, True), (HIDDEN, CLASSES, False),
+                (400, 120, True), (120, 84, True), (84, CLASSES, False),
+                (K, HIDDEN, "extreme")]
+
+
 @pytest.mark.parametrize("m", ROWS)
-@pytest.mark.parametrize("k,n,relu", [(K, HIDDEN, True),
-                                      (HIDDEN, CLASSES, False)])
+@pytest.mark.parametrize("k,n,relu", QUANT_SHAPES)
 def test_quant_dense_matches_jax(m, k, n, relu):
     xq, wq, scale, b = _quant_inputs(m, k, n, seed=m * 7 + n)
+    if relu == "extreme":
+        xq, wq, relu = np.full_like(xq, -128), np.full_like(wq, -127), False
     # accumulators: unit scale and zero bias expose acc itself (|acc| <
     # 2**24, so its f32 image is exact)
     ones, zeros = np.ones(n, np.float32), np.zeros(n, np.float32)
@@ -167,6 +176,8 @@ def test_quant_dense_matches_jax(m, k, n, relu):
         jnp.asarray(xq), jnp.asarray(wq), (((1,), (0,)), ((), ())),
         preferred_element_type=jnp.int32))
     np.testing.assert_array_equal(acc.astype(np.int64), jacc)
+    if (xq == -128).all() and (wq == -127).all():
+        assert (jacc == k * 128 * 127).all()
     got = fused.quant_dense(_t(xq), _t(wq), _t(scale), _t(b),
                             relu=relu).numpy()
     ref = np.asarray(jfused.quant_dense(
