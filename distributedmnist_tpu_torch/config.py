@@ -1,6 +1,7 @@
-"""Configuration of the port: the serving subset of the JAX package's
-Config (distributedmnist_tpu/config.py), with the same defaults and flag
-names, plus the device the port runs on.
+"""Configuration of the port: the training and serving subsets of the JAX
+package's Config (distributedmnist_tpu/config.py), with the same field
+names, defaults and flag names, plus the device the port runs on, and
+the presets of the two single-card workloads.
 
 `device` defaults to "cuda": an entry point runs on the card unless the
 caller asks for "cpu", and with no card it raises rather than carry on
@@ -18,9 +19,48 @@ INFER_DTYPE_CHOICES = ("float32", "bfloat16", "int8", "megakernel", "auto")
 
 @dataclasses.dataclass(frozen=True)
 class Config:
+    # model / optimizer
     model: str = "lenet"            # {mlp, lenet}; the port serves mlp
+    optimizer: str = "adam"         # {sgd, adam}
+    learning_rate: float = 1e-3
+    momentum: float = 0.9           # used by sgd only
+    lr_schedule: str = "constant"   # {constant, cosine, warmup-cosine}
+    warmup_steps: int = 0
+    # cosine decay horizon in steps; None = the run's own total steps
+    lr_decay_steps: Optional[int] = None
+    # data
+    data_dir: Optional[str] = None  # dir with IDX (*-ubyte[.gz]) or mnist.npz
+    synthetic: bool = False         # force deterministic synthetic MNIST
+    batch_size: int = 512
+    # the train set on the card: "u8" bytes, or "packed" 4 pixels per
+    # int32 word (data/packing.py); the same pixels either way
+    pixel_format: str = "packed"
+    # schedule
+    epochs: int = 10
+    steps: Optional[int] = None     # overrides epochs when set
+    eval_every: int = 200           # steps between test-set evals
+    target_accuracy: Optional[float] = 0.99  # stop early when reached
     seed: int = 0
     device: str = "cuda"            # {cuda, cpu}
+    # steps launched back to back per block (one index copy, one event
+    # each). None = auto: 1 on the cpu; on the card the largest k <= 1024
+    # dividing the eval/checkpoint/fail-at cadence.
+    steps_per_call: Optional[int] = None
+    # blocks in flight before the host waits for the oldest. None = auto:
+    # 1 on the cpu, 16 on the card.
+    max_inflight: Optional[int] = None
+    # microbatches per optimizer step
+    grad_accum: int = 1
+    # checkpointing
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 500     # steps between async saves
+    resume: bool = True             # restore the latest checkpoint if present
+    eval_only: bool = False         # restore + evaluate, no training
+    # on SIGTERM stop at the next block boundary and force-save a
+    # resumable checkpoint (only with a checkpoint_dir)
+    graceful_preemption: bool = True
+    fail_at_step: Optional[int] = None   # fault injection (SimulatedFailure)
+    log_every: int = 100
     # The dynamic batcher's knobs: max_batch bounds rows per dispatch
     # (and the engine's top bucket); max_wait_us bounds how long the
     # oldest queued request waits for coalescing; queue_depth is the
@@ -44,12 +84,62 @@ class Config:
         return dataclasses.replace(self, **kw)
 
 
+# BASELINE.json configs 1 and 2, with the JAX package's published values
+PRESETS: dict[str, Config] = {
+    # config 1: single-process 2-layer MLP (784-128-10), SGD, batch 64
+    "mlp-sgd": Config(model="mlp", optimizer="sgd", learning_rate=0.1,
+                      batch_size=64),
+    # config 2: single-process LeNet-5, Adam
+    "lenet-adam": Config(model="lenet", optimizer="adam",
+                         learning_rate=1e-3, batch_size=128),
+}
+
+
 def add_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    p.add_argument("--preset", choices=sorted(PRESETS), default=None,
+                   help="named workload preset (BASELINE.json configs 1-2)")
     p.add_argument("--model", choices=["mlp", "lenet"], default=None)
+    p.add_argument("--optimizer", choices=["sgd", "adam"], default=None)
+    p.add_argument("--learning-rate", type=float, default=None)
+    p.add_argument("--momentum", type=float, default=None)
+    p.add_argument("--lr-schedule",
+                   choices=["constant", "cosine", "warmup-cosine"],
+                   default=None)
+    p.add_argument("--warmup-steps", type=int, default=None)
+    p.add_argument("--lr-decay-steps", type=int, default=None,
+                   help="pin the cosine decay horizon (steps); default "
+                        "is the run's own total step count")
+    p.add_argument("--data-dir", default=None)
+    p.add_argument("--synthetic", action="store_true", default=None)
+    p.add_argument("--pixel-format", choices=["packed", "u8"],
+                   default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--steps", type=int, default=None)
+    p.add_argument("--eval-every", type=int, default=None)
+    p.add_argument("--target-accuracy", type=float, default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--device", choices=["cuda", "cpu"], default=None,
                    help="where the port runs (default cuda; cpu only "
                         "when asked)")
+    p.add_argument("--steps-per-call", type=int, default=None)
+    p.add_argument("--max-inflight", type=int, default=None)
+    p.add_argument("--grad-accum", type=int, default=None,
+                   help="microbatches accumulated per optimizer step")
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=None)
+    p.add_argument("--no-resume", dest="resume", action="store_false",
+                   default=None)
+    p.add_argument("--no-graceful-preemption", dest="graceful_preemption",
+                   action="store_false", default=None,
+                   help="don't catch SIGTERM to force-save a checkpoint "
+                        "before exiting")
+    p.add_argument("--eval-only", dest="eval_only", action="store_true",
+                   default=None,
+                   help="restore from --checkpoint-dir and evaluate; "
+                        "no training steps")
+    p.add_argument("--fail-at-step", type=int, default=None)
+    p.add_argument("--log-every", type=int, default=None)
     p.add_argument("--serve-max-batch", type=int, default=None,
                    help="max rows per inference dispatch (also the "
                         "engine's top bucket)")
@@ -78,9 +168,11 @@ def add_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
 
 
 def from_args(args: argparse.Namespace) -> Config:
+    preset = getattr(args, "preset", None)
+    cfg = PRESETS[preset] if preset else Config()
     overrides = {}
     for f in dataclasses.fields(Config):
         v = getattr(args, f.name, None)
         if v is not None:
             overrides[f.name] = v
-    return Config().replace(**overrides)
+    return cfg.replace(**overrides)

@@ -1,9 +1,17 @@
-"""Deterministic synthetic MNIST — a copy of the JAX package's
-data/mnist.py::synthetic_mnist. Its arrays must be byte-identical to that
-function's for the same seed: the registry's parity batch and the int8
-calibration batch are built from it."""
+"""MNIST loading — the port of distributedmnist_tpu/data/mnist.py: the
+IDX and npz readers and `load_mnist`, plus a copy of `synthetic_mnist`,
+whose arrays must be byte-identical to the JAX package's for the same
+seed (the registry's parity batch, the int8 calibration batch and the
+trainer's synthetic data are built from it). The IDX reader is the
+Python parser only; the JAX package's optional C++ reader (data/native)
+is not ported."""
 
 from __future__ import annotations
+
+import gzip
+import os
+import struct
+from typing import Optional
 
 import numpy as np
 
@@ -11,6 +19,62 @@ TRAIN_N = 60_000
 TEST_N = 10_000
 IMG_SHAPE = (28, 28, 1)
 NUM_CLASSES = 10
+
+# Canonical IDX filenames (either raw or .gz).
+_IDX_FILES = {
+    "train_x": "train-images-idx3-ubyte",
+    "train_y": "train-labels-idx1-ubyte",
+    "test_x": "t10k-images-idx3-ubyte",
+    "test_y": "t10k-labels-idx1-ubyte",
+}
+
+
+def _read_idx(path: str) -> np.ndarray:
+    """Parse an IDX file (the MNIST distribution format), raw or
+    gzipped."""
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        magic = struct.unpack(">I", f.read(4))[0]
+        dtype_code = (magic >> 8) & 0xFF
+        ndim = magic & 0xFF
+        if dtype_code != 0x08:  # unsigned byte — the only type MNIST uses
+            raise ValueError(
+                f"{path}: unsupported IDX dtype 0x{dtype_code:02x}")
+        dims = struct.unpack(f">{ndim}I", f.read(4 * ndim))
+        data = np.frombuffer(f.read(), dtype=np.uint8)
+        return data.reshape(dims)
+
+
+def _find(data_dir: str, base: str) -> Optional[str]:
+    for name in (base, base + ".gz"):
+        p = os.path.join(data_dir, name)
+        if os.path.exists(p):
+            return p
+    return None
+
+
+def _load_idx_dir(data_dir: str) -> Optional[dict]:
+    paths = {k: _find(data_dir, v) for k, v in _IDX_FILES.items()}
+    if not all(paths.values()):
+        return None
+    out = {k: _read_idx(p) for k, p in paths.items()}
+    out["train_x"] = out["train_x"].reshape(-1, *IMG_SHAPE)
+    out["test_x"] = out["test_x"].reshape(-1, *IMG_SHAPE)
+    return out
+
+
+def _load_npz(data_dir: str) -> Optional[dict]:
+    """keras-style mnist.npz: arrays x_train, y_train, x_test, y_test."""
+    p = os.path.join(data_dir, "mnist.npz")
+    if not os.path.exists(p):
+        return None
+    with np.load(p) as z:
+        return {
+            "train_x": z["x_train"].astype(np.uint8).reshape(-1, *IMG_SHAPE),
+            "train_y": z["y_train"].astype(np.int32),
+            "test_x": z["x_test"].astype(np.uint8).reshape(-1, *IMG_SHAPE),
+            "test_y": z["y_test"].astype(np.int32),
+        }
 
 
 def synthetic_mnist(seed: int = 0, train_n: int = TRAIN_N,
@@ -54,3 +118,23 @@ def synthetic_mnist(seed: int = 0, train_n: int = TRAIN_N,
     test_x, test_y = make(test_n, np.random.default_rng(seed + 2))
     return {"train_x": train_x, "train_y": train_y,
             "test_x": test_x, "test_y": test_y, "source": "synthetic"}
+
+
+def load_mnist(data_dir: Optional[str] = None, synthetic: bool = False,
+               seed: int = 0) -> dict:
+    """MNIST as uint8 images (N, 28, 28, 1) and int32 labels.
+
+    Order of preference: IDX files in data_dir, mnist.npz in data_dir,
+    then synthetic_mnist(seed). The dict's "source" key says which
+    ("real" or "synthetic")."""
+    if not synthetic and data_dir:
+        for fn in (_load_idx_dir, _load_npz):
+            out = fn(data_dir)
+            if out is not None:
+                out["train_y"] = out["train_y"].astype(np.int32)
+                out["test_y"] = out["test_y"].astype(np.int32)
+                out["source"] = "real"
+                return out
+        raise FileNotFoundError(
+            f"no MNIST IDX files or mnist.npz under {data_dir!r}")
+    return synthetic_mnist(seed=seed)

@@ -1,7 +1,7 @@
 """Carry weights from the JAX package to the port.
 
-A flax MLP param tree, given as numpy arrays (or anything np.asarray
-takes), becomes the port's parameter dict. Both of the JAX MLP's layouts
+A flax MLP or LeNet-5 param tree, given as numpy arrays (or anything
+np.asarray takes), becomes the port's parameter dict (a state_dict). Both of the JAX MLP's layouts
 are accepted: the nn.Dense tree {'hidden': {'kernel', 'bias'}} and the
 fused-kernel leaves {'hidden_kernel', 'hidden_bias'} (the same rule as
 the JAX package's serve/quantize.py::_mlp_weights). A flax dense kernel
@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from distributedmnist_tpu_torch.models.lenet import LAYERS
 
 
 def mlp_params_from_flax(params) -> dict:
@@ -26,3 +28,11 @@ def mlp_params_from_flax(params) -> dict:
            "logits_bias": params["logits"]["bias"]}
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in out.items()}
+
+
+def lenet_params_from_flax(params) -> dict:
+    """{conv1.kernel, conv1.bias, ..., logits.bias} float32 CPU tensors
+    from a flax LeNet5 param tree."""
+    return {f"{name}.{leaf}": torch.from_numpy(
+                np.array(params[name][leaf], dtype=np.float32))
+            for name, _, _ in LAYERS for leaf in ("kernel", "bias")}

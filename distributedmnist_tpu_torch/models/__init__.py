@@ -1,17 +1,15 @@
 import torch
 
+from distributedmnist_tpu_torch.models.lenet import LeNet5  # noqa: F401
 from distributedmnist_tpu_torch.models.mlp import MLP  # noqa: F401
 
 
 def build(name: str, device=None):
-    """The port's model factory. Only the MLP is ported: LeNet-5 serving
-    (ops/conv.py and LeNet's bf16/int8 dense stacks) is still queued."""
+    """The port's model factory: the 784-128-10 MLP or LeNet-5."""
     if name == "mlp":
         return MLP(device=device)
     if name == "lenet":
-        raise NotImplementedError(
-            "LeNet-5 is not ported to PyTorch yet: it is queued in "
-            "ROADMAP.md ('Modules to port'); serve --model mlp")
+        return LeNet5(device=device)
     raise ValueError(f"unknown model {name!r} (expected mlp|lenet)")
 
 

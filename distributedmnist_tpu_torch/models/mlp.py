@@ -28,9 +28,10 @@ PARAM_NAMES = ("hidden_kernel", "hidden_bias", "logits_kernel",
 
 
 def lecun_normal_(t: torch.Tensor, generator: torch.Generator) -> None:
-    """flax.linen.initializers.lecun_normal for a dense (in, out) kernel:
-    truncated normal (±2 std) with variance 1/fan_in."""
-    std = math.sqrt(1.0 / t.shape[0]) / _TRUNC_STD
+    """flax.linen.initializers.lecun_normal for a dense (in, out) or conv
+    (kh, kw, cin, out) kernel: truncated normal (±2 std) with variance
+    1/fan_in, fan_in being the product of all but the last dim."""
+    std = math.sqrt(1.0 / math.prod(t.shape[:-1])) / _TRUNC_STD
     nn.init.trunc_normal_(t, mean=0.0, std=std, a=-2.0 * std, b=2.0 * std,
                           generator=generator)
 

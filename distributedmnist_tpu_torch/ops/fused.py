@@ -109,7 +109,9 @@ class DenseReLU(torch.autograd.Function):
     def backward(ctx, g):
         x, w, y = ctx.saved_tensors
         g = torch.where(y > 0, g, torch.zeros_like(g)).float()
-        dx = (g @ w.float().T).to(x.dtype)
+        # a training step's x is data, which needs no gradient
+        dx = ((g @ w.float().T).to(x.dtype) if ctx.needs_input_grad[0]
+              else None)
         dw = (x.float().T @ g).to(w.dtype)
         db = g.sum(dim=0).to(w.dtype)
         return dx, dw, db

@@ -391,7 +391,12 @@ def build_serving(cfg):
     is 'cpu'."""
     from distributedmnist_tpu_torch import models
 
-    models.build(cfg.model, device="cpu")   # refuses unported models now
+    if cfg.model != "mlp":
+        models.build(cfg.model, device="cpu")   # refuses unknown names
+        raise NotImplementedError(
+            f"serving {cfg.model!r} is not ported to PyTorch yet: LeNet "
+            "serving is queued in ROADMAP.md ('Modules to port'); serve "
+            "--model mlp")
     factory = EngineFactory(cfg.model, device=cfg.device,
                             max_batch=cfg.serve_max_batch)
     router = factory.make_router()

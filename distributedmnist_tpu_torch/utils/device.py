@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -18,3 +20,21 @@ def resolve_device(name) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {name!r} (expected cuda|cpu)")
     return dev
+
+
+@contextlib.contextmanager
+def float32_numerics():
+    """Run the block with TF32 off for matmuls and cuDNN convolutions, so
+    that float32 on the card is float32 as on the CPU (cuDNN's default
+    is TF32, about three decimal digits), and restore both settings
+    after. The settings are process-wide: a backward pass run inside the
+    block sees them too."""
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    conv = torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+        torch.backends.cudnn.allow_tf32 = conv

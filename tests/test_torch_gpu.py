@@ -1,10 +1,14 @@
 """The PyTorch port's hand-written CUDA kernels against their plain
 PyTorch versions, on the card: at the serving path's shapes (buckets 1,
-7, 128 and 512), at the ragged K slices of the split-K kernels and at
+7, 128 and 512), at the training path's (a step's 64 rows, an eval
+batch's 2048), at the ragged K slices of the split-K kernels and at
 LeNet's dense and int8 dense shapes, at rows that do not start on a
 16-byte boundary, at quant_dense's largest accumulator, and two calls on
-the same inputs bit for bit. Every
-test is marked `gpu` and skips without a card.
+the same inputs bit for bit. Then the training path: the pixel decode
+bit for bit against the CPU's, an MLP training step through the kernel
+against the same step through the plain version, and a LeNet step on the
+card against the same step on the CPU. Every test is marked `gpu` and
+skips without a card.
 
 This file imports no jax (the card's machine has none), and
 tests/conftest.py does, so on the card run it without the conftest:
@@ -16,14 +20,24 @@ product sums in another order; TF32 is off), the megakernel's atol times
 the logits' scale where it exceeds 1 (its sums are of raw pixels, which
 run to 255); bfloat16 rtol=2e-2 and atol=2e-2 times the output scale
 (one bf16 rounding is 2**-8 relative); int8 rtol=1e-6, atol=0 (exact
-int32 products, epilogues rounded alike).
+int32 products, epilogues rounded alike). Training steps: the MLP's
+loss rtol=1e-4 and params atol=1e-4 after 5 SGD steps (chip_smoke.py's
+tolerance); LeNet's loss rtol=1e-5 and gradients atol=1e-4 times their
+scale (cuDNN's and the CPU's convolutions sum in other orders, by
+algorithms of cuDNN's choosing, TF32 off), params atol=2*lr after its Adam step (Adam moves a weight whose
+gradient is a rounding residue by up to lr).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from distributedmnist_tpu_torch import models, optim, trainer
+from distributedmnist_tpu_torch.data import mnist, packing
+from distributedmnist_tpu_torch.models.mlp import MLP
 from distributedmnist_tpu_torch.ops import fused
+from distributedmnist_tpu_torch.ops.loss import cross_entropy
+from distributedmnist_tpu_torch.utils.device import float32_numerics
 
 K, HIDDEN, CLASSES = 784, 128, 10
 
@@ -249,3 +263,100 @@ def test_split_k_kernels_deterministic_on_card(kernel, m):
     first, second = fn(*args), fn(*args)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+# -- the training path --------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", (64, 2048))
+def test_dense_relu_training_shapes_on_card(m):
+    """A config-1 step's batch (64) and an eval batch (2048), f32."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, w, b = _cuda(*_dense_inputs(m, K, HIDDEN, seed=m + 7))
+    x = (x.abs() / 4).clamp(max=1.0).contiguous()     # pixel-like inputs
+    before = fused.LAUNCHES["dense_relu"]
+    _check_dense(x, w, b)
+    assert fused.LAUNCHES["dense_relu"] == before + 1
+
+
+@pytest.mark.gpu
+def test_pixel_decode_on_card_is_bit_identical():
+    _need_card()
+    x = mnist.synthetic_mnist(seed=0, train_n=16, test_n=64)["test_x"]
+    words = packing.pack_rows(x)
+    for fn, a in ((packing.normalize, x), (packing.unpack_rows, words)):
+        got = fn(_t(a).cuda()).cpu()
+        assert torch.equal(got.view(torch.int32),
+                           fn(_t(a)).view(torch.int32))
+
+
+class _PlainMLP(MLP):
+    """The port's MLP with its hidden layer through the plain version of
+    dense_relu (autograd's own backward) instead of the kernel."""
+
+    def forward(self, x):
+        x = x.reshape(x.shape[0], -1).to(torch.float32)
+        h = fused.dense_relu_reference(x, self.hidden_kernel,
+                                       self.hidden_bias)
+        return h @ self.logits_kernel + self.logits_bias
+
+
+def _steps(net, name, lr, data, idx, pixel_format="packed"):
+    opt, sched = optim.build(name, net.parameters(), optim.make_schedule(lr))
+    step = trainer.make_train_step(net, opt, sched, pixel_format)
+    dev = next(net.parameters()).device
+    x = _t(packing.pack_rows(data["train_x"]) if pixel_format == "packed"
+           else data["train_x"]).to(dev)
+    y = _t(data["train_y"]).long().to(dev)
+    losses = [float(step(x, y, _t(i).long().to(dev))) for i in idx]
+    return losses, {k: v.detach().cpu() for k, v in net.state_dict().items()}
+
+
+@pytest.mark.gpu
+def test_mlp_training_step_kernel_against_plain_on_card():
+    _need_card()
+    data = mnist.synthetic_mnist(seed=1, train_n=1024, test_n=16)
+    idx = np.random.default_rng(0).integers(0, 1024, (5, 64))
+    runs = []
+    with float32_numerics():
+        for net in (models.build("mlp", device="cuda"),
+                    _PlainMLP(device="cuda")):
+            net.load_state_dict(models.init_params("mlp", 0))
+            before = fused.LAUNCHES["dense_relu"]
+            runs.append(_steps(net, "sgd", 0.02, data, idx))
+            launched = fused.LAUNCHES["dense_relu"] - before
+            assert launched == (0 if isinstance(net, _PlainMLP) else 5)
+    (lk, pk), (lp, pp) = runs
+    np.testing.assert_allclose(lk, lp, rtol=1e-4)
+    for k in pp:
+        torch.testing.assert_close(pk[k], pp[k], rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_lenet_training_step_on_card_against_cpu():
+    _need_card()
+    data = mnist.synthetic_mnist(seed=1, train_n=1024, test_n=16)
+    idx = np.random.default_rng(0).integers(0, 1024, (1, 128))
+    x = packing.unpack_rows(_t(packing.pack_rows(data["train_x"]))[idx[0]])
+    y = _t(data["train_y"]).long()[idx[0]]
+    grads, runs = [], []
+    with float32_numerics():
+        for dev in ("cuda", "cpu"):
+            net = models.build("lenet", device=dev)
+            net.load_state_dict(models.init_params("lenet", 0))
+            loss = cross_entropy(net(x.to(dev)), y.to(dev))
+            loss.backward()
+            grads.append((float(loss), {k: p.grad.cpu() for k, p in
+                                        net.named_parameters()}))
+            net.zero_grad()
+            runs.append(_steps(net, "adam", 1e-3, data, idx))
+    (lc, gc), (lh, gh) = grads
+    assert abs(lc - lh) <= 1e-5 * abs(lh)
+    for k in gh:
+        scale = max(1e-3, float(gh[k].abs().max()))
+        torch.testing.assert_close(gc[k], gh[k], rtol=0, atol=1e-4 * scale)
+    for k in runs[1][1]:
+        torch.testing.assert_close(runs[0][1][k], runs[1][1][k], rtol=0,
+                                   atol=2e-3)

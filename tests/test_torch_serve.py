@@ -468,9 +468,9 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     assert factory.device == torch.device("cpu")
 
 
-def test_lenet_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        models.build("lenet")
+def test_lenet_builds_but_is_not_served_yet():
+    net = models.build("lenet", device="cpu")
+    assert sum(p.numel() for p in net.parameters()) == 61_706
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_serving(tconfig.Config(model="lenet", device="cpu"))
 
