@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's MLP serving path and its training path on one
-CUDA card.
+"""Drive the PyTorch port's MLP serving path, its training path and its
+LeNet-5 serving path on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -29,10 +29,25 @@ CUDA card.
 4. Drives the training path through trainer.fit, with every launch
    count set to 0 first, on full-size synthetic MNIST (60,000/10,000):
    config 1 (MLP, SGD, batch 64) for 2000 steps and config 2 (LeNet-5,
-   Adam, batch 128) for 1000, each held to a test-accuracy floor from
+   Adam, batch 128) for its 10 epochs (4680 steps), committing
+   checkpoints every 1000 steps into a temporary directory, each held to a test-accuracy floor from
    the CPU run of the same recipe; then a run killed by the fault hook
    and resumed from its checkpoint.
-5. Prints a `kernels` JSON line (launches on both paths, error, times,
+5. Holds the kernels at LeNet's serving shapes (dense_relu bf16 400->120
+   and 120->84, quant_dense 400->120, 120->84 and 84->10, buckets 1, 7,
+   128 and 512) against their plain versions on the trained weights'
+   activations, int8 exact, timed as in 2, and times LeNet's forward per
+   precision and bucket.
+6. Drives LeNet serving through the port's entry points, with every
+   launch count set to 0 first: bootstrap from config 2's checkpoint
+   (TF32 turned on before, which the engine must turn off), the float32
+   engine against the same params' CPU engine at every bucket, the
+   bfloat16 and int8 variants activated through the parity gate (a
+   refusal fails the run), two selftest bursts of 256 requests per
+   precision through the dynamic batcher, then the lifecycle: the trainer commits a later
+   step, the registry loads and promotes it, rolls back from it, and the
+   first version must be live again with the rollback event recorded.
+7. Prints a `kernels` JSON line (launches on each path, error, times,
    bound) and, last, {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero before the last line. Without a
@@ -42,11 +57,13 @@ nonzero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12
@@ -71,11 +88,44 @@ SPLIT_K_KERNELS = ("dense_relu", "mlp_megakernel", "quant_dense")
 # distributedmnist_tpu_torch.train --device cpu --synthetic --preset
 # mlp-sgd --learning-rate 0.02 --steps 2000 --eval-every 500`: 0.9582 /
 # 0.9663 / 0.9789 / 0.9732 at the four evals; `--preset lenet-adam
-# --steps 1000 --eval-every 500`: 0.9867 / 0.9931), by the margin a
+# --eval-every 1000 --seed 709 --target-accuracy 1.0`, its 10 epochs:
+# 0.9917 / 0.9965 / 0.9980 / 0.9957 / 0.9966), by the margin a
 # trajectory summed in another order may drift.
-TRAIN_STEPS = {"mlp-sgd": 2000, "lenet-adam": 1000}
+# config 2 runs its published 10 epochs (60,000 / 128 = 468 steps each)
+TRAIN_STEPS = {"mlp-sgd": 2000, "lenet-adam": 4680}
 EVAL_EVERY = 500
 ACCURACY_FLOOR = {"mlp-sgd": 0.95, "lenet-adam": 0.98}
+# Config 2 trains on the parity batch's synthetic distribution (seed 709,
+# data and init) for its full 10 epochs, with cuDNN's deterministic
+# algorithms, and its checkpoint is what LeNet serving boots from. Cut
+# short, a trained LeNet keeps a near-tie row on the parity batch (an
+# ambiguous image whose top-2 margin is about the int8 variant's logit
+# error), and the int8 gate refuses it: 2 of 7 checkpoints of 1000 steps
+# through the CLIs on the card. Determinism makes the checkpoint, and
+# the gates' verdict on it, the same in every run on the same card and
+# software.
+# Synthetic templates are drawn per seed: a LeNet trained on seed 0's
+# templates has near-tie logits on the held-out parity batch (seed 709's),
+# where rounding flips argmaxes and the gates rightly refuse a variant
+# (config 2 on seed 0 through the CLIs on the CPU, `train --preset
+# lenet-adam --synthetic --steps 1000` then `serve --model lenet
+# --serve-infer-dtype int8`: int8 refused at argmax agreement 0.9922).
+LENET_SEED = 709
+LENET_CHECKPOINT_EVERY = 1000
+# steps the trainer adds to config 2's run while LeNet is served: the
+# later checkpoint the registry loads, promotes and rolls back from
+LIFECYCLE_STEPS = 200
+SELFTEST_REQUESTS = 256
+# The serving phases' backpressure watermark in pending rows: a selftest
+# burst of 256 requests of up to 31 rows (at most 7936 rows) fits under
+# it, so no request is refused at the door and the burst measures the
+# serving path. The default, 4096, refuses a few whenever a burst is
+# submitted faster than it is served.
+SELFTEST_QUEUE_DEPTH = 8192
+# the LeNet float32 engine on the card against the CPU's, times the
+# logits' scale: cuDNN sums in other orders, TF32 off (TF32 would be
+# about 1e-3)
+LENET_F32_TOL = 1e-4
 # Config 1 runs at lr 0.02, not its preset's 0.1: at 0.1 with momentum
 # 0.9 the MLP all but dies on synthetic MNIST in both packages (its CPU
 # run read 0.1012 at step 500 and 0.2661 at step 2000; the JAX package's
@@ -252,6 +302,61 @@ def kernel_cases(params: dict, images):
                dict(rtol=1e-5, atol=1e-5))
 
 
+def lenet_kernel_cases(params: dict, images):
+    """The kernel cases of LeNet's serving path, the same tuple as
+    kernel_cases: dense_relu bf16 at fc1 and fc2 and quant_dense at fc1,
+    fc2 and logits, each on the activations the variant's own forward
+    feeds it (serve/quantize.py) from `params` and uint8 `images`."""
+    import torch
+
+    from distributedmnist_tpu_torch.ops import fused
+    from distributedmnist_tpu_torch.serve.quantize import (
+        lenet_trunk, prepare_inference, quantize_act_static)
+
+    dev = torch.device("cuda")
+    bf16 = {k: v.to(dev) for k, v in
+            prepare_inference("lenet", params, "bfloat16")[0].items()}
+    q8 = {k: v.to(dev) for k, v in
+          prepare_inference("lenet", params, "int8")[0].items()}
+    bf16_tol = dict(rtol=1e-2, atol=1e-2)   # one bf16 rounding, 2**-8
+    exact = dict(rtol=0.0, atol=0.0)        # exact int32, same epilogue
+    for m in BUCKETS:
+        u8 = torch.from_numpy(images[:m]).to(dev)
+        with torch.no_grad():
+            xb = lenet_trunk(bf16, u8.to(torch.bfloat16))
+            xf = lenet_trunk(q8, u8.float())
+        h = xb
+        for n, (k, c) in (("fc1", (400, 120)), ("fc2", (120, 84))):
+            w, b = bf16[f"{n}.kernel"], bf16[f"{n}.bias"]
+            yield ("dense_relu", f"lenet {n} bf16 {k}->{c} b={m}",
+                   "bfloat16",
+                   lambda x=h, w=w, b=b: fused.dense_relu_inference(x, w, b),
+                   lambda x=h, w=w, b=b: fused.dense_relu_reference(x, w, b),
+                   lambda x=h, w=w, b=b: torch.relu(torch.addmm(b, x, w)),
+                   2 * (m * k + k * c + c + m * c), 2 * m * k * c + 2 * m * c,
+                   bf16_tol)
+            h = fused.dense_relu_reference(h, w, b)
+        h = xf
+        for n, (k, c) in (("fc1", (400, 120)), ("fc2", (120, 84)),
+                          ("logits", (84, 10))):
+            relu = n != "logits"
+            xq = quantize_act_static(h, q8[f"{n}.act_scale"])
+            w, s, b = q8[f"{n}.q"], q8[f"{n}.scale"], q8[f"{n}.bias"]
+            # torch._int_mm needs m > 16 and n % 8 == 0: fc1 only
+            library = ((lambda x=xq, w=w, s=s, b=b: torch.relu(
+                torch._int_mm(x, w).float() * s + b))
+                if m > 16 and c % 8 == 0 else None)
+            yield ("quant_dense", f"lenet {n} {k}->{c} b={m}", "int8",
+                   lambda x=xq, w=w, s=s, b=b, r=relu: fused.quant_dense(
+                       x, w, s, b, relu=r),
+                   lambda x=xq, w=w, s=s, b=b, r=relu:
+                   fused.quant_dense_reference(x, w, s, b, relu=r),
+                   library,
+                   m * k + k * c + 8 * c + 4 * m * c,
+                   2 * m * k * c + (3 if relu else 2) * m * c, exact)
+            h = fused.quant_dense_reference(xq, w, s, b, relu=relu)
+
+
 def training_cases(data):
     """dense_relu f32 at the training path's shapes, on its inputs: the
     fresh MLP of the training run, a step's decoded batch (64 rows) and
@@ -317,10 +422,10 @@ def check_kernels(cases) -> list:
     return records
 
 
-def time_forwards(params: dict, images) -> None:
-    """Print the device time and time per call of each serving variant's
-    whole forward (uint8 pixels on the card -> float32 logits), per
-    bucket."""
+def time_forwards(model: str, params: dict, images, variants) -> None:
+    """Print the device time and time per call of each of `model`'s
+    serving variants' whole forward (uint8 pixels on the card -> float32
+    logits), per bucket."""
     import torch
 
     from distributedmnist_tpu_torch import models
@@ -328,14 +433,14 @@ def time_forwards(params: dict, images) -> None:
 
     dev = torch.device("cuda")
     forwards = {}
-    for dt in ("float32", "bfloat16", "int8", "megakernel"):
+    for dt in variants:
         if dt == "float32":
-            net = models.build("mlp", device=dev)
+            net = models.build(model, device=dev)
             net.load_state_dict({k: v.to(dev) for k, v in params.items()})
             net.eval()
             forwards[dt] = lambda x, net=net: net(x.to(torch.float32) / 255.0)
         else:
-            prep, fwd = prepare_inference("mlp", params, dt)
+            prep, fwd = prepare_inference(model, params, dt)
             prep = {k: v.to(dev) for k, v in prep.items()}
             forwards[dt] = lambda x, prep=prep, fwd=fwd: fwd(prep, x)
     with torch.inference_mode():
@@ -343,7 +448,8 @@ def time_forwards(params: dict, images) -> None:
             x = torch.from_numpy(images[:m].reshape(m, 28, 28, 1)).to(dev)
             for dt, fwd in forwards.items():
                 print("forward " + json.dumps({
-                    "variant": dt, "b": m, "ms": graph_ms(lambda: fwd(x)),
+                    "model": model, "variant": dt, "b": m,
+                    "ms": graph_ms(lambda: fwd(x)),
                     "call_ms": cuda_ms(lambda: fwd(x))}), flush=True)
 
 
@@ -406,9 +512,35 @@ def compare_training_step(data) -> dict:
     return rec
 
 
-def drive_training_path(data) -> dict:
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms for the block."""
+    import torch
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def lenet_recipe(checkpoint_dir: str):
+    """Config 2 as chip_smoke trains it: on the parity batch's synthetic
+    distribution, committing checkpoints into `checkpoint_dir`."""
+    from distributedmnist_tpu_torch.config import PRESETS
+
+    return PRESETS["lenet-adam"].replace(
+        synthetic=True, steps=TRAIN_STEPS["lenet-adam"],
+        eval_every=EVAL_EVERY, seed=LENET_SEED, target_accuracy=None,
+        device="cuda", checkpoint_dir=checkpoint_dir,
+        checkpoint_every=LENET_CHECKPOINT_EVERY)
+
+
+def drive_training_path(data, lenet_data, lenet_checkpoint_dir) -> dict:
     """The port's training path, through trainer.fit, on the card: the two
-    single-card recipes on full-size synthetic MNIST, then the
+    single-card recipes on full-size synthetic MNIST (config 2's
+    checkpoints committed into `lenet_checkpoint_dir`), then the
     checkpoint's kill/resume round trip."""
     import tempfile
 
@@ -419,16 +551,18 @@ def drive_training_path(data) -> dict:
     from distributedmnist_tpu_torch.ops import fused
 
     recipes = {
-        "mlp-sgd": PRESETS["mlp-sgd"].replace(learning_rate=MLP_LR),
-        "lenet-adam": PRESETS["lenet-adam"]}
+        "mlp-sgd": (PRESETS["mlp-sgd"].replace(
+            learning_rate=MLP_LR, synthetic=True, steps=TRAIN_STEPS[
+                "mlp-sgd"], eval_every=EVAL_EVERY, seed=SEED,
+            target_accuracy=None, device="cuda"), data),
+        "lenet-adam": (lenet_recipe(lenet_checkpoint_dir), lenet_data)}
     eval_batches = -(-len(data["test_y"]) // 2048)
     phases = {}
-    for name, preset in recipes.items():
-        cfg = preset.replace(synthetic=True, steps=TRAIN_STEPS[name],
-                             eval_every=EVAL_EVERY, seed=SEED,
-                             target_accuracy=None, device="cuda")
+    for name, (cfg, recipe_data) in recipes.items():
         before = fused.LAUNCHES["dense_relu"]
-        out = trainer.fit(cfg, data=data)
+        with (deterministic_cudnn() if cfg.model == "lenet"
+              else contextlib.nullcontext()):
+            out = trainer.fit(cfg, data=recipe_data)
         launched = fused.LAUNCHES["dense_relu"] - before
         keep = ("images_per_sec", "step_ms", "test_accuracy",
                 "wall_clock_s", "elapsed_s", "steps_timed", "steps",
@@ -458,9 +592,8 @@ def drive_training_path(data) -> dict:
                     f"{out['n_evals']} x {eval_batches} eval batches")
 
     # kill at step 200 through the fault hook, then resume to 300
-    cfg = recipes["mlp-sgd"].replace(
-        synthetic=True, steps=300, eval_every=300, checkpoint_every=100,
-        seed=SEED, target_accuracy=None, device="cuda")
+    cfg = recipes["mlp-sgd"][0].replace(steps=300, eval_every=300,
+                                        checkpoint_every=100)
     with tempfile.TemporaryDirectory() as d:
         failed = False
         try:
@@ -498,7 +631,8 @@ def drive_serving_path(params: dict) -> dict:
     from distributedmnist_tpu_torch.serve.quantize import PARITY_SEED
     from distributedmnist_tpu_torch.utils import logit_parity, parity_check
 
-    cfg = Config(model="mlp", device="cuda", seed=SEED)
+    cfg = Config(model="mlp", device="cuda", seed=SEED,
+                 serve_queue_depth=SELFTEST_QUEUE_DEPTH)
     metrics = ServeMetrics()
     registry, router, factory = build_serving(cfg)
     batcher = DynamicBatcher(router, max_batch=cfg.serve_max_batch,
@@ -577,6 +711,166 @@ def drive_serving_path(params: dict) -> dict:
     return phases
 
 
+def drive_lenet_serving_path(checkpoint_dir: str, lenet_data) -> dict:
+    """LeNet serving through the port's entry points, on the card, booted
+    from the checkpoint config 2's training committed."""
+    import numpy as np
+    import torch
+
+    from distributedmnist_tpu_torch import checkpoint, trainer
+    from distributedmnist_tpu_torch.config import Config
+    from distributedmnist_tpu_torch.data import synthetic_mnist
+    from distributedmnist_tpu_torch.ops import fused
+    from distributedmnist_tpu_torch.serve import (PARITY_GATES,
+                                                  DynamicBatcher,
+                                                  InferenceEngine,
+                                                  ServeMetrics,
+                                                  build_serving)
+    from distributedmnist_tpu_torch.serve.__main__ import selftest
+    from distributedmnist_tpu_torch.serve.quantize import PARITY_SEED
+    from distributedmnist_tpu_torch.utils import logit_parity, parity_check
+
+    # the engine must turn TF32 off itself: the float32 engine is the
+    # reference of both parity gates
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    cfg = Config(model="lenet", device="cuda", seed=SEED,
+                 checkpoint_dir=checkpoint_dir,
+                 serve_queue_depth=SELFTEST_QUEUE_DEPTH)
+    metrics = ServeMetrics()
+    registry, router, factory = build_serving(cfg)
+    batcher = DynamicBatcher(router, max_batch=cfg.serve_max_batch,
+                             max_wait_us=cfg.serve_max_wait_us,
+                             queue_depth=cfg.serve_queue_depth,
+                             metrics=metrics).start()
+    phases = {}
+    try:
+        t0 = time.perf_counter()
+        first = registry.bootstrap()
+        boot_s = time.perf_counter() - t0
+        if (first.source != f"checkpoint {checkpoint_dir}"
+                or first.step != TRAIN_STEPS["lenet-adam"]
+                or registry.live_version() != first.version):
+            raise RuntimeError(f"bootstrap did not serve config 2's last "
+                               f"checkpoint: {first.describe()}")
+        if (torch.backends.cudnn.allow_tf32
+                or torch.backends.cuda.matmul.allow_tf32):
+            raise RuntimeError("the serving engine left TF32 on")
+        params, _ = checkpoint.restore_latest_params(checkpoint_dir,
+                                                     step=first.step)
+
+        # the float32 engine on the card against the CPU's, every bucket,
+        # on held-out images of the distribution the weights were fit on
+        held = synthetic_mnist(seed=PARITY_SEED, train_n=16,
+                               test_n=factory.max_batch)["test_x"]
+        cpu = InferenceEngine("lenet", params, device="cpu",
+                              max_batch=factory.max_batch)
+        worst = 0.0
+        for b in factory.buckets:
+            got, want = first.engine.infer(held[:b]), cpu.infer(held[:b])
+            scale = max(1.0, float(np.abs(want).max()))
+            worst = max(worst, float(np.abs(got - want).max()) / scale)
+            np.testing.assert_allclose(got, want, rtol=0,
+                                       atol=LENET_F32_TOL * scale)
+        phases["f32_vs_cpu"] = {"buckets": list(factory.buckets),
+                                "max_abs_err_over_scale": worst,
+                                "tol": LENET_F32_TOL, "boot_s": boot_s}
+        print(f"lenet float32 on the card vs the CPU: max |err| / scale "
+              f"{worst:.3g} over buckets {list(factory.buckets)}, boot "
+              f"{boot_s:.2f}s", flush=True)
+
+        burst = held[:64]
+        for dt in ("float32", "bfloat16", "int8"):
+            rec = {}
+            if dt != "float32":
+                # a refusal raises ParityRefused and fails the run
+                registry.activate_infer_dtype(first.version, dt)
+                vi = registry.get(first.version).variants[dt]
+                rec["gate"] = {k: vi.parity[k] for k in
+                               ("argmax_agreement", "max_rel_logit_diff")}
+            if router.live_infer_dtype() != dt:
+                raise RuntimeError(f"{dt} is not live: "
+                                   f"{router.live_infer_dtype()}")
+            # two bursts: the first meets a new engine's staging pool
+            # empty (pinned buffers allocated), the second finds it warm
+            before = dict(fused.LAUNCHES)
+            for burst_name in ("cold", "warm"):
+                metrics.reset()
+                summary = selftest(batcher, metrics, SELFTEST_REQUESTS,
+                                   factory.max_batch)
+                if (summary["rejected_at_submit"]
+                        or summary["requests"] != SELFTEST_REQUESTS):
+                    raise RuntimeError(f"lenet {dt} selftest incomplete: "
+                                       f"{summary}")
+                rec[burst_name] = {k: summary[k] for k in (
+                    "requests", "batches", "requests_per_sec",
+                    "rows_per_sec", "latency_ms", "staging_ms")}
+            rec["launches"] = {k: fused.LAUNCHES[k] - before[k]
+                               for k in before}
+            futs = [batcher.submit(burst[i:i + 4])
+                    for i in range(0, 64, 4)]
+            out = np.concatenate([f.result(timeout=120) for f in futs])
+            if out.shape != (64, 10) or not np.all(np.isfinite(out)):
+                raise RuntimeError(f"lenet {dt}: bad logits {out.shape}")
+            if dt != "float32":
+                plain = InferenceEngine("lenet", params, device="cpu",
+                                        max_batch=64, infer_dtype=dt)
+                rep = parity_check(plain.infer(burst), out,
+                                   *PARITY_GATES[dt])
+                if not rep["passed"]:
+                    raise RuntimeError(f"lenet {dt} on the card vs its "
+                                       f"plain version: {rep['why']}")
+                rec["burst_vs_plain"] = {k: rep[k] for k in (
+                    "argmax_agreement", "max_abs_logit_diff")}
+                rec["burst_vs_f32"] = {
+                    k: v for k, v in logit_parity(cpu.infer(burst),
+                                                  out).items()
+                    if k in ("argmax_agreement", "max_rel_logit_diff")}
+            phases[dt] = rec
+            print(f"lenet {dt}: " + json.dumps(rec), flush=True)
+
+        # the lifecycle: training goes on and commits a later step (LeNet
+        # training launches none of the three kernels), the registry
+        # loads and promotes it, then rolls back from it
+        more = lenet_recipe(checkpoint_dir).replace(
+            steps=TRAIN_STEPS["lenet-adam"] + LIFECYCLE_STEPS)
+        with deterministic_cudnn():
+            trained = trainer.fit(more, data=lenet_data)
+        second = registry.load_latest()
+        if second.step != more.steps or second.version == first.version:
+            raise RuntimeError(f"load_latest did not load step "
+                               f"{more.steps}: {second.describe()}")
+        registry.promote(second.version)
+        if registry.live_version() != second.version:
+            raise RuntimeError(f"{second.version} is not live")
+        back = registry.rollback(second.version, "chip_smoke rollback")
+        event = registry.events()[-1]
+        if (back is None or back.version != first.version
+                or registry.live_version() != first.version
+                or router.live_infer_dtype() != "float32"
+                or event["event"] != "rollback"
+                or (event["from"], event["to"]) != (second.version,
+                                                   first.version)):
+            raise RuntimeError(f"rollback did not restore {first.version}: "
+                               f"{registry.describe()}")
+        check = first.engine.infer(burst[:8])
+        np.testing.assert_allclose(check, cpu.infer(burst[:8]), rtol=0,
+                                   atol=LENET_F32_TOL * max(
+                                       1.0, float(np.abs(check).max())))
+        phases["lifecycle"] = {
+            "first": first.version, "second": second.version,
+            "resumed_training_accuracy": trained["test_accuracy"],
+            "live_after_rollback": registry.live_version(),
+            "event": event,
+            "versions": {v["version"]: v["state"]
+                         for v in registry.describe()["versions"]}}
+        print("lenet lifecycle: " + json.dumps(phases["lifecycle"]),
+              flush=True)
+    finally:
+        batcher.stop()
+    return phases
+
+
 def main() -> int:
     import torch
 
@@ -588,6 +882,7 @@ def main() -> int:
     sys.path.insert(0, here)
     import numpy as np
 
+    from distributedmnist_tpu_torch import checkpoint
     from distributedmnist_tpu_torch.data import synthetic_mnist
     from distributedmnist_tpu_torch.ops import fused, kernel_lib
 
@@ -616,12 +911,15 @@ def main() -> int:
                              test_n=max(BUCKETS))["test_x"]
     t0 = time.perf_counter()
     data = synthetic_mnist(seed=SEED)      # full size: 60,000 / 10,000
+    lenet_data = synthetic_mnist(seed=LENET_SEED)
     print(f"synthetic MNIST {data['train_x'].shape[0]}/"
-          f"{data['test_x'].shape[0]} made in "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
+          f"{data['test_x'].shape[0]}, twice (seeds {SEED} and "
+          f"{LENET_SEED}), made in {time.perf_counter() - t0:.1f}s",
+          flush=True)
     records = check_kernels(itertools.chain(
         kernel_cases(params, np.asarray(images)), training_cases(data)))
-    time_forwards(params, np.asarray(images))
+    time_forwards("mlp", params, np.asarray(images),
+                  ("float32", "bfloat16", "int8", "megakernel"))
     compare_training_step(data)
 
     fused.reset_launches()
@@ -633,12 +931,31 @@ def main() -> int:
         raise RuntimeError(f"kernels never launched on the serving path: "
                            f"{missing}")
 
-    fused.reset_launches()
-    phases = drive_training_path(data)
-    launches["training"] = dict(fused.LAUNCHES)
-    print("train_phases " + json.dumps(phases), flush=True)
-    if launches["training"]["dense_relu"] <= 0:
-        raise RuntimeError("dense_relu never launched on the training path")
+    with tempfile.TemporaryDirectory() as lenet_ckpt:
+        fused.reset_launches()
+        phases = drive_training_path(data, lenet_data, lenet_ckpt)
+        launches["training"] = dict(fused.LAUNCHES)
+        print("train_phases " + json.dumps(phases), flush=True)
+        if launches["training"]["dense_relu"] <= 0:
+            raise RuntimeError("dense_relu never launched on the training "
+                               "path")
+
+        lenet_params, _ = checkpoint.restore_latest_params(lenet_ckpt)
+        held = synthetic_mnist(seed=LENET_SEED, train_n=16,
+                               test_n=max(BUCKETS))["test_x"]
+        records += check_kernels(lenet_kernel_cases(lenet_params, held))
+        time_forwards("lenet", lenet_params, held,
+                      ("float32", "bfloat16", "int8"))
+
+        fused.reset_launches()
+        phases = drive_lenet_serving_path(lenet_ckpt, lenet_data)
+        launches["lenet_serving"] = dict(fused.LAUNCHES)
+        print("lenet_phases " + json.dumps(phases), flush=True)
+        missing = [k for k in ("dense_relu", "quant_dense")
+                   if launches["lenet_serving"][k] <= 0]
+        if missing:
+            raise RuntimeError(f"kernels never launched on the LeNet "
+                               f"serving path: {missing}")
 
     line = []
     for name in ("dense_relu", "quant_dense", "mlp_megakernel"):

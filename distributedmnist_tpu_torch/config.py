@@ -20,7 +20,7 @@ INFER_DTYPE_CHOICES = ("float32", "bfloat16", "int8", "megakernel", "auto")
 @dataclasses.dataclass(frozen=True)
 class Config:
     # model / optimizer
-    model: str = "lenet"            # {mlp, lenet}; the port serves mlp
+    model: str = "lenet"            # {mlp, lenet}
     optimizer: str = "adam"         # {sgd, adam}
     learning_rate: float = 1e-3
     momentum: float = 0.9           # used by sgd only
@@ -79,6 +79,9 @@ class Config:
     # bfloat16/int8/megakernel take traffic only after the registry's
     # parity gate; auto serves the cheapest variant that passes it.
     serve_infer_dtype: str = "float32"
+    # Resident model versions the registry keeps (live + candidates +
+    # rollback targets); past it the oldest routeless version is evicted.
+    serve_max_versions: int = 4
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -164,6 +167,9 @@ def add_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         "forward; bfloat16/int8/megakernel = variants "
                         "that serve only after the parity gate; auto = "
                         "the cheapest variant that passes it")
+    p.add_argument("--serve-max-versions", type=int, default=None,
+                   help="resident model versions kept (>= 2); the oldest "
+                        "routeless one is evicted past it")
     return p
 
 

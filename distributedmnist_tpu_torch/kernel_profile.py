@@ -11,11 +11,17 @@
    from what the cluster's size and each K stage cost.
 2. A torch.profiler trace of each kernel at the serving path's buckets
    (1, 7, 128, 512), at the MLP's widths (quant_dense's second layer at
-   its own K, 128): for every kernel the trace
+   its own K, 128) and at LeNet's dense widths (dense_relu bf16 400->120
+   and 120->84, quant_dense 400->120, 120->84 and 84->10): for every
+   kernel the trace
    records, its mean device time and the launch geometry the profiler
    reports (grid, block, registers per thread, shared memory, blocks and
    warps per SM, estimated achieved occupancy). The chrome traces go to
    DIR (default: csrc/build/kernel_profile, beside the built kernels).
+3. Where LeNet's serving forward spends its device time: a profiler
+   window of each precision's whole forward (float32, bfloat16, int8;
+   uint8 pixels on the card -> logits) at buckets 1, 7, 128 and 512,
+   summed per device kernel name, with the number of launches a forward.
 
 Prints the card's name and power limit, then one JSON line per
 measurement. Without a card it exits nonzero.
@@ -24,6 +30,7 @@ measurement. Without a card it exits nonzero.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import subprocess
 import sys
@@ -116,6 +123,23 @@ def _cases(m: int, k: int, k2=None):
                                                               relu=False)
 
 
+def _lenet_cases(m: int):
+    """(name, fn) of the kernels of LeNet's serving path at its dense
+    widths: dense_relu bf16 at fc1 and fc2, quant_dense at fc1, fc2 and
+    logits (no relu)."""
+    for k, n in ((400, 120), (120, 84)):
+        r = np.random.default_rng(m + k)
+        x, w, b = (torch.from_numpy(a.astype(np.float32)).cuda().bfloat16()
+                   for a in (r.random((m, k)), r.normal(size=(k, n)) * 0.05,
+                             r.normal(size=n) * 0.1))
+        yield (f"dense_relu bf16 {k}->{n}",
+               lambda x=x, w=w, b=b: fused.dense_relu_inference(x, w, b))
+    for k, n in ((400, 120), (120, 84), (84, 10)):
+        q = _quant_inputs(m, k, n, seed=m + k)
+        yield (f"quant_dense {k}->{n}",
+               lambda q=q, r=n != 10: fused.quant_dense(*q, relu=r))
+
+
 def sweep() -> None:
     one = torch.zeros(1, device="cuda")
     print(json.dumps({"sweep": "floor", "kernel": "fill_ one element",
@@ -133,11 +157,13 @@ def trace(trace_dir: Path) -> None:
     trace_dir.mkdir(parents=True, exist_ok=True)
     calls = 20
     for m in BUCKETS:
-        for name, fn in _cases(m, 784, HIDDEN):
+        for name, fn in itertools.chain(_cases(m, 784, HIDDEN),
+                                        _lenet_cases(m)):
             for _ in range(5):
                 fn()
             torch.cuda.synchronize()
-            path = trace_dir / f"{name.replace(' ', '_')}_b{m}.json"
+            stem = name.replace(" ", "_").replace("->", "to")
+            path = trace_dir / f"{stem}_b{m}.json"
             # the profiler now and then drops a window's device events;
             # take the first of three windows that kept most of them
             for _ in range(3):
@@ -169,6 +195,53 @@ def trace(trace_dir: Path) -> None:
                         "est. achieved occupancy %")}}), flush=True)
 
 
+def _device_kernels(fn, calls: int) -> dict:
+    """{kernel name: [launches, total us]} of `calls` calls of fn, from a
+    profiler window's device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            rec = out.setdefault(ev.name[:80], [0, 0.0])
+            rec[0] += 1
+            rec[1] += ev.time_range.elapsed_us()
+    return out
+
+
+def lenet_forwards() -> None:
+    from distributedmnist_tpu_torch import models
+    from distributedmnist_tpu_torch.serve import InferenceEngine
+
+    params = models.init_params("lenet", 0)
+    calls = 20
+    for dt in ("float32", "bfloat16", "int8"):
+        engine = InferenceEngine("lenet", params, device="cuda",
+                                 max_batch=max(BUCKETS), infer_dtype=dt)
+        for m in BUCKETS:
+            x = torch.zeros((m, 28, 28, 1), dtype=torch.uint8,
+                            device="cuda")
+            with torch.inference_mode():
+                kernels = _device_kernels(lambda: engine._forward(x), calls)
+            total = sum(us for _, us in kernels.values())
+            print(json.dumps({
+                "forward": "lenet", "variant": dt, "m": m,
+                "device_us": total / calls,
+                "launches": sum(n for n, _ in kernels.values()) / calls,
+                "kernels": {name: round(us / calls, 3) for name, (_, us)
+                            in sorted(kernels.items(),
+                                      key=lambda kv: -kv[1][1])}}),
+                flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace-dir", type=Path,
@@ -181,6 +254,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     sweep()
     trace(args.trace_dir)
+    lenet_forwards()
     return 0
 
 

@@ -1,15 +1,20 @@
-"""Serve the MLP through the port: `python -m distributedmnist_tpu_torch.serve`.
+"""Serve the MLP or LeNet-5 through the port:
+`python -m distributedmnist_tpu_torch.serve`.
 
 Selftest mode (the only mode ported so far; the HTTP server waits):
-bootstrap a fresh-init model version, warm it, promote it, optionally
-activate a parity-gated inference variant, drive N synthetic requests
-through the dynamic batcher, and print one JSON summary line
-({"metric": "serve_selftest", ...}) on stdout. Runs on the card; pass
+bootstrap a model version — the latest checkpoint that the train CLI
+committed in --checkpoint-dir, or fresh-init parameters without one —
+warm it, promote it, optionally activate a parity-gated inference
+variant, drive N synthetic requests through the dynamic batcher, and
+print one JSON summary line ({"metric": "serve_selftest", ...}, each
+version with its checkpoint step) on stdout. Runs on the card; pass
 --device cpu to run on the CPU.
 
+    python -m distributedmnist_tpu_torch.train --preset lenet-adam \\
+        --synthetic --steps 1000 --checkpoint-dir ckpt
+    python -m distributedmnist_tpu_torch.serve --model lenet \\
+        --checkpoint-dir ckpt --selftest 256 --serve-infer-dtype int8
     python -m distributedmnist_tpu_torch.serve --model mlp --selftest 256
-    python -m distributedmnist_tpu_torch.serve --model mlp --selftest 256 \\
-        --serve-infer-dtype int8
 """
 
 from __future__ import annotations
@@ -74,6 +79,8 @@ def main(argv=None) -> int:
         p.error("--serve-slo-ms must be > 0")
     if args.selftest is not None and args.selftest < 1:
         p.error("--selftest must be >= 1")
+    if args.serve_max_versions is not None and args.serve_max_versions < 2:
+        p.error("--serve-max-versions must be >= 2")
     cfg = config_lib.from_args(args)
 
     from distributedmnist_tpu_torch.serve import (DynamicBatcher,

@@ -12,9 +12,16 @@ that event — the one synchronizing step — and returns the rows. A
 staging pair is recycled only after its fetch, so the next dispatch can
 never overwrite a buffer the card is still reading or writing.
 
-One engine serves one (model, precision). The float32 engine runs the
-model's own forward on raw uint8 pixels divided by 255 inside the step;
-the bfloat16/int8/megakernel engines run serve/quantize.py's variants.
+One engine serves one (model, precision): the MLP or LeNet-5, whose
+input is the staged (B, 28, 28, 1) uint8 batch either way. The float32
+engine runs the model's own forward on raw uint8 pixels divided by 255
+inside the step; the bfloat16/int8/megakernel engines run
+serve/quantize.py's variants. On the card an engine pins float32
+numerics (TF32 off for matmuls and cuDNN convolutions) for the rest of
+the process: the float32 engine is the reference every parity gate
+measures against, and the flags are process-wide, so switching them per
+dispatch would race between the dispatch thread and an admin thread
+warming a variant.
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ import torch
 from distributedmnist_tpu_torch.analysis.locks import make_lock
 from distributedmnist_tpu_torch.ops import kernel_lib
 from distributedmnist_tpu_torch.utils import round_up
-from distributedmnist_tpu_torch.utils.device import resolve_device
+from distributedmnist_tpu_torch.utils.device import (pin_float32_numerics,
+                                                     resolve_device)
 
 log = logging.getLogger("distributedmnist_tpu_torch")
 
@@ -91,6 +99,8 @@ class InferenceEngine:
         self.max_batch = max_batch
         self.buckets = make_buckets(max_batch)
         self._pin = self.device.type == "cuda"
+        if self._pin:
+            pin_float32_numerics()
         # The float32 parameters on the device: the registry builds every
         # variant of a version from these.
         self.params = {k: torch.as_tensor(v).detach().to(self.device)

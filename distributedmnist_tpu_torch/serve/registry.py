@@ -1,18 +1,22 @@
-"""Model lifecycle: versioned parameter sets, pre-warmed engines, atomic
-promotion, and the parity-gated inference variants (the port of the JAX
+"""Model lifecycle: versioned parameter sets loaded from the trainer's
+checkpoints, pre-warmed engines, atomic promotion, rollback, bounded
+residency, and the parity-gated inference variants (the port of the JAX
 package's serve/registry.py).
 
-A **ModelRegistry** registers a parameter set as a version, builds and
-warms its engine off the hot path, proves it warm with a second warmup
-that must trigger no kernel-library build, and only then lets promote()
-re-point the Router's live target. A version's **variants** (bfloat16,
-int8, megakernel) are built from its float32 parameters and must also
-pass the accuracy-parity gate against the float32 engine on a held-out
-batch before they may take traffic.
+A **ModelRegistry** registers a parameter set as a version — read from
+the latest committed checkpoint by the params-only restore, or fresh-init
+— builds and warms its engine off the hot path, proves it warm with a
+second warmup that must trigger no kernel-library build, and only then
+lets promote() re-point the Router's live target. rollback() demotes a
+live version and promotes the newest healthy resident; past
+`max_versions` the oldest routeless version is evicted. A version's
+**variants** (bfloat16, int8, megakernel) are built from its float32
+parameters and must also pass the accuracy-parity gate against the
+float32 engine on a held-out batch before they may take traffic.
 
 All versions share one EngineFactory — model, device, bucket ladder — so
 a swap never changes the shapes the kernels run at. Not ported yet:
-checkpoint loading, eviction, rollback, shadow/canary and the cascade.
+replicas, shadow/canary routes, the prediction cache and the cascade.
 """
 
 from __future__ import annotations
@@ -20,10 +24,12 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
+from collections import deque
 from typing import Any, Optional
 
 import numpy as np
 
+from distributedmnist_tpu_torch import checkpoint
 from distributedmnist_tpu_torch.analysis.locks import make_lock, make_rlock
 from distributedmnist_tpu_torch.serve.engine import (InferenceEngine,
                                                      make_buckets)
@@ -73,7 +79,11 @@ class ModelVersion:
     version: str
     engine: Any                    # None until warm
     state: str                     # warming | ready | live | failed
-    source: str
+    source: str                    # "checkpoint <dir>" | "fresh-init" | ...
+    step: Optional[int] = None     # checkpoint step, when from disk
+    # monotonic load stamp: rollback picks the newest healthy resident by
+    # it, whatever the wall clock does
+    loaded_mono: float = 0.0
     warmup_builds: int = 0
     warmup_s: float = 0.0
     last_error: Optional[str] = None
@@ -82,7 +92,8 @@ class ModelVersion:
     def describe(self) -> dict:
         return {
             "version": self.version, "state": self.state,
-            "source": self.source, "warmup_builds": self.warmup_builds,
+            "source": self.source, "step": self.step,
+            "warmup_builds": self.warmup_builds,
             "warmup_s": round(self.warmup_s, 3),
             "last_error": self.last_error,
             "bucket_cost_ms": ({
@@ -121,22 +132,41 @@ class EngineFactory:
 
         return models.init_params(self.model, seed)
 
+    def abstract_params(self) -> dict:
+        """The restore template for checkpoint.restore_latest_params: the
+        model's state_dict on the meta device (names, shapes and dtypes,
+        no storage)."""
+        from distributedmnist_tpu_torch import models
+
+        return models.build(self.model, device="meta").state_dict()
+
 
 class ModelRegistry:
     """Versioned, pre-warmed model store feeding one Router.
 
-    `_admin` (re-entrant) serializes the slow operations (add, promote,
-    add_variant), which run on admin threads, never the dispatch thread;
-    `_state` guards only the version table and is never held across a
-    warmup, so describe() answers while a version warms."""
+    `_admin` (re-entrant) serializes the slow operations (load, add,
+    promote, add_variant), which run on admin threads, never the dispatch
+    thread; `_state` guards only the version table and is never held
+    across a restore or a warmup, so describe() answers while a version
+    warms."""
 
-    def __init__(self, factory: EngineFactory, router: Router):
+    def __init__(self, factory: EngineFactory, router: Router,
+                 checkpoint_dir: Optional[str] = None,
+                 max_versions: int = 4):
+        if max_versions < 2:
+            raise ValueError(
+                f"max_versions must be >= 2 (live + one candidate), "
+                f"got {max_versions}")
         self.factory = factory
         self.router = router
-        self._versions: dict[str, ModelVersion] = {}
+        self.checkpoint_dir = checkpoint_dir
+        self.max_versions = max_versions
+        self._versions: dict[str, ModelVersion] = {}   # insertion-ordered
         self._admin = make_rlock("registry.admin")
         self._state = make_lock("registry.state")
         self._auto_id = 0
+        # rollbacks and failed rollbacks, oldest first (bounded)
+        self._events: deque = deque(maxlen=64)
 
     def _warm(self, engine: InferenceEngine, what: str) -> int:
         """Warm `engine`, then prove it warm: a second warmup must
@@ -153,7 +183,8 @@ class ModelRegistry:
     # -- loading -----------------------------------------------------------
 
     def add(self, params, version: Optional[str] = None,
-            source: str = "direct") -> ModelVersion:
+            source: str = "direct", step: Optional[int] = None
+            ) -> ModelVersion:
         """Register + pre-warm a float32 parameter set. Returns the
         version in state 'ready'; raises if the name is taken or warmup
         fails (the version is then recorded as 'failed')."""
@@ -165,7 +196,8 @@ class ModelRegistry:
                 if version in self._versions:
                     raise ValueError(f"version {version!r} already loaded")
                 mv = ModelVersion(version=version, engine=None,
-                                  state="warming", source=source)
+                                  state="warming", source=source, step=step,
+                                  loaded_mono=time.monotonic())
                 self._versions[version] = mv
             try:
                 t0 = time.perf_counter()
@@ -179,6 +211,8 @@ class ModelRegistry:
                 mv.engine = None
                 mv.last_error = f"warmup: {type(e).__name__}: {e}"
                 raise
+            with self._state:
+                self._evict_locked(protect={version})
             log.info("registry: %s ready (%s, %d kernel library loads, "
                      "%.2fs warm)", version, source, mv.warmup_builds,
                      mv.warmup_s)
@@ -190,10 +224,71 @@ class ModelRegistry:
         return self.add(self.factory.init_params(seed), version=version,
                         source="fresh-init")
 
+    def load_latest(self, directory: Optional[str] = None,
+                    version: Optional[str] = None) -> ModelVersion:
+        """Load + pre-warm the latest committed checkpoint of `directory`
+        (default: the registry's checkpoint_dir) by the params-only
+        restore. Idempotent per checkpoint step: re-loading a resident
+        step returns that version, after one directory listing and no
+        read of the checkpoint. An explicit `version` name that holds an
+        older step is refused. A restore that raises leaves a 'failed'
+        version with the error (a later retry of the name may load)."""
+        directory = directory or self.checkpoint_dir
+        if not directory:
+            raise ValueError(
+                "no checkpoint directory: pass one or construct the "
+                "registry with checkpoint_dir")
+        with self._admin:
+            steps = checkpoint.committed_steps(directory)
+            if not steps:
+                raise FileNotFoundError(
+                    f"no committed checkpoint in {directory!r}")
+            step = steps[-1]
+            if version is None:
+                version = f"step-{step}"
+            with self._state:
+                existing = self._versions.get(version)
+                if existing is not None and existing.state != "failed":
+                    if existing.step == step:
+                        log.info("registry: %s already resident (state "
+                                 "%s)", version, existing.state)
+                        return existing
+                    raise ValueError(
+                        f"version {version!r} already holds step "
+                        f"{existing.step}; latest committed step is "
+                        f"{step} — pick a new version name (or omit it "
+                        "for step-derived names)")
+                if existing is not None:      # failed: allow a retry
+                    del self._versions[version]
+            # Pin the step listed above: a checkpoint committed between
+            # the listing and the restore must not come in under this
+            # step's version name.
+            try:
+                params, step = checkpoint.restore_latest_params(
+                    directory, self.factory.abstract_params(), step=step)
+            except Exception as e:
+                mv = ModelVersion(version=version, engine=None,
+                                  state="failed",
+                                  source=f"checkpoint {directory}",
+                                  step=step, loaded_mono=time.monotonic(),
+                                  last_error=f"restore: "
+                                             f"{type(e).__name__}: {e}")
+                with self._state:
+                    self._versions.setdefault(version, mv)
+                raise
+            return self.add(params, version=version,
+                            source=f"checkpoint {directory}", step=step)
+
     def bootstrap(self, seed: int = 0) -> ModelVersion:
-        """Process start: fresh-init parameters, warmed, then promoted —
-        unless another version went live while this one warmed."""
-        mv = self.add_fresh(seed=seed)
+        """Process start: the latest checkpoint when checkpoint_dir holds
+        one, fresh-init parameters otherwise, warmed, then promoted —
+        unless another version went live while this one warmed (the
+        operator's newer choice wins)."""
+        if self.checkpoint_dir and checkpoint.committed_steps(
+                self.checkpoint_dir):
+            mv = self.load_latest()
+        else:
+            mv = self.add_fresh(seed=seed)
         with self._admin:
             live = self.router.live_version()
             if live is None or live == mv.version:
@@ -354,7 +449,55 @@ class ModelRegistry:
                 old = self._versions.get(prev)
                 if old is not None:
                     old.state = "ready"
+            self._evict_locked(protect={version})
             return mv
+
+    def rollback(self, from_version: str,
+                 reason: str) -> Optional[ModelVersion]:
+        """Demote `from_version` (if still live) and promote, through its
+        float32 engine, the newest healthy resident: 'ready', engine
+        resident, no recorded error. The demoted version stays resident
+        with `reason` as its last_error, which keeps it from being rolled
+        back to. Records a 'rollback' event, or 'rollback_failed' when no
+        healthy fallback exists (the tripped version then stays live).
+        Returns the newly live version, or None."""
+        with self._admin, self._state:
+            live = self.router.live_version()
+            if live != from_version:
+                log.info("rollback from %s skipped: live is already %s",
+                         from_version, live)
+                return None
+            candidates = [
+                mv for name, mv in self._versions.items()
+                if name != from_version and mv.state == "ready"
+                and mv.engine is not None and mv.last_error is None]
+            # "at" is wall clock, for display only
+            event = {"from": from_version, "reason": reason,
+                     "at": round(time.time(), 3)}
+            if not candidates:
+                self._events.append({"event": "rollback_failed",
+                                     "to": None, **event})
+                log.error("rollback from %s FAILED: no healthy resident "
+                          "fallback (%s); keeping it live", from_version,
+                          reason)
+                return None
+            target = max(candidates, key=lambda mv: mv.loaded_mono)
+            self.router.set_live(target.engine, target.version)
+            target.state = "live"
+            old = self._versions.get(from_version)
+            if old is not None:
+                old.state = "ready"
+                old.last_error = reason
+            self._events.append({"event": "rollback",
+                                 "to": target.version, **event})
+            log.warning("rollback: %s -> %s (%s)", from_version,
+                        target.version, reason)
+            return target
+
+    def events(self) -> list:
+        """Lifecycle events, oldest first: rollbacks and failed ones."""
+        with self._state:
+            return list(self._events)
 
     # -- introspection -----------------------------------------------------
 
@@ -379,25 +522,48 @@ class ModelRegistry:
                              for mv in self._versions.values()],
                 "routes": self.router.routes(),
                 "live_infer_dtype": self.router.live_infer_dtype(),
+                "events": list(self._events),
+                "max_versions": self.max_versions,
+                "checkpoint_dir": self.checkpoint_dir,
                 "buckets": list(self.factory.buckets),
                 "max_batch": self.factory.max_batch,
                 "device": str(self.factory.device),
             }
 
+    # -- eviction ----------------------------------------------------------
+
+    def _evict_locked(self, protect: set = frozenset()) -> None:
+        """Drop the oldest routeless versions past max_versions (the
+        caller holds _state): 'failed' or 'ready' and holding no route.
+        Versions in `protect` (the one just added or promoted) are never
+        dropped. A batch in flight keeps its engine alive through its
+        handle, so eviction never frees an engine under a dispatch."""
+        in_route = self.router.versions_in_route()
+        while len(self._versions) > self.max_versions:
+            for name, mv in list(self._versions.items()):
+                if name in protect:
+                    continue
+                if mv.state == "failed" or (
+                        mv.state == "ready" and name not in in_route):
+                    del self._versions[name]
+                    log.info("registry: evicted %s (%s)", name, mv.state)
+                    break
+            else:
+                return            # everything left is live or warming
+
 
 def build_serving(cfg):
-    """(registry, router, factory) from a Config. No version is loaded
-    yet: the caller bootstraps. Raises without a card unless cfg.device
-    is 'cpu'."""
+    """(registry, router, factory) from a Config: `cfg.model` (mlp or
+    lenet), its device, bucket ladder, checkpoint_dir and
+    serve_max_versions. No version is loaded yet: the caller bootstraps.
+    Raises without a card unless cfg.device is 'cpu'."""
     from distributedmnist_tpu_torch import models
 
-    if cfg.model != "mlp":
-        models.build(cfg.model, device="cpu")   # refuses unknown names
-        raise NotImplementedError(
-            f"serving {cfg.model!r} is not ported to PyTorch yet: LeNet "
-            "serving is queued in ROADMAP.md ('Modules to port'); serve "
-            "--model mlp")
+    models.build(cfg.model, device="meta")    # refuses unknown names
     factory = EngineFactory(cfg.model, device=cfg.device,
                             max_batch=cfg.serve_max_batch)
     router = factory.make_router()
-    return ModelRegistry(factory, router), router, factory
+    registry = ModelRegistry(factory, router,
+                             checkpoint_dir=cfg.checkpoint_dir,
+                             max_versions=cfg.serve_max_versions)
+    return registry, router, factory

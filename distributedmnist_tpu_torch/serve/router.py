@@ -91,6 +91,13 @@ class Router:
         with self._lock:
             return {"live": self._live_version}
 
+    def versions_in_route(self) -> set:
+        """Versions holding a routing role, which the registry must not
+        evict: the live one (the only route ported)."""
+        with self._lock:
+            return ({self._live_version} if self._live_version is not None
+                    else set())
+
     def bucket_costs(self) -> dict:
         """The live engine's measured per-bucket cost table (empty while
         nothing is live)."""

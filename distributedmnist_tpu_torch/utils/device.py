@@ -22,6 +22,15 @@ def resolve_device(name) -> torch.device:
     return dev
 
 
+def pin_float32_numerics() -> None:
+    """Turn TF32 off for matmuls and cuDNN convolutions for the rest of
+    the process, so that float32 on the card is float32 as on the CPU.
+    For a process whose threads all need float32 at once (a server);
+    a single run of work uses float32_numerics()."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 @contextlib.contextmanager
 def float32_numerics():
     """Run the block with TF32 off for matmuls and cuDNN convolutions, so

@@ -7,8 +7,10 @@ LeNet's dense and int8 dense shapes, at rows that do not start on a
 the same inputs bit for bit. Then the training path: the pixel decode
 bit for bit against the CPU's, an MLP training step through the kernel
 against the same step through the plain version, and a LeNet step on the
-card against the same step on the CPU. Every test is marked `gpu` and
-skips without a card.
+card against the same step on the CPU. Then LeNet serving: each
+precision's engine on the card against the same engine on the CPU (the
+plain versions), and the int8 dense stack bit for bit. Every test is
+marked `gpu` and skips without a card.
 
 This file imports no jax (the card's machine has none), and
 tests/conftest.py does, so on the card run it without the conftest:
@@ -25,7 +27,12 @@ loss rtol=1e-4 and params atol=1e-4 after 5 SGD steps (chip_smoke.py's
 tolerance); LeNet's loss rtol=1e-5 and gradients atol=1e-4 times their
 scale (cuDNN's and the CPU's convolutions sum in other orders, by
 algorithms of cuDNN's choosing, TF32 off), params atol=2*lr after its Adam step (Adam moves a weight whose
-gradient is a rounding residue by up to lr).
+gradient is a rounding residue by up to lr). LeNet serving, atol times
+the logits' scale: float32 1e-4 (cuDNN's sums in other orders, TF32
+off); bfloat16 3e-2 (cuDNN and the CPU round the bf16 convolutions at
+other points); int8 5e-3 (a float32 trunk summed in another order can
+move a quantized activation across a rounding boundary), its dense stack
+on a shared input exact.
 """
 
 import numpy as np
@@ -360,3 +367,52 @@ def test_lenet_training_step_on_card_against_cpu():
     for k in runs[1][1]:
         torch.testing.assert_close(runs[0][1][k], runs[1][1][k], rtol=0,
                                    atol=2e-3)
+
+
+LENET_SERVE_TOL = {"float32": 1e-4, "bfloat16": 3e-2, "int8": 5e-3}
+# kernel launches of one forward of each precision
+LENET_SERVE_LAUNCHES = {"float32": {}, "bfloat16": {"dense_relu": 2},
+                        "int8": {"quant_dense": 3}}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("infer_dtype", ("float32", "bfloat16", "int8"))
+def test_lenet_serving_engine_on_card_against_cpu(infer_dtype):
+    _need_card()
+    from distributedmnist_tpu_torch.serve import InferenceEngine
+
+    torch.backends.cudnn.allow_tf32 = True     # the engine must pin it off
+    params = models.init_params("lenet", 0)
+    card = InferenceEngine("lenet", params, device="cuda", max_batch=512,
+                           infer_dtype=infer_dtype)
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    plain = InferenceEngine("lenet", params, device="cpu", max_batch=512,
+                            infer_dtype=infer_dtype)
+    x = mnist.synthetic_mnist(seed=3, train_n=16, test_n=512)["test_x"]
+    for m in (1, 7, 128, 512):
+        before = dict(fused.LAUNCHES)
+        got = card.infer(x[:m])
+        launched = {k: fused.LAUNCHES[k] - before[k] for k in before
+                    if fused.LAUNCHES[k] != before[k]}
+        assert launched == LENET_SERVE_LAUNCHES[infer_dtype]
+        want = plain.infer(x[:m])
+        scale = max(1.0, float(np.abs(want).max()))
+        np.testing.assert_allclose(
+            got, want, rtol=0, atol=LENET_SERVE_TOL[infer_dtype] * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", (1, 7, 128, 512))
+def test_lenet_int8_dense_stack_on_card_is_exact(m):
+    _need_card()
+    from distributedmnist_tpu_torch.serve import quantize
+
+    prep, _ = quantize.prepare_inference(
+        "lenet", models.init_params("lenet", 1), "int8")
+    x = quantize.lenet_trunk(prep, _t(mnist.synthetic_mnist(
+        seed=4, train_n=16, test_n=m)["test_x"][:m]).float())
+    want = quantize.lenet_int8_dense_stack(prep, x)
+    card = {k: v.cuda() for k, v in prep.items()}
+    got = quantize.lenet_int8_dense_stack(card, x.cuda()).cpu()
+    assert torch.equal(got, want)

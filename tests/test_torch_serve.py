@@ -469,10 +469,19 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
 
 
 def test_lenet_builds_but_is_not_served_yet():
+    """LeNet-5 builds and, since its serving slice landed, serves: the
+    name is kept from when build_serving refused it."""
     net = models.build("lenet", device="cpu")
     assert sum(p.numel() for p in net.parameters()) == 61_706
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_serving(tconfig.Config(model="lenet", device="cpu"))
+    registry, router, factory = build_serving(
+        tconfig.Config(model="lenet", device="cpu", serve_max_batch=4))
+    assert factory.model == "lenet" and factory.buckets == (1, 2, 4)
+    mv = registry.bootstrap(seed=0)
+    assert mv.state == "live" and mv.source == "fresh-init"
+    out = router.infer(_images(3))
+    assert out.shape == (3, 10) and np.all(np.isfinite(out))
+    with pytest.raises(ValueError, match="unknown model"):
+        build_serving(tconfig.Config(model="resnet", device="cpu"))
 
 
 def test_selftest_cli_imports_no_jax():
