@@ -47,7 +47,17 @@ LeNet-5 serving path on one CUDA card.
    precision through the dynamic batcher, then the lifecycle: the trainer commits a later
    step, the registry loads and promotes it, rolls back from it, and the
    first version must be live again with the rollback event recorded.
-7. Prints a `kernels` JSON line (launches on each path, error, times,
+7. Runs the port's bench, `python -m distributedmnist_tpu_torch.bench`,
+   one subprocess a run, with short explicit windows: throughput of the
+   MLP (batch 64) and of LeNet-5 (batch 512), LeNet-5's
+   time-to-accuracy to 0.99 (one trial), and the serve legs of the MLP
+   at float32 and of LeNet-5 at bfloat16 and int8 booted from config 2's
+   checkpoint. Each must exit 0 and print one record with the root
+   bench's keys, a value above 0, the card's name, no kernel-library load
+   or engine build after warmup, and the trial must reach its target;
+   each record is printed on a `bench` line, and the launches the runs
+   report are the `bench` path's.
+8. Prints a `kernels` JSON line (launches on each path, error, times,
    bound) and, last, {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero before the last line. Without a
@@ -136,6 +146,46 @@ MLP_LR = 0.02
 # the kernel-against-plain comparison on the training path
 COMPARE_STEPS = 50
 COMPARE_TOL = dict(loss_rtol=1e-4, param_atol=1e-4)
+# The bench phase: each run's arguments, with windows cut short (the
+# default windows take minutes on the card) and one-second serve phases.
+# The serve runs of LeNet-5 boot from a copy of config 2's last
+# checkpoint, the one whose gates the LeNet serving phase held.
+BENCH_RUNS = (
+    ("throughput", "--model", "mlp", "--global-batch", "64",
+     "--steps-per-call", "256", "--warmup-steps", "256", "--bench-steps",
+     "512", "--repeats", "3"),
+    ("throughput", "--model", "lenet", "--global-batch", "512",
+     "--steps-per-call", "128", "--warmup-steps", "128", "--bench-steps",
+     "256", "--repeats", "3"),
+    ("time-to-accuracy", "--model", "lenet", "--global-batch", "512",
+     "--trials", "1", "--target-accuracy", "0.99"),
+    ("serve", "--model", "mlp", "--serve-duration", "1"),
+    ("serve", "--model", "lenet", "--serve-infer-dtype", "bfloat16",
+     "--serve-duration", "1", "--checkpoint-dir", "{ckpt}"),
+    ("serve", "--model", "lenet", "--serve-infer-dtype", "int8",
+     "--serve-duration", "1", "--checkpoint-dir", "{ckpt}"),
+)
+BENCH_TIMEOUT_S = 300
+# The root bench's record keys (its THROUGHPUT_r05.json, TTA_r05.json and
+# BENCH_serve_r13.json records, the serve legs not ported yet left out)
+BENCH_KEYS = {
+    "train_images_per_sec_per_chip": {
+        "model", "data", "global_batch", "n_chips", "backend", "dtype",
+        "bench_steps", "steps_per_call", "step_ms", "windows_img_s_chip"},
+    "wall_clock_to_target_accuracy": {
+        "reached_target", "target_accuracy", "trials", "trials_s",
+        "steps_to_target_median", "steps_to_target", "evals_to_target",
+        "wall_s_is_weather_dependent", "trial_results", "min_s", "max_s",
+        "final_accuracy", "steps", "data", "model", "global_batch",
+        "n_chips", "backend", "dtype"},
+    "serve_images_per_sec_per_chip": {
+        "model", "dtype", "backend", "n_chips", "host", "buckets",
+        "max_batch", "max_wait_us", "queue_depth", "max_inflight",
+        "rows_per_request", "clients", "duration_s", "params",
+        "live_version_final", "warmup_compile_events",
+        "recompiles_after_warmup", "bucket_cost_ms", "slo_ms", "adaptive",
+        "closed_loop", "qps_sweep", "ragged", "inflight_comparison"},
+}
 
 
 def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -871,6 +921,79 @@ def drive_lenet_serving_path(checkpoint_dir: str, lenet_data) -> dict:
     return phases
 
 
+def drive_bench_path(lenet_checkpoint_dir: str) -> dict:
+    """The port's bench, one subprocess a run (each mode in a process of
+    its own, so no mode's TF32 or allocator state leaks into the next).
+    Returns the kernel launches the runs report, summed."""
+    import shutil
+
+    import torch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    card = torch.cuda.get_device_name(0)
+    launches: dict = {}
+    with tempfile.TemporaryDirectory() as ckpt:
+        step = str(TRAIN_STEPS["lenet-adam"])
+        shutil.copytree(os.path.join(lenet_checkpoint_dir, step),
+                        os.path.join(ckpt, step))
+        for run in BENCH_RUNS:
+            argv = [a.format(ckpt=ckpt) for a in run]
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "distributedmnist_tpu_torch.bench",
+                 *argv], cwd=here, env=env, capture_output=True, text=True,
+                timeout=BENCH_TIMEOUT_S)
+            took = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise RuntimeError(f"bench {' '.join(run)} exited "
+                                   f"{proc.returncode}:\n"
+                                   f"{proc.stderr[-4000:]}")
+            lines = [ln for ln in proc.stdout.splitlines()
+                     if ln.startswith("{")]
+            if len(lines) != 1:
+                raise RuntimeError(f"bench {' '.join(run)} printed "
+                                   f"{len(lines)} JSON lines, not 1")
+            rec = json.loads(lines[0])
+            want = BENCH_KEYS.get(rec.get("metric"))
+            detail = rec.get("detail", {})
+            bad = []
+            if set(rec) != {"metric", "value", "unit", "vs_baseline",
+                            "detail"} or set(detail) != want:
+                bad.append("keys differ from the root bench's")
+            if not rec["value"] > 0 or rec["vs_baseline"] is not None:
+                bad.append(f"value {rec['value']}, vs_baseline "
+                           f"{rec['vs_baseline']}")
+            if detail.get("backend") != "cuda":
+                bad.append(f"backend {detail.get('backend')}")
+            if rec["metric"] == "serve_images_per_sec_per_chip":
+                if detail["recompiles_after_warmup"] != 0:
+                    bad.append(f"{detail['recompiles_after_warmup']} "
+                               "builds after warmup")
+                if detail["host"]["device_kind"] != card:
+                    bad.append(f"device_kind {detail['host']['device_kind']}")
+            if (rec["metric"] == "wall_clock_to_target_accuracy"
+                    and not detail["reached_target"]):
+                bad.append("the trial did not reach its target")
+            if bad:
+                raise RuntimeError(f"bench {' '.join(run)}: {bad}: "
+                                   f"{lines[0][:2000]}")
+            counts = [json.loads(ln.split("launches ", 1)[1])
+                      for ln in proc.stderr.splitlines()
+                      if ln.startswith("bench: launches ")]
+            if len(counts) != 1:
+                raise RuntimeError(f"bench {' '.join(run)} reported no "
+                                   "launch counts")
+            for k, n in counts[0].items():
+                launches[k] = launches.get(k, 0) + n
+            print(f"bench {' '.join(run[:3])}: {rec['metric']} "
+                  f"{rec['value']} {rec['unit']} in {took:.1f}s, launches "
+                  f"{counts[0]}", flush=True)
+            print("bench " + lines[0], flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -956,6 +1079,14 @@ def main() -> int:
         if missing:
             raise RuntimeError(f"kernels never launched on the LeNet "
                                f"serving path: {missing}")
+
+        fused.reset_launches()
+        launches["bench"] = drive_bench_path(lenet_ckpt)
+        missing = [k for k in ("dense_relu", "quant_dense")
+                   if launches["bench"].get(k, 0) <= 0]
+        if missing:
+            raise RuntimeError(f"kernels never launched on the bench "
+                               f"path: {missing}")
 
     line = []
     for name in ("dense_relu", "quant_dense", "mlp_megakernel"):

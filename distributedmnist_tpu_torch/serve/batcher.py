@@ -72,7 +72,8 @@ class DynamicBatcher:
     def __init__(self, engine, max_batch: Optional[int] = None,
                  max_wait_us: int = 1000, queue_depth: int = 4096,
                  metrics=None, max_inflight: Optional[int] = None,
-                 slo_ms: Optional[float] = None, adaptive: bool = True):
+                 slo_ms: Optional[float] = None, adaptive: bool = True,
+                 split: bool = True):
         self.engine = engine
         self.max_batch = min(max_batch or engine.max_batch,
                              engine.buckets[-1])
@@ -83,6 +84,9 @@ class DynamicBatcher:
         self.max_wait_s = max_wait_us / 1e6
         self.queue_depth = queue_depth
         self.metrics = metrics
+        # the batch former; split=False sends every drain as one segment
+        # in its covering bucket
+        self.split = split
         self.controller = (AdaptiveController(
             self.max_wait_s,
             slo_s=slo_ms / 1e3 if slo_ms is not None else None,
@@ -228,9 +232,10 @@ class DynamicBatcher:
 
     def _plan(self, batch: list[_Request]) -> list[list[_Request]]:
         """The batch former: cut one drain into bucket-shaped segments by
-        the engine's measured cost table; one segment without a table."""
+        the engine's measured cost table; one segment without a table or
+        with split=False."""
         counts = [len(batch)]
-        if len(batch) > 1:
+        if self.split and len(batch) > 1:
             costs = self.engine.bucket_costs()
             if costs:
                 counts = plan_segments([r.n for r in batch],

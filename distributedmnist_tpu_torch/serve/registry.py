@@ -165,7 +165,8 @@ class ModelRegistry:
         self._admin = make_rlock("registry.admin")
         self._state = make_lock("registry.state")
         self._auto_id = 0
-        # rollbacks and failed rollbacks, oldest first (bounded)
+        # rollbacks, failed rollbacks and variant demotions, oldest first
+        # (bounded)
         self._events: deque = deque(maxlen=64)
 
     def _warm(self, engine: InferenceEngine, what: str) -> int:
@@ -319,8 +320,11 @@ class ModelRegistry:
         variant is refused (state 'failed', last_error naming the failing
         threshold, never promotable) unless argmax agreement and the
         relative logit diff clear PARITY_GATES (or the thresholds given
-        here). An already-ready variant judged at the default bar is
-        returned as is; anything else is rebuilt."""
+        here). An already-ready variant is returned as is at the default
+        bar; given thresholds, its existing engine is re-gated at them,
+        never rebuilt, and a refusal there fails it and, if it is the
+        live route, demotes traffic to the version's float32 engine (a
+        'variant_demoted' event). A missing or failed variant is built."""
         if infer_dtype not in PARITY_GATES:
             raise ValueError(
                 f"unknown variant dtype {infer_dtype!r} (expected one of "
@@ -339,11 +343,14 @@ class ModelRegistry:
                         f"version {version!r} is {mv.state!r}; variants "
                         "hang off a warmed version")
                 existing = mv.variants.get(infer_dtype)
-                if (existing is not None and existing.state == "ready"
-                        and not custom):
+                ready = existing is not None and existing.state == "ready"
+                if ready and not custom:
                     return existing
-                vi = VariantInfo(infer_dtype=infer_dtype)
-                mv.variants[infer_dtype] = vi
+                if not ready:
+                    vi = VariantInfo(infer_dtype=infer_dtype)
+                    mv.variants[infer_dtype] = vi
+            if ready:
+                return self._regate(mv, existing, gate_agree, gate_rel)
             try:
                 t0 = time.perf_counter()
                 engine = self.factory.make_engine(
@@ -373,6 +380,38 @@ class ModelRegistry:
                      vi.parity["argmax_agreement"],
                      vi.parity["max_rel_logit_diff"])
             return vi
+
+    def _regate(self, mv: ModelVersion, vi: VariantInfo,
+                min_agreement: float, max_rel_diff: float) -> VariantInfo:
+        """Judge a ready variant's existing engine again at the given bar
+        (the caller holds _admin). A refused variant must stop serving at
+        once, not at the next promote: if it is the live route, the
+        version's float32 engine goes live and the demotion is recorded
+        as an event, like a rollback."""
+        x = self._parity_batch()
+        vi.parity = parity_check(mv.engine.infer(x), vi.engine.infer(x),
+                                 min_agreement=min_agreement,
+                                 max_rel_diff=max_rel_diff)
+        if vi.parity["passed"]:
+            return vi
+        dt = vi.infer_dtype
+        vi.state = "failed"
+        vi.last_error = (f"re-gate REFUSED {dt!r} variant of "
+                         f"{mv.version!r}: {vi.parity['why']}")
+        if (self.router.live_version() == mv.version
+                and self.router.live_infer_dtype() == dt):
+            self.router.set_live(mv.engine, mv.version)
+            with self._state:
+                # "at" is wall clock, for display only
+                self._events.append({
+                    "event": "variant_demoted", "version": mv.version,
+                    "infer_dtype": dt, "to": "float32",
+                    "reason": vi.last_error, "at": round(time.time(), 3)})
+            log.warning("registry: live variant %s of %s demoted to "
+                        "float32 (%s)", dt, mv.version, vi.parity["why"])
+        # batches in flight keep the engine alive through their handles
+        vi.engine = None
+        raise ParityRefused(vi.last_error)
 
     def cheapest_variant(self, version: str) -> str:
         """Among the float32 base and the version's parity-passing ready
@@ -495,7 +534,8 @@ class ModelRegistry:
             return target
 
     def events(self) -> list:
-        """Lifecycle events, oldest first: rollbacks and failed ones."""
+        """Lifecycle events, oldest first: rollbacks, failed rollbacks and
+        variant demotions."""
         with self._state:
             return list(self._events)
 

@@ -1,0 +1,266 @@
+"""The port's bench (`python -m distributedmnist_tpu_torch.bench`) against
+the root bench.py, on the CPU at small sizes: the time-to-accuracy recipe
+field for field, the throughput runner's losses against the JAX
+package's make_train_step from the same initial params, and each mode's
+one JSON line with the root bench's record keys (taken from the JAX
+package's committed records), in a fresh interpreter with no jax; plus
+the guards: no card without --device cpu raises, an unported flag exits
+2.
+
+Tolerances: losses rtol=1e-4 (Adam's update in another rounding order,
+as tests/test_torch_train.py holds lenet-adam's trajectory); schedules
+atol=1e-7 (optax computes in float32, the port in float64).
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distributedmnist_tpu import models as jmodels
+from distributedmnist_tpu import optim as joptim
+from distributedmnist_tpu import trainer as jtrainer
+from distributedmnist_tpu.data import loader as jloader
+from distributedmnist_tpu.parallel import make_mesh
+from distributedmnist_tpu_torch import bench as tbench
+from distributedmnist_tpu_torch import interop
+from distributedmnist_tpu_torch import optim as toptim
+from distributedmnist_tpu_torch.data import mnist as tmnist
+from distributedmnist_tpu_torch.data import packing as tpacking
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the serve legs of the root bench that the port has not ported yet
+# (ROADMAP.md section 1 item 6); every other key of its record is carried
+UNPORTED_SERVE_KEYS = {"compile_surface", "zipf", "lowlat", "trace_replay",
+                       "swap", "chaos", "trace", "dtype_sweep", "cascade",
+                       "multimodel", "replicas"}
+RECORD_KEYS = {"metric", "value", "unit", "vs_baseline", "detail"}
+
+
+def _root_bench():
+    """The root bench.py, imported as tests/test_observability.py does."""
+    sys.path.insert(0, REPO)
+    try:
+        import bench
+    finally:
+        sys.path.remove(REPO)
+    return bench
+
+
+def _jax_detail_keys(record: str) -> set:
+    """The detail keys of one of the JAX package's committed records."""
+    with open(os.path.join(REPO, record)) as f:
+        return set(json.load(f)["detail"])
+
+
+def _run(*argv, timeout=300):
+    """The bench in a fresh interpreter: (its one JSON record, the modules
+    of jax and of the JAX package it imported, stderr)."""
+    code = (
+        "import json, sys\n"
+        "from distributedmnist_tpu_torch.bench import main\n"
+        f"rc = main({list(argv)!r})\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') or m == 'distributedmnist_tpu' "
+        "or m.startswith('distributedmnist_tpu.'))\n"
+        "print('MODULES ' + json.dumps(bad))\n"
+        "sys.exit(rc)\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    # one intra-op thread: beside the other test workers, torch's default
+    # of a thread per core oversubscribes the cores and each step crawls
+    env["OMP_NUM_THREADS"] = "1"
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    records = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    assert len(records) == 1, proc.stdout
+    modules = json.loads(lines[-1].split(" ", 1)[1])
+    return records[0], modules, proc.stderr
+
+
+# -- the recipe -----------------------------------------------------------------
+
+
+def test_tta_config_matches_root_bench_field_for_field():
+    import dataclasses
+
+    root = _root_bench()
+    assert tbench.TTA_DECAY_STEPS == root.TTA_DECAY_STEPS
+    schedules = []
+    for epochs in (5, 20, 80):
+        args = argparse.Namespace(
+            model="lenet", dtype="float32", data_dir=None, device="cpu",
+            max_epochs=epochs, target_accuracy=0.99, steps_per_call=None)
+        ours, ref = tbench.tta_config(args, 512), root.tta_config(args, 512)
+        for f in dataclasses.fields(ours):
+            if f.name != "device":       # the port's own field
+                assert getattr(ours, f.name) == getattr(ref, f.name), f.name
+        assert ours.device == "cpu"
+        want = joptim.make_schedule(ref.learning_rate, ref.lr_schedule,
+                                    ref.warmup_steps, ref.lr_decay_steps)
+        got = toptim.make_schedule(ours.learning_rate, ours.lr_schedule,
+                                   ours.warmup_steps, ours.lr_decay_steps)
+        for step in range(501):
+            assert abs(got(step) - float(want(step))) <= 1e-7, step
+        schedules.append([got(s) for s in range(501)])
+    # the pinned horizon: the trial budget does not reshape the lr curve
+    assert schedules[0] == schedules[1] == schedules[2]
+
+
+# -- the throughput runner against the JAX package ------------------------------
+
+
+@pytest.mark.parametrize("fused", ["xla", "pallas"])
+def test_throughput_runner_losses_match_jax(fused):
+    """The runner's first 8 steps at --model mlp, b=128 (its CPU depth, one
+    step a block) against the JAX package's make_train_step (the root
+    bench's _Runner step, Adam at 1e-3, packed pixels) from the same
+    initial params, carried across by interop, on the same index stream.
+    'pallas' runs the JAX package's dense_relu kernel in interpret mode,
+    'xla' its plain reference."""
+    data = tmnist.synthetic_mnist(seed=0, train_n=2048, test_n=16)
+    model = jmodels.build("mlp", fused=fused, platform="cpu")
+    tx = joptim.build("adam", 1e-3, flat=True)
+    state = jtrainer.init_state(jax.random.PRNGKey(0), model, tx,
+                                jnp.zeros((1, 28, 28, 1)))
+    step_fn = jtrainer.make_train_step(model, tx, make_mesh(jax.devices()[:1]),
+                                       mode="auto", pixel_format="packed")
+    args = argparse.Namespace(device="cpu", model="mlp", bench_steps=8)
+    runner = tbench._Runner(args, data=data)
+    run_block = runner.stepper(128, params=interop.mlp_params_from_flax(
+        jax.tree.map(np.asarray, state.params)))
+    jx = jnp.asarray(tpacking.pack_rows(data["train_x"]))
+    jy = jnp.asarray(data["train_y"])
+    stream = jloader.IndexStream(2048, 128, seed=0, mesh=None)
+    jlosses, tlosses = [], []
+    for _ in range(8):
+        state, metrics = step_fn(state, jx, jy,
+                                 jnp.asarray(stream.host_block(1)))
+        jlosses.append(float(metrics["loss"]))
+        tlosses.append(float(run_block(1)))
+    np.testing.assert_allclose(tlosses, jlosses, rtol=1e-4)
+    assert tlosses[-1] < tlosses[0]
+
+
+# -- each mode's record, end to end -----------------------------------------------
+
+
+def test_throughput_record():
+    rec, modules, err = _run(
+        "throughput", "--device", "cpu", "--model", "mlp",
+        "--global-batch", "128", "--bench-steps", "8", "--warmup-steps",
+        "2")
+    assert modules == []
+    assert set(rec) == RECORD_KEYS
+    assert set(rec["detail"]) == _jax_detail_keys("THROUGHPUT_r05.json")
+    assert rec["metric"] == "train_images_per_sec_per_chip"
+    assert rec["vs_baseline"] is None and rec["value"] > 0
+    d = rec["detail"]
+    assert d["backend"] == "cpu" and d["model"] == "mlp"
+    assert d["bench_steps"] == 8 and d["steps_per_call"] == 1
+    assert d["global_batch"] == 128 and len(d["windows_img_s_chip"]) == 1
+    assert "bench: launches" in err
+
+
+def test_time_to_accuracy_record():
+    rec, modules, _ = _run(
+        "time-to-accuracy", "--device", "cpu", "--model", "mlp",
+        "--target-accuracy", "0.5", "--global-batch", "256",
+        "--max-epochs", "2", "--trials", "2")
+    assert modules == []
+    assert set(rec) == RECORD_KEYS
+    assert set(rec["detail"]) == _jax_detail_keys("TTA_r05.json")
+    assert rec["metric"] == "wall_clock_to_target_accuracy"
+    assert rec["vs_baseline"] is None and rec["value"] > 0
+    d = rec["detail"]
+    assert d["reached_target"] and d["trials"] == 2
+    seeds = [t["seed"] for t in d["trial_results"]]
+    assert seeds == [0, 1]
+    assert all(t["reached"] for t in d["trial_results"])
+    assert len(d["steps_to_target"]) == 2
+    assert d["steps_to_target_median"] <= 2 * (60_000 // 256)
+
+
+def test_serve_record():
+    rec, modules, _ = _run(
+        "serve", "--device", "cpu", "--model", "mlp",
+        "--serve-duration", "0.3", "--serve-qps", "50", "--serve-clients",
+        "2", "--serve-max-batch", "16")
+    assert modules == []
+    assert set(rec) == RECORD_KEYS
+    assert set(rec["detail"]) == (_jax_detail_keys("BENCH_serve_r13.json")
+                                  - UNPORTED_SERVE_KEYS)
+    assert rec["metric"] == "serve_images_per_sec_per_chip"
+    assert rec["vs_baseline"] is None and rec["value"] > 0
+    d = rec["detail"]
+    assert d["recompiles_after_warmup"] == 0
+    assert d["buckets"] == [1, 2, 4, 8, 16] and d["max_inflight"] == 4
+    assert d["params"] == "fresh-init"
+    assert [r["qps_target"] for r in d["qps_sweep"]] == [50.0]
+    assert d["closed_loop"]["requests"] > 0
+    assert d["ragged"]["former_off"]["closed"]["batches"] > 0
+    assert d["ragged"]["former_on"]["closed"]["batches"] > 0
+    with open(os.path.join(REPO, "BENCH_serve_r13.json")) as f:
+        root = json.load(f)["detail"]
+    assert set(d["ragged"]) == set(root["ragged"])
+    assert set(d["inflight_comparison"]) == set(root["inflight_comparison"])
+    assert set(d["qps_sweep"][0]) == set(root["qps_sweep"][0])
+    assert set(d["host"]) == set(root["host"]) | {"power_limit_w"}
+    assert d["host"]["device_kind"] == "cpu"
+    assert d["host"]["fused_kernels"] == "plain"
+
+
+# -- guards -----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("argv", [
+    ["throughput", "--model", "mlp", "--bench-steps", "1"],
+    ["time-to-accuracy", "--model", "mlp"],
+    ["serve", "--model", "mlp"]])
+def test_bench_raises_without_a_card(argv):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        tbench.main(argv)
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["sweep"], "item 5"),
+    (["smoke"], "item 5"),
+    (["--dtype", "bfloat16"], "item 5"),
+    (["--data-dir", "/nonexistent"], "item 5"),
+    (["serve", "--zipf"], "item 6"),
+    (["serve", "--lowlat"], "item 6"),
+    (["serve", "--chaos"], "item 6"),
+    (["serve", "--trace-replay", "square:qps=10"], "item 6"),
+    (["serve", "--gateway", "2"], "item 6"),
+    (["serve", "--serve-replicas", "2"], "item 6"),
+    (["serve", "--baseline", "BENCH_serve_r13.json"], "item 6"),
+    (["serve", "--artifact-dir", "out"], "item 6")])
+def test_unported_flag_exits_2(argv, item, capsys):
+    with pytest.raises(SystemExit) as exc:
+        tbench.main(argv)
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert "not ported yet" in err and f"ROADMAP.md section 1 {item}" in err
+
+
+@pytest.mark.parametrize("argv", [
+    ["throughput", "--serve-qps", "10"],
+    ["serve", "--bench-steps", "4"],
+    ["time-to-accuracy", "--repeats", "2"],
+    ["throughput", "--trials", "2"],
+    ["serve", "--serve-duration", "0"]])
+def test_misplaced_flags_exit_2(argv):
+    with pytest.raises(SystemExit) as exc:
+        tbench.main(argv)
+    assert exc.value.code == 2

@@ -9,8 +9,9 @@ bit for bit against the CPU's, an MLP training step through the kernel
 against the same step through the plain version, and a LeNet step on the
 card against the same step on the CPU. Then LeNet serving: each
 precision's engine on the card against the same engine on the CPU (the
-plain versions), and the int8 dense stack bit for bit. Every test is
-marked `gpu` and skips without a card.
+plain versions), and the int8 dense stack bit for bit. Last, the
+bench's throughput mode through dense_relu. Every test is marked `gpu`
+and skips without a card.
 
 This file imports no jax (the card's machine has none), and
 tests/conftest.py does, so on the card run it without the conftest:
@@ -34,6 +35,8 @@ other points); int8 5e-3 (a float32 trunk summed in another order can
 move a quantized activation across a rounding boundary), its dense stack
 on a shared input exact.
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -416,3 +419,22 @@ def test_lenet_int8_dense_stack_on_card_is_exact(m):
     card = {k: v.cuda() for k, v in prep.items()}
     got = quantize.lenet_int8_dense_stack(card, x.cuda()).cpu()
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_bench_throughput_launches_dense_relu_on_card(capsys):
+    """The bench's throughput mode at --model mlp, a tiny window: one
+    record measured on the card, its steps through dense_relu."""
+    _need_card()
+    from distributedmnist_tpu_torch import bench
+
+    fused.reset_launches()
+    assert bench.main(["throughput", "--model", "mlp", "--global-batch",
+                       "64", "--steps-per-call", "4", "--warmup-steps",
+                       "4", "--bench-steps", "8", "--repeats", "1"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["metric"] == "train_images_per_sec_per_chip"
+    assert rec["value"] > 0 and rec["detail"]["backend"] == "cuda"
+    assert rec["detail"]["bench_steps"] == 8
+    # the warmup block and two timed blocks of 4 steps, one launch a step
+    assert fused.LAUNCHES["dense_relu"] >= 12

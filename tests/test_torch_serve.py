@@ -16,6 +16,8 @@ import json
 import os
 import subprocess
 import sys
+import threading
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -284,6 +286,65 @@ def test_registry_refuses_a_variant_that_fails_the_gate():
     assert router.live_infer_dtype() == "megakernel"
 
 
+def test_registry_regates_a_ready_variant_and_demotes_a_live_one():
+    """The JAX package's re-gate and demotion steps
+    (tests/test_serve_quantize.py::test_variant_gate_refuses_and_records),
+    assertion for assertion: custom thresholds against a ready variant
+    re-gate its existing engine instead of rebuilding it, a refusal fails
+    it, and a live variant refused at re-gate is demoted to the float32
+    engine at once, with one event."""
+    registry, router, _ = _registry()
+    registry.bootstrap()
+    mv = registry.add(_fit_params(), version="fitted")
+    registry.promote("fitted")
+    vi = registry.add_variant("fitted", "bfloat16")
+    assert vi.state == "ready"
+    # a passing re-gate keeps the variant and its engine: nothing rebuilt
+    engine = vi.engine
+    again = registry.add_variant("fitted", "bfloat16", max_rel_diff=0.5)
+    assert again is vi and again.engine is engine and vi.state == "ready"
+    # custom thresholds against an ALREADY-ready variant re-gate its
+    # existing engine instead of returning the default-bar verdict
+    with pytest.raises(RuntimeError, match="re-gate REFUSED"):
+        registry.add_variant("fitted", "bfloat16", min_agreement=1.01)
+    assert registry.get("fitted").variants["bfloat16"].state == "failed"
+    assert "argmax agreement" in vi.last_error
+    assert router.live_infer_dtype() == "float32"    # it was never live
+    vi = registry.add_variant("fitted", "bfloat16")  # default bar again
+    assert vi.state == "ready" and vi.engine is not engine
+    # a LIVE variant failing a re-gate is demoted to the float32 base at
+    # once, event-logged
+    registry.promote("fitted", infer_dtype="bfloat16")
+    assert router.live_infer_dtype() == "bfloat16"
+    with pytest.raises(RuntimeError, match="re-gate REFUSED"):
+        registry.add_variant("fitted", "bfloat16", min_agreement=1.01)
+    assert router.live_infer_dtype() == "float32"
+    assert router.live_version() == "fitted"
+    demotions = [e for e in registry.events()
+                 if e["event"] == "variant_demoted"]
+    assert len(demotions) == 1
+    assert demotions[0]["version"] == "fitted"
+    assert demotions[0]["infer_dtype"] == "bfloat16"
+    assert demotions[0]["to"] == "float32"
+    assert demotions[0]["reason"] == vi.last_error
+    described = registry.describe()
+    assert described["live_infer_dtype"] == "float32"
+    assert mv.describe()["variants"]["bfloat16"]["state"] == "failed"
+    with pytest.raises(RuntimeError, match="not promotable"):
+        registry.promote("fitted", infer_dtype="bfloat16")
+    # what is served afterwards is the float32 engine's answer
+    x = _images(24, seed=12)
+    b = DynamicBatcher(router, max_batch=32).start()
+    try:
+        futs = [b.submit(x[i:i + 3]) for i in range(0, 24, 3)]
+        out = np.concatenate([f.result(timeout=60) for f in futs])
+    finally:
+        b.stop()
+    np.testing.assert_array_equal(out, mv.engine.infer(x))
+    vi = registry.add_variant("fitted", "bfloat16")  # clean slate again
+    assert vi.state == "ready"
+
+
 _SELFTEST_ARGS = ["--device", "cpu", "--model", "mlp", "--selftest", "8",
                   "--serve-max-batch", "8", "--serve-infer-dtype",
                   "megakernel"]
@@ -402,6 +463,69 @@ def test_batcher_stop_without_drain_fails_queued():
         b.submit(_images(1))
 
 
+class _GatedEngine:
+    """Engine-shaped double for the batch former: dispatch() logs its row
+    count, fetch() waits on a gate (the card still computing) and returns
+    each row's first 10 pixels, so a result names the rows it came from.
+    Its cost table is linear in the bucket, where splitting a drain
+    always beats padding it."""
+
+    platform = "cpu"
+    _as_images = staticmethod(InferenceEngine._as_images)
+    bucket_for = InferenceEngine.bucket_for
+
+    def __init__(self, max_batch: int):
+        self.max_batch = max_batch
+        self.buckets = make_buckets(max_batch)
+        self.calls = []
+        self.in_call = threading.Event()
+        self.gate = threading.Event()
+
+    def bucket_costs(self):
+        return {b: b * 1e-3 for b in self.buckets}
+
+    def dispatch(self, parts):
+        x = np.concatenate([self._as_images(p) for p in parts])
+        self.calls.append(x.shape[0])
+        self.in_call.set()
+        return SimpleNamespace(x=x, n=x.shape[0],
+                               bucket=self.bucket_for(x.shape[0]))
+
+    def fetch(self, handle):
+        assert self.gate.wait(timeout=30)
+        return handle.x.reshape(handle.n, -1)[:, :10].astype(np.float32)
+
+
+@pytest.mark.parametrize("split", [True, False])
+def test_batcher_split_false_sends_one_covering_segment(split):
+    """The JAX package's split=False escape hatch
+    (tests/test_serve_batcher.py::
+    test_split_disabled_restores_single_covering_dispatch): a 20-row
+    drain that the cost table splits (16 + 4) goes out as one padded
+    segment when split=False, and every request gets its own rows."""
+    eng = _GatedEngine(max_batch=32)
+    b = DynamicBatcher(eng, max_wait_us=50_000, queue_depth=256,
+                       max_inflight=1, split=split).start()
+    try:
+        first = b.submit(_images(1))         # wedged at the fetch gate
+        assert eng.in_call.wait(timeout=10)
+        xs = [_images(4, seed=i) for i in range(5)]
+        futs = [b.submit(x) for x in xs]     # queue behind it: one drain
+        eng.gate.set()
+        first.result(timeout=10)
+        for x, f in zip(xs, futs):
+            np.testing.assert_array_equal(
+                f.result(timeout=10),
+                x.reshape(4, -1)[:, :10].astype(np.float32))
+    finally:
+        b.stop()
+    assert eng.calls[0] == 1 and sum(eng.calls[1:]) == 20
+    if split:
+        assert len(eng.calls) > 2, eng.calls
+    else:
+        assert eng.calls == [1, 20], eng.calls
+
+
 # -- scheduler, metrics, numerics, config -------------------------------------
 
 
@@ -485,11 +609,12 @@ def test_lenet_builds_but_is_not_served_yet():
 
 
 def test_selftest_cli_imports_no_jax():
-    """The selftest, end to end in a fresh interpreter: one serve_selftest
-    line with nothing rejected, and neither jax nor the JAX package in
-    sys.modules afterwards."""
+    """The selftest, end to end in a fresh interpreter, with the bench
+    module imported too: one serve_selftest line with nothing rejected,
+    and neither jax nor the JAX package in sys.modules afterwards."""
     code = (
         "import json, sys\n"
+        "import distributedmnist_tpu_torch.bench\n"
         "from distributedmnist_tpu_torch.serve.__main__ import main\n"
         "rc = main(['--device', 'cpu', '--model', 'mlp', '--selftest', "
         "'48', '--serve-max-batch', '16', '--serve-infer-dtype', "
