@@ -47,7 +47,24 @@ LeNet-5 serving path on one CUDA card.
    precision through the dynamic batcher, then the lifecycle: the trainer commits a later
    step, the registry loads and promotes it, rolls back from it, and the
    first version must be live again with the rollback event recorded.
-7. Runs the port's bench, `python -m distributedmnist_tpu_torch.bench`,
+7. Drives the port's HTTP server, `python -m distributedmnist_tpu_torch.serve
+   --port 0`, one subprocess a server, each on its own launch counts.
+   The MLP server boots the fitted weights from a checkpoint at
+   --serve-infer-dtype megakernel: /healthz polled to 200, 200
+   sequential 1-row /predict calls timed (p50/p99 printed with the
+   card's name and power limit), a 512-row /predict held against the
+   float32 model on the CPU at the megakernel gate's agreement, a fresh
+   version loaded and made a 0.25 canary and another a 0.5 shadow over
+   HTTP (/metrics must show both populations and the shadow
+   comparisons), a later checkpoint rolled in by SIGHUP (live at
+   megakernel again), and SIGTERM (rc 0, a serve_summary line). The
+   LeNet-5 server boots config 2's checkpoint at int8: /healthz 200,
+   int8 live, 200 timed 1-row calls, a 512-row /predict against the
+   float32 engine on the CPU at the int8 gate's agreement, SIGTERM rc 0.
+   Each server prints its launch counts on stderr at exit: the MLP
+   server must have launched dense_relu and mlp_megakernel, the LeNet
+   server quant_dense.
+8. Runs the port's bench, `python -m distributedmnist_tpu_torch.bench`,
    one subprocess a run, with short explicit windows: throughput of the
    MLP (batch 64) and of LeNet-5 (batch 512), LeNet-5's
    time-to-accuracy to 0.99 (one trial), and the serve legs of the MLP
@@ -57,7 +74,7 @@ LeNet-5 serving path on one CUDA card.
    or engine build after warmup, and the trial must reach its target;
    each record is printed on a `bench` line, and the launches the runs
    report are the `bench` path's.
-8. Prints a `kernels` JSON line (launches on each path, error, times,
+9. Prints a `kernels` JSON line (launches on each path, error, times,
    bound) and, last, {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero before the last line. Without a
@@ -166,6 +183,12 @@ BENCH_RUNS = (
      "--serve-duration", "1", "--checkpoint-dir", "{ckpt}"),
 )
 BENCH_TIMEOUT_S = 300
+# The HTTP phase: sequential 1-row /predict calls timed per server, the
+# rows of the large /predict held against the CPU's float32 model, and
+# how long a server may take to turn /healthz 200 or to roll a SIGHUP.
+HTTP_TIMED_CALLS = 200
+HTTP_CHECK_ROWS = 512
+HTTP_READY_S = 300
 # The root bench's record keys (its THROUGHPUT_r05.json, TTA_r05.json and
 # BENCH_serve_r13.json records, the serve legs not ported yet left out)
 BENCH_KEYS = {
@@ -921,6 +944,243 @@ def drive_lenet_serving_path(checkpoint_dir: str, lenet_data) -> dict:
     return phases
 
 
+def start_server(args, env, cwd):
+    """`python -m distributedmnist_tpu_torch.serve --port 0` with the given
+    flags on the card, read until its serve_ready line."""
+    from distributedmnist_tpu_torch.serve.process import ServerProcess
+
+    return ServerProcess(
+        [sys.executable, "-m", "distributedmnist_tpu_torch.serve",
+         "--port", "0", "--metrics-every", "5", *args],
+        env=env, cwd=cwd, ready_timeout=HTTP_READY_S)
+
+
+def healthy(srv) -> dict:
+    return srv.wait_for("/healthz 200", srv.healthy_payload,
+                        timeout=HTTP_READY_S)
+
+
+def timed_predicts(srv, images) -> dict:
+    """Sequential 1-row /predict calls, one per image, on the client's
+    clock: first a new connection a call (urllib), with the server's own
+    enqueue-to-result latency of those calls from /metrics; then the same
+    calls on one keep-alive connection, and as many /healthz calls on it
+    (HTTP without inference). p50/p99/mean ms each."""
+    import http.client
+
+    import numpy as np
+
+    def stats(lat):
+        return {"p50_ms": float(np.percentile(lat, 50)),
+                "p99_ms": float(np.percentile(lat, 99)),
+                "mean_ms": float(np.mean(lat))}
+
+    def timed(fn):
+        lat = []
+        for row in images:
+            t0 = time.perf_counter()
+            fn(np.ascontiguousarray(row).tobytes())
+            lat.append((time.perf_counter() - t0) * 1e3)
+        return stats(lat)
+
+    rec = {"calls": len(images),
+           **timed(lambda body: srv.ok("/predict", data=body))}
+    rec["server_latency_ms"] = srv.ok("/metrics")["latency_ms"]
+    conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=120)
+
+    def keepalive(method, path, body=None):
+        conn.request(method, path, body=body)
+        r = conn.getresponse()
+        r.read()
+        if r.status != 200:
+            raise RuntimeError(f"{method} {path}: {r.status}")
+
+    try:
+        rec["keepalive"] = timed(
+            lambda body: keepalive("POST", "/predict", body))
+        rec["healthz_keepalive"] = timed(
+            lambda body: keepalive("GET", "/healthz"))
+    finally:
+        conn.close()
+    return rec
+
+
+def stop_server(srv) -> tuple[dict, dict]:
+    """SIGTERM: (the serve_summary record, the launch counts it reported);
+    raises unless it exits 0 with both."""
+    done = srv.stop()
+    summaries = [r for r in done.records
+                 if r.get("metric") == "serve_summary"]
+    if done.rc != 0 or len(summaries) != 1 or len(done.launches) != 1:
+        raise RuntimeError(f"server exited {done.rc} with {len(summaries)} "
+                           f"summaries and {len(done.launches)} launch "
+                           f"lines:\n{done.stderr}")
+    return summaries[0], done.launches[0]
+
+
+def print_latency(name: str, rec: dict, card: str) -> None:
+    def ms(r):
+        return f"p50 {r['p50_ms']:.3f} ms p99 {r['p99_ms']:.3f} ms"
+
+    print(f"http {name}: {rec['calls']} sequential 1-row /predict {ms(rec)} "
+          f"(in the server {rec['server_latency_ms']['p50']} / "
+          f"{rec['server_latency_ms']['p99']} ms; one keep-alive "
+          f"connection {ms(rec['keepalive'])}, /healthz on it "
+          f"{ms(rec['healthz_keepalive'])}) on {card}", flush=True)
+
+
+def drive_http_path(params: dict, lenet_checkpoint_dir: str,
+                    card: str) -> tuple[dict, dict]:
+    """The port's HTTP server on the card, one subprocess a server: the
+    MLP at megakernel (canary, shadow, SIGHUP) and LeNet-5 at int8.
+    Returns (phases, {path: launch counts of that server})."""
+    import shutil
+    import signal
+
+    import numpy as np
+    import torch
+
+    from distributedmnist_tpu_torch import models
+    from distributedmnist_tpu_torch.checkpoint import Checkpointer
+    from distributedmnist_tpu_torch.data import synthetic_mnist
+    from distributedmnist_tpu_torch.serve import PARITY_GATES, InferenceEngine
+    from distributedmnist_tpu_torch.serve.quantize import PARITY_SEED
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    held = synthetic_mnist(seed=PARITY_SEED, train_n=16,
+                           test_n=HTTP_CHECK_ROWS)["test_x"]
+    rows = held.reshape(HTTP_CHECK_ROWS, 784)
+    phases, launches = {}, {}
+
+    def agreement(classes, want) -> float:
+        return float(np.mean(np.asarray(classes) == want))
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        def commit(step):
+            ck = Checkpointer(ckpt)
+            ck.save(step, {"params": params, "optimizer": {},
+                           "scheduler": {}})
+            ck.close()
+
+        commit(1)
+        net = models.build("mlp", device="cpu")
+        net.load_state_dict(params)
+        with torch.no_grad():
+            want = net(torch.from_numpy(rows).float() / 255.0).argmax(
+                -1).numpy()
+        srv = start_server(["--model", "mlp", "--checkpoint-dir", ckpt,
+                             "--serve-infer-dtype", "megakernel"], env, here)
+        try:
+            t0 = time.perf_counter()
+            health = healthy(srv)
+            rec = {"ready_s": time.perf_counter() - t0}
+            if (health["live_version"] != "step-1"
+                    or health["live_infer_dtype"] != "megakernel"
+                    or health["backend"] != "cuda"
+                    or health["device_kind"] != torch.cuda.get_device_name(0)):
+                raise RuntimeError(f"MLP server healthz: {health}")
+            rec["predict_1row"] = timed_predicts(srv, rows[:HTTP_TIMED_CALLS])
+            print_latency("mlp megakernel", rec["predict_1row"], card)
+            got = srv.ok("/predict", data=rows.tobytes())
+            agree = agreement(got["classes"], want)
+            if (got["n"] != HTTP_CHECK_ROWS or got["version"] != "step-1"
+                    or agree < PARITY_GATES["megakernel"][0]):
+                raise RuntimeError(f"512-row /predict: n {got['n']}, "
+                                   f"version {got['version']}, agreement "
+                                   f"{agree} with the CPU float32 model")
+            rec["agreement_512"] = agree
+
+            canary = srv.ok("/models/load", json_body={"fresh": {"seed": 1}})
+            shadow = srv.ok("/models/load", json_body={"fresh": {"seed": 2}})
+            srv.ok("/models/promote", json_body={
+                "version": canary["version"], "mode": "canary",
+                "fraction": 0.25})
+            routes = srv.ok("/models/promote", json_body={
+                "version": shadow["version"], "mode": "shadow",
+                "fraction": 0.5})
+            for row in rows[:100]:
+                srv.ok("/predict", data=np.ascontiguousarray(row).tobytes())
+            pair = f"step-1->{shadow['version']}"
+            m = srv.wait_for("the shadow comparisons", lambda: (
+                lambda m: m if m["shadow"].get(pair, {}).get("rows")
+                else None)(srv.ok("/metrics")))
+            by_v = m["by_version"]
+            if not (by_v.get("step-1", {}).get("requests")
+                    and by_v.get(canary["version"], {}).get("requests")):
+                raise RuntimeError(f"by_version lacks a population: {by_v}")
+            rec["canary_shadow"] = {
+                "routes": {k: routes[k] for k in ("live", "canary",
+                                                  "shadow")},
+                "by_version_requests": {v: s["requests"]
+                                        for v, s in by_v.items()},
+                "shadow": m["shadow"], "shadow_dropped": m["shadow_dropped"],
+                "shadow_errors": m["shadow_errors"],
+                "compiles_total": m["compiles_total"]}
+
+            commit(2)
+            srv.proc.send_signal(signal.SIGHUP)
+            t0 = time.perf_counter()
+            srv.wait_for("SIGHUP's step-2 at megakernel", lambda: (
+                lambda d: d["routes"]["live"] == "step-2"
+                and d["live_infer_dtype"] == "megakernel")(
+                    srv.ok("/models")))
+            rec["sighup_s"] = time.perf_counter() - t0
+            got = srv.ok("/predict", data=rows[:8].tobytes())
+            if got["version"] not in ("step-2", canary["version"]):
+                raise RuntimeError(f"after SIGHUP: {got}")
+        finally:
+            summary, counts = stop_server(srv)
+        rec["summary_requests"] = summary["requests"]
+        rec["launches"] = counts
+        phases["mlp"] = rec
+        launches["http_mlp"] = counts
+        print("http mlp: " + json.dumps(rec), flush=True)
+        if counts["dense_relu"] <= 0 or counts["mlp_megakernel"] <= 0:
+            raise RuntimeError(f"the MLP server did not launch dense_relu "
+                               f"and mlp_megakernel: {counts}")
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        step = str(TRAIN_STEPS["lenet-adam"])
+        shutil.copytree(os.path.join(lenet_checkpoint_dir, step),
+                        os.path.join(ckpt, step))
+        from distributedmnist_tpu_torch import checkpoint
+
+        lenet_params, _ = checkpoint.restore_latest_params(ckpt)
+        want = InferenceEngine("lenet", lenet_params, device="cpu",
+                               max_batch=HTTP_CHECK_ROWS).infer(
+            held).argmax(-1)
+        srv = start_server(["--model", "lenet", "--checkpoint-dir", ckpt,
+                             "--serve-infer-dtype", "int8"], env, here)
+        try:
+            t0 = time.perf_counter()
+            health = healthy(srv)
+            rec = {"ready_s": time.perf_counter() - t0}
+            if (health["live_version"] != f"step-{step}"
+                    or health["live_infer_dtype"] != "int8"):
+                raise RuntimeError(f"LeNet server healthz: {health}")
+            rec["predict_1row"] = timed_predicts(srv, rows[:HTTP_TIMED_CALLS])
+            print_latency("lenet int8", rec["predict_1row"], card)
+            got = srv.ok("/predict", data=rows.tobytes())
+            agree = agreement(got["classes"], want)
+            if agree < PARITY_GATES["int8"][0]:
+                raise RuntimeError(f"LeNet int8 512-row /predict agrees "
+                                   f"{agree} with the CPU float32 engine")
+            rec["agreement_512"] = agree
+        finally:
+            summary, counts = stop_server(srv)
+        rec["summary_requests"] = summary["requests"]
+        rec["launches"] = counts
+        phases["lenet"] = rec
+        launches["http_lenet"] = counts
+        print("http lenet: " + json.dumps(rec), flush=True)
+        if counts["quant_dense"] <= 0:
+            raise RuntimeError(f"the LeNet server did not launch "
+                               f"quant_dense: {counts}")
+    return phases, launches
+
+
 def drive_bench_path(lenet_checkpoint_dir: str) -> dict:
     """The port's bench, one subprocess a run (each mode in a process of
     its own, so no mode's TF32 or allocator state leaks into the next).
@@ -1079,6 +1339,10 @@ def main() -> int:
         if missing:
             raise RuntimeError(f"kernels never launched on the LeNet "
                                f"serving path: {missing}")
+
+        phases, http_launches = drive_http_path(params, lenet_ckpt, card)
+        launches.update(http_launches)
+        print("http_phases " + json.dumps(phases), flush=True)
 
         fused.reset_launches()
         launches["bench"] = drive_bench_path(lenet_ckpt)

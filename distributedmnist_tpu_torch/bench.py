@@ -773,15 +773,6 @@ def _serve(args) -> int:
     metrics = ServeMetrics()
     registry, router, factory = build_serving(cfg)
     _mark(f"backend up: 1x {factory.platform}")
-    # Engine builds, counted at the factory: none may happen after warmup.
-    engine_builds = [0]
-    make_engine = factory.make_engine
-
-    def counted_make_engine(*a, **kw):
-        engine_builds[0] += 1
-        return make_engine(*a, **kw)
-
-    factory.make_engine = counted_make_engine
     # `is None`, not `or`: an explicit 0 (no coalescing wait) is honoured
     max_wait_us = (cfg.serve_max_wait_us if args.serve_max_wait_us is None
                    else args.serve_max_wait_us)
@@ -810,7 +801,8 @@ def _serve(args) -> int:
         warm_builds += sum(vi.warmup_builds for vi in
                            registry.get(boot.version).variants.values())
     headline_dtype = router.live_infer_dtype() or "float32"
-    steady_from = (kernel_lib.load_events(), engine_builds[0])
+    # engine builds, counted at the factory: none may happen after warmup
+    steady_from = (kernel_lib.load_events(), factory.engine_builds)
 
     rng = np.random.default_rng(0)
     req = rng.integers(0, 256, (rows, 28, 28, 1), dtype=np.uint8)
@@ -885,7 +877,7 @@ def _serve(args) -> int:
                                max_wait_us)
 
     recompiles = ((kernel_lib.load_events() - steady_from[0])
-                  + (engine_builds[0] - steady_from[1]))
+                  + (factory.engine_builds - steady_from[1]))
     if recompiles:
         _mark(f"WARNING: {recompiles} kernel-library loads or engine "
               "builds after warmup — steady state was to build nothing")

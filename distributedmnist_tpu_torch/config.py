@@ -82,6 +82,11 @@ class Config:
     # Resident model versions the registry keeps (live + candidates +
     # rollback targets); past it the oldest routeless version is evicted.
     serve_max_versions: int = 4
+    # The ceiling on the pipeline-derived Retry-After header of every shed
+    # HTTP response (integer seconds, RFC 9110): derived from the
+    # in-flight depth at the measured batch cost, it is unbounded when a
+    # cost spikes, and past ~30 s it just tells clients to go away.
+    serve_retry_after_cap_s: float = 30.0
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -170,6 +175,10 @@ def add_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--serve-max-versions", type=int, default=None,
                    help="resident model versions kept (>= 2); the oldest "
                         "routeless one is evicted past it")
+    p.add_argument("--serve-retry-after-cap-s", type=float, default=None,
+                   help="ceiling on the pipeline-derived Retry-After "
+                        "header (integer seconds per RFC 9110) on shed "
+                        "responses")
     return p
 
 

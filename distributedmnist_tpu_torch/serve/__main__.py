@@ -1,20 +1,27 @@
 """Serve the MLP or LeNet-5 through the port:
 `python -m distributedmnist_tpu_torch.serve`.
 
-Selftest mode (the only mode ported so far; the HTTP server waits):
-bootstrap a model version — the latest checkpoint that the train CLI
-committed in --checkpoint-dir, or fresh-init parameters without one —
-warm it, promote it, optionally activate a parity-gated inference
-variant, drive N synthetic requests through the dynamic batcher, and
-print one JSON summary line ({"metric": "serve_selftest", ...}, each
-version with its checkpoint step) on stdout. Runs on the card; pass
---device cpu to run on the CPU.
+Both modes bootstrap a model version — the latest checkpoint that the
+train CLI committed in --checkpoint-dir, or fresh-init parameters
+without one — warm it, promote it and optionally activate a
+parity-gated inference variant (--serve-infer-dtype).
+
+- selftest (default, --selftest N): drive N synthetic requests through
+  the dynamic batcher and print one JSON summary line ({"metric":
+  "serve_selftest", ...}, each version with its checkpoint step).
+- --port P: serve HTTP on P (0 = an ephemeral port, announced as
+  {"metric": "serve_ready", "port": ...}); serve/server.py has the
+  routes. SIGHUP rolls to the latest checkpoint, SIGTERM/SIGINT drain
+  and print {"metric": "serve_summary", ...}. The launch count of each
+  hand-written kernel goes to stderr at exit (`serve: launches {...}`).
+
+Runs on the card; pass --device cpu to run on the CPU.
 
     python -m distributedmnist_tpu_torch.train --preset lenet-adam \\
         --synthetic --steps 1000 --checkpoint-dir ckpt
     python -m distributedmnist_tpu_torch.serve --model lenet \\
         --checkpoint-dir ckpt --selftest 256 --serve-infer-dtype int8
-    python -m distributedmnist_tpu_torch.serve --model mlp --selftest 256
+    python -m distributedmnist_tpu_torch.serve --model mlp --port 8000
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import signal
 import sys
 import time
 
@@ -60,19 +68,42 @@ def selftest(batcher, metrics, n_requests: int, max_batch: int) -> dict:
             "rejected_at_submit": rejected, **metrics.snapshot()}
 
 
-def main(argv=None) -> int:
-    logging.basicConfig(
-        level=logging.INFO, stream=sys.stderr,
-        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+def parser() -> argparse.ArgumentParser:
+    """The serve CLI's flags: the config's, and the root serve.py's
+    --port, --selftest, --metrics-every and --request-timeout."""
     p = argparse.ArgumentParser(
         prog="python -m distributedmnist_tpu_torch.serve",
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
     config_lib.add_args(p)
+    p.add_argument("--port", type=int, default=None,
+                   help="serve HTTP on this port (0 = ephemeral, "
+                        "announced on stdout); omit for selftest mode")
     p.add_argument("--selftest", type=int, default=None, metavar="N",
                    help="run N synthetic requests through the batcher "
-                        "and exit (default N=256)")
+                        "and exit (default mode, N=256)")
+    p.add_argument("--metrics-every", type=float, default=10.0,
+                   help="seconds between serve_stats heartbeat lines")
+    p.add_argument("--request-timeout", type=float, default=60.0,
+                   help="seconds an HTTP request may wait on its result "
+                        "before a 504 (bounds handler-thread lifetime "
+                        "when the pipeline wedges)")
+    return p
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(
+        level=logging.INFO, stream=sys.stderr,
+        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    p = parser()
     args = p.parse_args(argv)
+    if args.port is not None and args.selftest is not None:
+        p.error("--port and --selftest are mutually exclusive")
+    if args.request_timeout <= 0:
+        p.error("--request-timeout must be > 0")
+    if (args.serve_retry_after_cap_s is not None
+            and args.serve_retry_after_cap_s < 1):
+        p.error("--serve-retry-after-cap-s must be >= 1")
     if args.serve_max_inflight is not None and args.serve_max_inflight < 1:
         p.error("--serve-max-inflight must be >= 1")
     if args.serve_slo_ms is not None and args.serve_slo_ms <= 0:
@@ -84,12 +115,11 @@ def main(argv=None) -> int:
     cfg = config_lib.from_args(args)
 
     from distributedmnist_tpu_torch.serve import (DynamicBatcher,
-                                                  ParityRefused,
                                                   ServeMetrics,
                                                   build_serving)
 
     metrics = ServeMetrics()
-    registry, router, factory = build_serving(cfg)
+    registry, router, factory = build_serving(cfg, metrics=metrics)
     batcher = DynamicBatcher(router, max_batch=cfg.serve_max_batch,
                              max_wait_us=cfg.serve_max_wait_us,
                              queue_depth=cfg.serve_queue_depth,
@@ -100,33 +130,64 @@ def main(argv=None) -> int:
     log.info("dispatch pipeline depth: %d; buckets %s; device %s",
              batcher.max_inflight, list(factory.buckets), factory.device)
     try:
-        t0 = time.perf_counter()
-        mv = registry.bootstrap(seed=cfg.seed)
-        log.info("bootstrap %s (%s) warmed in %.2fs; live: %s",
-                 mv.version, mv.source, time.perf_counter() - t0,
-                 registry.live_version())
-        if cfg.serve_infer_dtype != "float32":
-            # float32 is live already; a variant the parity gate refuses
-            # leaves it serving, loudly. A variant that fails to build or
-            # launch is an error.
-            try:
-                pick = registry.activate_infer_dtype(
-                    mv.version, cfg.serve_infer_dtype)
-                log.info("inference variant %s is live (%s)", pick,
-                         "auto-picked" if cfg.serve_infer_dtype == "auto"
-                         else "requested")
-            except ParityRefused:
-                log.exception("--serve-infer-dtype %s refused; float32 "
-                              "stays live", cfg.serve_infer_dtype)
-        summary = selftest(batcher, metrics, args.selftest or 256,
-                           factory.max_batch)
+        if args.port is None:
+            warm(registry, cfg)
+            summary = selftest(batcher, metrics, args.selftest or 256,
+                               factory.max_batch)
+            summary["device"] = str(factory.device)
+            summary["live_infer_dtype"] = router.live_infer_dtype()
+            summary["versions"] = registry.describe()["versions"]
+        else:
+            summary = http_serve(args, cfg, batcher, metrics, registry)
     finally:
         batcher.stop()
-    summary["device"] = str(factory.device)
-    summary["live_infer_dtype"] = router.live_infer_dtype()
-    summary["versions"] = registry.describe()["versions"]
     print(json.dumps(summary), flush=True)
     return 0
+
+
+def warm(registry, cfg):
+    """Bootstrap the first version and put it live at the configured
+    precision (registry.go_live: a gate refusal goes live at float32,
+    loudly; a variant that fails to build or launch raises, and then
+    nothing goes live) — unless a version went live while it warmed (the
+    operator's newer choice wins)."""
+    t0 = time.perf_counter()
+    mv = registry.bootstrap(seed=cfg.seed, promote=False)
+    log.info("bootstrap %s (%s) warmed in %.2fs", mv.version, mv.source,
+             time.perf_counter() - t0)
+    live = registry.live_version()
+    if live is not None and live != mv.version:
+        log.info("bootstrap: %s went live during warmup; leaving it (%s "
+                 "stays ready)", live, mv.version)
+        return mv
+    pick = registry.go_live(mv.version, cfg.serve_infer_dtype)
+    log.info("%s is live at %s (--serve-infer-dtype %s)", mv.version, pick,
+             cfg.serve_infer_dtype)
+    return mv
+
+
+def http_serve(args, cfg, batcher, metrics, registry) -> dict:
+    """Serve HTTP until SIGTERM/SIGINT; SIGHUP rolls the model. Returns
+    the serve_summary record; the kernels' launch counts go to stderr."""
+    from distributedmnist_tpu_torch.ops import fused
+    from distributedmnist_tpu_torch.serve.process import LAUNCHES_PREFIX
+    from distributedmnist_tpu_torch.serve.server import (HTTPServer,
+                                                         ServerState)
+
+    server = HTTPServer(batcher, metrics, registry, ServerState(),
+                        port=args.port,
+                        request_timeout=args.request_timeout,
+                        retry_after_cap_s=cfg.serve_retry_after_cap_s,
+                        infer_dtype_choice=cfg.serve_infer_dtype)
+    signal.signal(signal.SIGTERM, lambda signum, frame: server.shutdown())
+    signal.signal(signal.SIGINT, lambda signum, frame: server.shutdown())
+    signal.signal(signal.SIGHUP, lambda signum, frame: server.reload())
+    try:
+        return server.serve(lambda: warm(registry, cfg),
+                            metrics_every=args.metrics_every)
+    finally:
+        print(LAUNCHES_PREFIX + json.dumps(fused.LAUNCHES),
+              file=sys.stderr, flush=True)
 
 
 if __name__ == "__main__":

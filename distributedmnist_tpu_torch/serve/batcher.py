@@ -14,9 +14,14 @@ k computes on the card while batch k+1 stages on the host.
 Backpressure: beyond `queue_depth` pending rows submit() raises Rejected
 (503 semantics) instead of letting the queue grow without bound.
 
+Deadlines: submit(x, deadline_s) takes a time.monotonic() deadline. One
+already past raises DeadlineExceeded at submit; a live one rides the
+request, and the dispatch thread sheds it as it pops the request if it
+has passed by then (504, zero device work).
+
 Not ported yet: intra-batch dedup, the single-request fast lane,
-deadlines, bisection of a failed dispatch, fault injection and tracing.
-A failed dispatch or fetch fails its whole segment and serving goes on.
+bisection of a failed dispatch, fault injection and tracing. A failed
+dispatch or fetch fails its whole segment and serving goes on.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from distributedmnist_tpu_torch.analysis.locks import (make_condition,
                                                        make_fifo, make_lock,
                                                        make_semaphore,
                                                        make_thread)
+from distributedmnist_tpu_torch.serve.resilience import DeadlineExceeded
 from distributedmnist_tpu_torch.serve.scheduler import (AdaptiveController,
                                                         plan_segments)
 
@@ -58,6 +64,7 @@ class _Request:
     x: "object"                   # (n, 28, 28, 1) uint8 ndarray
     n: int
     t_enqueue: float              # time.monotonic()
+    deadline: Optional[float] = None   # time.monotonic(); None = none
     future: Future = field(default_factory=Future)
 
 
@@ -114,17 +121,28 @@ class DynamicBatcher:
 
     # -- client side -------------------------------------------------------
 
-    def submit(self, x) -> Future:
+    def submit(self, x, deadline_s: Optional[float] = None) -> Future:
         """Enqueue up to max_batch rows; the Future resolves to their
-        logits. Raises Rejected past the queue watermark and ValueError
-        for a request no single dispatch could carry."""
+        logits. Raises Rejected past the queue watermark, ValueError for
+        a request no single dispatch could carry, and DeadlineExceeded
+        when `deadline_s` (a time.monotonic() deadline) has passed
+        already: an expired request costs no queue or device work. A
+        live deadline rides the request; _take_batch sheds it if it
+        expires while queued."""
         x = self.engine._as_images(x)
         n = x.shape[0]
         if n > self.max_batch:
             raise ValueError(
                 f"request of {n} rows exceeds max_batch={self.max_batch};"
                 " split it client-side")
-        req = _Request(x=x, n=n, t_enqueue=time.monotonic())
+        now = time.monotonic()
+        if deadline_s is not None and now >= deadline_s:
+            if self.metrics is not None:
+                self.metrics.record_deadline_shed(n)
+            raise DeadlineExceeded(
+                "deadline already expired at submit "
+                f"({(now - deadline_s) * 1e3:.1f} ms ago)")
+        req = _Request(x=x, n=n, t_enqueue=now, deadline=deadline_s)
         with self._cond:
             if self._stop:
                 raise RuntimeError("batcher is stopped")
@@ -202,33 +220,66 @@ class DynamicBatcher:
         request, pop a prefix that fits max_batch and plan it into
         segments. [] only when stopping with an empty queue. Popped
         segments are counted in-flight before the queue lock drops, so
-        an observer never sees a popped drain in neither count."""
-        with self._cond:
-            while not self._q and not self._stop:
-                self._cond.wait(0.1)
-            if not self._q:
-                return []
-            wait_s = (self.controller.effective_wait_s()
-                      if self.controller is not None else self.max_wait_s)
+        an observer never sees a popped drain in neither count.
+
+        Requests whose deadline has passed are shed as they are popped:
+        their futures fail with DeadlineExceeded, off the queue lock, and
+        they never reach a dispatch. A pop that sheds its whole drain
+        coalesces again instead of returning [] (the shutdown signal)."""
+        while True:
+            with self._cond:
+                segments, shed = self._take_batch_locked()
+            self._shed_expired(shed)
+            if segments is not None:
+                return segments
+
+    def _shed_expired(self, shed: list) -> None:
+        """Fail the deadline-expired requests one drain popped (504),
+        outside the queue lock: a future's callbacks run inline."""
+        for req, t_shed in shed:
             if self.metrics is not None:
-                self.metrics.record_wait(wait_s)
-            deadline = self._q[0].t_enqueue + wait_s
-            while self._rows < self.max_batch and not self._stop:
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    break
-                self._cond.wait(remaining)
-            batch = []
-            taken = 0
-            while self._q and taken + self._q[0].n <= self.max_batch:
-                req = self._q.popleft()
-                self._rows -= req.n
-                taken += req.n
-                batch.append(req)
-            segments = self._plan(batch)
-            with self._inflight_lock:
-                self._inflight += len(segments)
-            return segments
+                self.metrics.record_deadline_shed(req.n)
+            req.future.set_exception(DeadlineExceeded(
+                "deadline expired while queued "
+                f"({(t_shed - req.deadline) * 1e3:.1f} ms past); "
+                "shed before dispatch"))
+
+    def _take_batch_locked(self) -> tuple:
+        """One coalesce-pop-plan cycle under self._cond: (segments, shed),
+        segments None when everything popped was shed, shed the
+        (request, pop time) pairs the caller fails once the lock drops."""
+        shed: list = []
+        while not self._q and not self._stop:
+            self._cond.wait(0.1)
+        if not self._q:
+            return [], shed
+        wait_s = (self.controller.effective_wait_s()
+                  if self.controller is not None else self.max_wait_s)
+        if self.metrics is not None:
+            self.metrics.record_wait(wait_s)
+        deadline = self._q[0].t_enqueue + wait_s
+        while self._rows < self.max_batch and not self._stop:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                break
+            self._cond.wait(remaining)
+        batch = []
+        taken = 0
+        now = time.monotonic()
+        while self._q and taken + self._q[0].n <= self.max_batch:
+            req = self._q.popleft()
+            self._rows -= req.n
+            if req.deadline is not None and now >= req.deadline:
+                shed.append((req, now))
+                continue
+            taken += req.n
+            batch.append(req)
+        if not batch:
+            return None, shed
+        segments = self._plan(batch)
+        with self._inflight_lock:
+            self._inflight += len(segments)
+        return segments, shed
 
     def _plan(self, batch: list[_Request]) -> list[list[_Request]]:
         """The batch former: cut one drain into bucket-shaped segments by

@@ -1,8 +1,10 @@
 """Serving observability core: per-request latency percentiles, batch
-occupancy per bucket, queue depth, the staging/fetch pipeline split and
-requests/sec — the ServeMetrics snapshot the selftest summary carries
-(the core of the JAX package's serve/metrics.py; its Prometheus
-exposition is not ported yet).
+occupancy per bucket, queue depth, the staging/fetch pipeline split,
+requests/sec, the per-version populations (live and canary apart), the
+shadow comparisons and the deadline sheds — the ServeMetrics snapshot
+the selftest summary, the HTTP server's /metrics and its heartbeat lines
+carry (the core of the JAX package's serve/metrics.py, with its key
+names; its Prometheus exposition is not ported yet, ROADMAP §1 item 6).
 
 Occupancy is rows served per bucket slot executed: low occupancy says
 the coalescing wait is too short or the traffic too bursty for the
@@ -15,7 +17,7 @@ import time
 from collections import deque
 
 from distributedmnist_tpu_torch.analysis.locks import make_lock
-from distributedmnist_tpu_torch.utils import percentiles
+from distributedmnist_tpu_torch.utils import MetricsLogger, percentiles
 
 
 def _ms(pct: dict) -> dict:
@@ -62,6 +64,13 @@ class ServeMetrics:
             self._by_dtype: dict[str, dict] = {}
             self._dispatch_error_requests = 0
             self._fetch_error_requests = 0
+            # "live->shadow" pair -> comparison totals; failed and
+            # cap-dropped duplicates
+            self._shadow: dict[str, dict] = {}
+            self._shadow_errors = 0
+            self._shadow_dropped = 0
+            self._deadline_shed_requests = 0
+            self._deadline_shed_rows = 0
 
     # -- recording hooks (called by the batcher) ---------------------------
 
@@ -129,6 +138,40 @@ class ServeMetrics:
             self._rejected_requests += 1
             self._rejected_rows += rows
 
+    def record_shadow(self, live_version: str, shadow_version: str,
+                      rows: int, agree_rows: int,
+                      max_abs_diff: float) -> None:
+        """One shadowed batch compared: the rows whose argmax agreed
+        between live and candidate, and the largest logit gap."""
+        with self._lock:
+            s = self._shadow.setdefault(
+                f"{live_version}->{shadow_version}",
+                {"batches": 0, "rows": 0, "agree_rows": 0,
+                 "max_abs_diff": 0.0})
+            s["batches"] += 1
+            s["rows"] += rows
+            s["agree_rows"] += agree_rows
+            s["max_abs_diff"] = max(s["max_abs_diff"], max_abs_diff)
+
+    def record_shadow_error(self) -> None:
+        """A shadow dispatch or fetch failed (swallowed: live traffic is
+        untouched, but a broken candidate must show)."""
+        with self._lock:
+            self._shadow_errors += 1
+
+    def record_shadow_drop(self) -> None:
+        """A sampled batch skipped its duplicate at the outstanding-shadow
+        cap (a slow candidate)."""
+        with self._lock:
+            self._shadow_dropped += 1
+
+    def record_deadline_shed(self, rows: int = 1) -> None:
+        """One request shed on an expired client deadline before dispatch
+        (504, zero device work)."""
+        with self._lock:
+            self._deadline_shed_requests += 1
+            self._deadline_shed_rows += rows
+
     def record_dispatch_error(self, requests: int) -> None:
         with self._lock:
             self._dispatch_error_requests += requests
@@ -154,6 +197,7 @@ class ServeMetrics:
                     "batches": s["batches"], "lat": list(s["lat"])}
                 for v, s in self._by_version.items()}
             by_dtype = {d: dict(s) for d, s in self._by_dtype.items()}
+            shadow_raw = {pair: dict(s) for pair, s in self._shadow.items()}
             c = {
                 "requests": self._requests, "rows": self._rows,
                 "batches": self._batches,
@@ -169,6 +213,10 @@ class ServeMetrics:
                 "dispatches": self._dispatches,
                 "dispatch_error_requests": self._dispatch_error_requests,
                 "fetch_error_requests": self._fetch_error_requests,
+                "shadow_errors": self._shadow_errors,
+                "shadow_dropped": self._shadow_dropped,
+                "deadline_shed_requests": self._deadline_shed_requests,
+                "deadline_shed_rows": self._deadline_shed_rows,
             }
         return {
             "window_s": round(elapsed, 3),
@@ -212,7 +260,29 @@ class ServeMetrics:
                     "batches": s["batches"],
                     "latency_ms": _ms(percentiles(s["lat"]))}
                 for v, s in sorted(by_version_raw.items())},
+            "shadow": {
+                pair: {**s,
+                       "agreement": (round(s["agree_rows"] / s["rows"], 4)
+                                     if s["rows"] else None),
+                       "max_abs_diff": round(s["max_abs_diff"], 6)}
+                for pair, s in sorted(shadow_raw.items())},
+            "shadow_errors": c["shadow_errors"],
+            "shadow_dropped": c["shadow_dropped"],
             "by_dtype": {d: s for d, s in sorted(by_dtype.items())},
-            "dispatch_error_requests": c["dispatch_error_requests"],
-            "fetch_error_requests": c["fetch_error_requests"],
+            # the JAX snapshot's block, with the counters the port has
+            # (bisection and the breaker are ROADMAP §1 item 6)
+            "resilience": {
+                "deadline_shed_requests": c["deadline_shed_requests"],
+                "deadline_shed_rows": c["deadline_shed_rows"],
+                "dispatch_error_requests": c["dispatch_error_requests"],
+                "fetch_error_requests": c["fetch_error_requests"],
+            },
         }
+
+    def record(self) -> dict:
+        """The heartbeat record: the snapshot under the conventional
+        'metric' key."""
+        return {"metric": "serve_stats", **self.snapshot()}
+
+    def heartbeat_line(self) -> str:
+        return MetricsLogger.summary_line(self.record())

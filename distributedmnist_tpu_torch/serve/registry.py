@@ -14,9 +14,14 @@ live version and promotes the newest healthy resident; past
 parameters and must also pass the accuracy-parity gate against the
 float32 engine on a held-out batch before they may take traffic.
 
-All versions share one EngineFactory — model, device, bucket ladder — so
-a swap never changes the shapes the kernels run at. Not ported yet:
-replicas, shadow/canary routes, the prediction cache and the cascade.
+Beside the live route, a warmed non-live version may take a canary
+fraction of traffic for real, or shadow a fraction of live traffic
+(compared and dropped); versions holding any route are never evicted,
+and add() refuses a newcomer up front when every resident version holds
+one. All versions share one EngineFactory — model, device, bucket
+ladder — so a swap never changes the shapes the kernels run at. Not
+ported yet: replicas, the prediction cache and the cascade (ROADMAP §1
+item 6).
 """
 
 from __future__ import annotations
@@ -115,12 +120,26 @@ class EngineFactory:
         self.platform = self.device.type
         self.max_batch = max_batch
         self.buckets = make_buckets(max_batch)
+        # engines built so far: with the kernel-library loads, the
+        # process's build count (the HTTP server's compiles_total)
+        self.engine_builds = 0
 
-    def make_router(self) -> Router:
-        return Router(self.max_batch, self.buckets, self.platform)
+    @property
+    def device_kind(self) -> str:
+        """The card's name, or "cpu"."""
+        if self.device.type == "cuda":
+            import torch
+
+            return torch.cuda.get_device_name(self.device)
+        return "cpu"
+
+    def make_router(self, metrics=None, seed: int = 0) -> Router:
+        return Router(self.max_batch, self.buckets, self.platform,
+                      metrics=metrics, seed=seed)
 
     def make_engine(self, params, version: str,
                     infer_dtype: str = "float32") -> InferenceEngine:
+        self.engine_builds += 1
         return InferenceEngine(self.model, params, device=self.device,
                                max_batch=self.max_batch, version=version,
                                infer_dtype=infer_dtype)
@@ -187,8 +206,9 @@ class ModelRegistry:
             source: str = "direct", step: Optional[int] = None
             ) -> ModelVersion:
         """Register + pre-warm a float32 parameter set. Returns the
-        version in state 'ready'; raises if the name is taken or warmup
-        fails (the version is then recorded as 'failed')."""
+        version in state 'ready'; raises if the name is taken, if every
+        resident version holds a route (before any warmup work), or if
+        warmup fails (the version is then recorded as 'failed')."""
         with self._admin:
             with self._state:
                 if version is None:
@@ -196,6 +216,20 @@ class ModelRegistry:
                     version = f"v{self._auto_id}"
                 if version in self._versions:
                     raise ValueError(f"version {version!r} already loaded")
+                # with every resident version holding a route, eviction
+                # could free nothing but the newcomer: refuse now, not
+                # after warming an engine only to drop it
+                in_route = self.router.versions_in_route()
+                evictable = [n for n, v in self._versions.items()
+                             if v.state == "failed"
+                             or (v.state == "ready" and n not in in_route)]
+                if len(self._versions) >= self.max_versions \
+                        and not evictable:
+                    raise RuntimeError(
+                        f"registry full: {len(self._versions)} resident "
+                        "versions all hold routing roles (live/shadow/"
+                        "canary); clear a candidate or raise "
+                        "serve_max_versions")
                 mv = ModelVersion(version=version, engine=None,
                                   state="warming", source=source, step=step,
                                   loaded_mono=time.monotonic())
@@ -280,16 +314,20 @@ class ModelRegistry:
             return self.add(params, version=version,
                             source=f"checkpoint {directory}", step=step)
 
-    def bootstrap(self, seed: int = 0) -> ModelVersion:
+    def bootstrap(self, seed: int = 0, promote: bool = True
+                  ) -> ModelVersion:
         """Process start: the latest checkpoint when checkpoint_dir holds
         one, fresh-init parameters otherwise, warmed, then promoted —
         unless another version went live while this one warmed (the
-        operator's newer choice wins)."""
+        operator's newer choice wins), or `promote` is False (the caller
+        puts it live, e.g. by go_live)."""
         if self.checkpoint_dir and checkpoint.committed_steps(
                 self.checkpoint_dir):
             mv = self.load_latest()
         else:
             mv = self.add_fresh(seed=seed)
+        if not promote:
+            return mv
         with self._admin:
             live = self.router.live_version()
             if live is None or live == mv.version:
@@ -457,6 +495,23 @@ class ModelRegistry:
         self.promote(version, infer_dtype=pick)
         return pick
 
+    def go_live(self, version: str, choice: str) -> str:
+        """Put `version` live at the configured precision `choice`: the
+        one path of process start and of SIGHUP. float32 is promoted at
+        once; a variant only once it is warmed and gated. A gate refusal
+        is forgiven: the version goes live at float32, loudly. Any other
+        failure (a variant kernel that does not build or launch) raises
+        with nothing promoted, so whatever was live stays live. Returns
+        the dtype now live."""
+        if choice != "float32":
+            try:
+                return self.activate_infer_dtype(version, choice)
+            except ParityRefused:
+                log.exception("registry: %s refused on %s; it goes live "
+                              "at float32", choice, version)
+        self.promote(version)
+        return "float32"
+
     # -- routing -----------------------------------------------------------
 
     def promote(self, version: str,
@@ -539,6 +594,35 @@ class ModelRegistry:
         with self._state:
             return list(self._events)
 
+    def set_shadow(self, version: str, fraction: float = 0.1
+                   ) -> ModelVersion:
+        """Duplicate `fraction` of live traffic to `version` (warmed, not
+        live); its results are compared and dropped, never returned."""
+        with self._admin, self._state:
+            mv = self._get(version)
+            if mv.state != "ready":
+                raise RuntimeError(
+                    f"version {version!r} is {mv.state!r}; only a warmed "
+                    "non-live version can shadow")
+            self.router.set_shadow(mv.engine, mv.version, fraction)
+            return mv
+
+    def set_canary(self, version: str, fraction: float = 0.1
+                   ) -> ModelVersion:
+        """Route `fraction` of traffic to `version` (warmed, not live) for
+        real; version-tagged metrics keep the two populations apart."""
+        with self._admin, self._state:
+            mv = self._get(version)
+            if mv.state != "ready":
+                raise RuntimeError(
+                    f"version {version!r} is {mv.state!r}; only a warmed "
+                    "non-live version can take canary traffic")
+            self.router.set_canary(mv.engine, mv.version, fraction)
+            return mv
+
+    def clear_candidates(self) -> None:
+        self.router.clear_candidates()
+
     # -- introspection -----------------------------------------------------
 
     def _get(self, version: str) -> ModelVersion:
@@ -574,7 +658,8 @@ class ModelRegistry:
 
     def _evict_locked(self, protect: set = frozenset()) -> None:
         """Drop the oldest routeless versions past max_versions (the
-        caller holds _state): 'failed' or 'ready' and holding no route.
+        caller holds _state): 'failed', or 'ready' and holding no route
+        (live, canary or shadow).
         Versions in `protect` (the one just added or promoted) are never
         dropped. A batch in flight keeps its engine alive through its
         handle, so eviction never frees an engine under a dispatch."""
@@ -589,20 +674,22 @@ class ModelRegistry:
                     log.info("registry: evicted %s (%s)", name, mv.state)
                     break
             else:
-                return            # everything left is live or warming
+                return            # everything left is routed or warming
 
 
-def build_serving(cfg):
+def build_serving(cfg, metrics=None):
     """(registry, router, factory) from a Config: `cfg.model` (mlp or
     lenet), its device, bucket ladder, checkpoint_dir and
-    serve_max_versions. No version is loaded yet: the caller bootstraps.
-    Raises without a card unless cfg.device is 'cpu'."""
+    serve_max_versions; the router records shadow comparisons into
+    `metrics` and draws its routes from cfg.seed. No version is loaded
+    yet: the caller bootstraps. Raises without a card unless cfg.device
+    is 'cpu'."""
     from distributedmnist_tpu_torch import models
 
     models.build(cfg.model, device="meta")    # refuses unknown names
     factory = EngineFactory(cfg.model, device=cfg.device,
                             max_batch=cfg.serve_max_batch)
-    router = factory.make_router()
+    router = factory.make_router(metrics=metrics, seed=cfg.seed)
     registry = ModelRegistry(factory, router,
                              checkpoint_dir=cfg.checkpoint_dir,
                              max_versions=cfg.serve_max_versions)

@@ -1,0 +1,613 @@
+"""The HTTP front door of the port's serving stack (the counterpart of
+the root serve.py's ServerState, shed_retry_after_s and _http_serve):
+`python -m distributedmnist_tpu_torch.serve --port P`.
+
+    POST /predict          body = raw uint8 pixels, n*784 bytes ->
+                           {"classes": [...], "n": n, "version": ...},
+                           `version` the one that computed the batch
+                           (under a canary, not always the live one).
+                           400 on a malformed body, 413 past max_batch
+                           rows, 503 + Retry-After when the queue is past
+                           its watermark or nothing is live yet, 504 when
+                           the optional X-Deadline-Ms budget expires
+                           before dispatch (zero device work) or a wait
+                           passes --request-timeout or the budget
+    GET  /healthz          {"ok", "state": warming|running|draining|
+                           failed, "live_version", ...}; 200 only once a
+                           warmed version is live
+    GET  /models           the registry: versions and the routing table
+    POST /models/load      {} | {"dir"?, "version"?} | {"fresh": {"seed"?,
+                           "version"?}} — restore (or fresh-init) and
+                           warm a version off the hot path; promotable,
+                           not live
+    POST /models/promote   {"version", "mode"?: live|canary|shadow,
+                           "fraction"?, "infer_dtype"? (live only)}
+    GET  /metrics          the ServeMetrics record plus the queue gauges,
+                           the adaptive controller and compiles_total
+
+SIGHUP loads the latest checkpoint of --checkpoint-dir and puts it live
+at the configured --serve-infer-dtype, as at boot; SIGTERM/SIGINT
+drain (healthz 503), stop the server and print a serve_summary line.
+The server prints {"metric": "serve_ready", "port": P} first, warms the
+first version on a thread (a failure leaves the server up and /healthz
+503 "failed") and writes a serve_stats heartbeat line every
+--metrics-every seconds.
+
+Routes whose layer the JAX server refuses on this configuration answer
+as it does: X-Accuracy-Class and X-Tenant (400), GET /trace, /tenants
+and POST /tenants/... (409), POST /replicas/... on one replica (409).
+Routes that need a layer the port has not got answer 501 naming it:
+?format=prometheus and POST /cluster/epoch (ROADMAP §1 item 6). Signal
+handlers are installed by the caller (serve/__main__.py), so tests can
+run a server in-process.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import datetime
+import json
+import logging
+import math
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Callable, Optional
+from urllib.parse import parse_qs, urlsplit
+
+import numpy as np
+
+from distributedmnist_tpu_torch.analysis.locks import make_lock, make_thread
+from distributedmnist_tpu_torch.ops import kernel_lib
+from distributedmnist_tpu_torch.serve.batcher import Rejected
+from distributedmnist_tpu_torch.serve.quantize import INFER_DTYPES
+from distributedmnist_tpu_torch.serve.resilience import DeadlineExceeded
+from distributedmnist_tpu_torch.serve.router import NoLiveModel
+
+log = logging.getLogger("distributedmnist_tpu_torch")
+
+IMAGE_BYTES = 28 * 28
+# the JAX cascade's accuracy classes: the header is validated against
+# them before it is refused, as the JAX server does without a cascade
+ACCURACY_CLASSES = ("fast", "balanced", "exact")
+UNPORTED = "ROADMAP §1 item 6"
+
+
+class ServerState:
+    """The serving process's lifecycle phase, reported by /healthz:
+    warming -> running -> draining, and "failed" when the first version's
+    load or warmup died (the server stays up to say why). Every
+    transition takes the lock; draining is terminal."""
+
+    def __init__(self):
+        self._lock = make_lock("serve.state")
+        self.phase = "warming"
+        # lint: allow[DML004] wall-clock birth stamp for the ISO healthz field only
+        self.started_at = time.time()
+        self._started_mono = time.monotonic()
+
+    def mark_running(self) -> None:
+        """warming/failed -> running (no-op from draining)."""
+        with self._lock:
+            if self.phase in ("warming", "failed"):
+                self.phase = "running"
+
+    def mark_failed(self) -> None:
+        """warming -> failed (no-op once running or draining)."""
+        with self._lock:
+            if self.phase == "warming":
+                self.phase = "failed"
+
+    def begin_drain(self) -> None:
+        with self._lock:
+            self.phase = "draining"
+
+    def healthz(self, registry, batcher) -> tuple[int, dict]:
+        live = registry.live_version()
+        events = (registry.events() if hasattr(registry, "events")
+                  else [])
+        attempts = [e for e in events
+                    if e.get("event", "").startswith("rollback")]
+        rollbacks = [e for e in attempts if e.get("event") == "rollback"]
+        # a version going live by any path (the warm thread, an admin
+        # load and promote, SIGHUP) recovers warming/failed; draining
+        # stays terminal
+        if live is not None:
+            self.mark_running()
+        with self._lock:
+            phase = self.phase
+        ok = phase == "running" and live is not None
+        desc = registry.describe()
+        payload = {
+            "ok": ok,
+            "state": phase,
+            "started_at": datetime.datetime.fromtimestamp(
+                self.started_at,
+                datetime.timezone.utc).isoformat(timespec="seconds"),
+            "uptime_s": round(time.monotonic() - self._started_mono, 3),
+            "live_version": live,
+            "live_infer_dtype": desc.get("live_infer_dtype"),
+            "pending_rows": batcher.pending_rows(),
+            "inflight_batches": batcher.inflight_batches(),
+            "versions": len(desc["versions"]),
+            "rollbacks": len(rollbacks),
+            "last_rollback": attempts[-1] if attempts else None,
+            # no gateway assigns an epoch and no cascade is enabled: the
+            # JAX server's values on this configuration
+            "cluster_epoch": None,
+            "cascade": None,
+        }
+        factory = getattr(registry, "factory", None)
+        if factory is not None:
+            payload["backend"] = factory.platform
+            payload["device_kind"] = factory.device_kind
+        return (200 if ok else 503), payload
+
+
+def shed_retry_after_s(batcher, cap_s: float = 30.0) -> int:
+    """Retry-After for every shed response (watermark 503, no live model
+    503, deadline 504), from the pipeline's state: the effective
+    coalescing wait plus the in-flight depth (and the request itself)
+    priced at the measured full-batch cost. Integer seconds (RFC 9110),
+    at least 1, at most `cap_s`."""
+    wait_s = (batcher.controller.effective_wait_s()
+              if batcher.controller is not None else batcher.max_wait_s)
+    costs_fn = getattr(batcher.engine, "bucket_costs", None)
+    costs = costs_fn() if callable(costs_fn) else {}
+    svc_s = max(costs.values()) if costs else 0.0
+    depth = batcher.inflight_batches()
+    cap = max(1, int(cap_s))
+    return max(1, min(cap, math.ceil(wait_s + (depth + 1) * svc_s)))
+
+
+def compiles_total(factory) -> int:
+    """Kernel-library builds and loads plus engine builds in this process:
+    the count the bench holds to 0 after warmup
+    (`recompiles_after_warmup`)."""
+    return kernel_lib.load_events() + factory.engine_builds
+
+
+class HTTPServer:
+    """The HTTP server over one batcher, metrics and registry, bound at
+    construction (port 0 = an ephemeral port, `self.port`). serve() runs
+    it until shutdown() and returns the summary; reload() is SIGHUP's
+    model roll."""
+
+    def __init__(self, batcher, metrics, registry, state: ServerState,
+                 port: int = 0, request_timeout: float = 60.0,
+                 retry_after_cap_s: float = 30.0,
+                 infer_dtype_choice: str = "float32"):
+        self.batcher = batcher
+        self.metrics = metrics
+        self.registry = registry
+        self.state = state
+        self.request_timeout = request_timeout
+        self.retry_after_cap_s = retry_after_cap_s
+        self.infer_dtype_choice = infer_dtype_choice
+        self.max_batch = registry.factory.max_batch
+        # serializes the admin mutations of HTTP and SIGHUP threads,
+        # held across restores and warmups (never by the dispatch path)
+        self.admin_lock = make_lock("serve.admin")
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", port),
+                                         _handler_class(self))
+        self.port = self.httpd.server_address[1]
+
+    def retry_after(self) -> dict:
+        return {"Retry-After": str(
+            shed_retry_after_s(self.batcher, self.retry_after_cap_s))}
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def serve(self, warm: Callable[[], None],
+              metrics_every: float = 10.0) -> dict:
+        """Announce the port, warm on a thread, beat, serve until
+        shutdown(); returns the serve_summary record."""
+        print(json.dumps({"metric": "serve_ready", "port": self.port}),
+              flush=True)
+
+        def _warm():
+            try:
+                warm()
+                self.state.mark_running()
+            except Exception:
+                self.state.mark_failed()
+                log.exception("initial model load/warm failed; serving "
+                              "503s until an admin load succeeds")
+
+        make_thread(target=_warm, name="serve-warm", daemon=True).start()
+        stop = threading.Event()
+
+        def _beat():
+            while not stop.wait(metrics_every):
+                print(self.metrics.heartbeat_line(), flush=True)
+
+        make_thread(target=_beat, name="serve-heartbeat",
+                    daemon=True).start()
+        try:
+            self.httpd.serve_forever(poll_interval=0.2)
+        finally:
+            stop.set()
+            self.httpd.server_close()
+        return {"metric": "serve_summary", "port": self.port,
+                "live_version": self.registry.live_version(),
+                **self.metrics.snapshot()}
+
+    def shutdown(self) -> None:
+        """SIGTERM/SIGINT: healthz turns 503 while in-flight work ends;
+        serve_forever() stops from another thread."""
+        self.state.begin_drain()
+        make_thread(target=self.httpd.shutdown, name="serve-shutdown",
+                    daemon=True).start()
+
+    def reload(self) -> threading.Thread:
+        """SIGHUP: on a thread, load the latest checkpoint and put it live
+        at the configured precision, as at boot (registry.go_live). A gate
+        refusal puts it live at float32, loudly; any other failure leaves
+        the version that was live, at its precision, and logs an error."""
+        t = make_thread(target=self._reload, name="serve-reload",
+                        daemon=True)
+        t.start()
+        return t
+
+    def _reload(self) -> None:
+        try:
+            with self.admin_lock:
+                mv = self.registry.load_latest()
+                pick = self.registry.go_live(mv.version,
+                                             self.infer_dtype_choice)
+            log.info("SIGHUP reload: %s is live at %s", mv.version, pick)
+        except Exception:
+            log.exception("SIGHUP reload FAILED; %s stays live at %s",
+                          self.registry.live_version(),
+                          self.registry.router.live_infer_dtype())
+
+    # -- GET ---------------------------------------------------------------
+
+    def metrics_payload(self) -> dict:
+        """GET /metrics: the metrics record plus the pipeline's gauges,
+        the adaptive controller's state and compiles_total; the JAX
+        server's blocks of layers that are off here are None."""
+        b = self.batcher
+        payload = self.metrics.record()
+        payload["queue"] = {
+            "pending_rows": b.pending_rows(),
+            "inflight_batches": b.inflight_batches(),
+            "max_inflight": b.max_inflight,
+            "queue_depth_watermark": b.queue_depth,
+        }
+        payload["adaptive"] = (b.controller.snapshot()
+                               if b.controller is not None else None)
+        for key in ("cache", "resilience_policy", "fleet", "trace",
+                    "tenancy"):
+            payload[key] = None
+        payload["compiles_total"] = compiles_total(self.registry.factory)
+        return payload
+
+
+def _handler_class(server: HTTPServer):
+    registry, batcher = server.registry, server.batcher
+    max_body = server.max_batch * IMAGE_BYTES
+
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+        # TCP_NODELAY: a response goes out in two writes (headers, body),
+        # and on a keep-alive connection Nagle holds the second until the
+        # client's delayed ACK of the first, about 40 ms a request
+        disable_nagle_algorithm = True
+
+        def log_message(self, fmt, *args):   # requests are metered, not
+            pass                             # logged line by line
+
+        def _send(self, code: int, payload: dict,
+                  extra: Optional[dict] = None) -> None:
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            for k, v in (extra or {}).items():
+                self.send_header(k, v)
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _content_length(self) -> Optional[int]:
+            """The request's Content-Length (0 when absent), or None when
+            it is not a non-negative integer: read as is, a negative
+            length would read until the client hangs up."""
+            try:
+                length = int(self.headers.get("Content-Length", 0))
+            except ValueError:
+                return None
+            return length if length >= 0 else None
+
+        def _json_body(self) -> dict:
+            length = self._content_length()
+            if length is None:
+                raise ValueError("bad Content-Length")
+            if length == 0:
+                return {}
+            raw = self.rfile.read(length)
+            body = json.loads(raw) if raw.strip() else {}
+            if not isinstance(body, dict):
+                raise ValueError("body must be a JSON object")
+            return body
+
+        def _wants_prometheus(self) -> bool:
+            q = parse_qs(urlsplit(self.path).query)
+            if q.get("format", [None])[0] == "prometheus":
+                return True
+            accept = self.headers.get("Accept", "")
+            return ("text/plain" in accept
+                    and "application/json" not in accept)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                code, payload = server.state.healthz(registry, batcher)
+                self._send(code, payload)
+            elif self.path == "/trace" or self.path.startswith("/trace?"):
+                self._send(409, {
+                    "error": "tracing is not enabled: the port has no "
+                             f"request tracer yet ({UNPORTED})"})
+            elif (self.path == "/metrics"
+                  or self.path.startswith("/metrics?")):
+                if self._wants_prometheus():
+                    self._send(501, {
+                        "error": "the Prometheus exposition is not "
+                                 f"ported yet ({UNPORTED}); GET /metrics "
+                                 "serves JSON"})
+                else:
+                    self._send(200, server.metrics_payload())
+            elif self.path == "/models":
+                self._send(200, registry.describe())
+            elif self.path == "/tenants":
+                self._send(409, {"error": "multi-tenant serving is off "
+                                          f"({UNPORTED})"})
+            else:
+                self._send(404, {"error": f"unknown path {self.path}"})
+
+        def do_POST(self):
+            if self.path == "/predict":
+                self._predict()
+            elif self.path == "/models/load":
+                self._models_load()
+            elif self.path == "/models/promote":
+                self._models_promote()
+            elif self.path == "/cluster/epoch":
+                self._send(501, {"error": "cluster epochs belong to the "
+                                          "gateway, not ported yet "
+                                          f"({UNPORTED})"})
+            elif self.path.startswith("/replicas/"):
+                parts = self.path.strip("/").split("/")
+                if len(parts) != 3 or parts[2] not in ("drain", "rejoin"):
+                    self._send(404, {"error": "want POST /replicas/{id}/"
+                                              "drain or /replicas/{id}/"
+                                              "rejoin"})
+                else:
+                    self._send(409, {"error": "this server runs a single "
+                                              "replica (the fleet: "
+                                              f"{UNPORTED})"})
+            elif self.path.startswith("/tenants/"):
+                parts = self.path.strip("/").split("/")
+                if len(parts) != 3 or parts[2] != "quota":
+                    self._send(404, {"error": "want POST /tenants/{id}/"
+                                              "quota"})
+                else:
+                    self._send(409, {"error": "multi-tenant serving is "
+                                              f"off ({UNPORTED})"})
+            else:
+                self._send(404, {"error": f"unknown path {self.path}"})
+
+        # -- admin: model lifecycle ---------------------------------------
+
+        def _models_load(self):
+            try:
+                body = self._json_body()
+            except (ValueError, json.JSONDecodeError) as e:
+                self._send(400, {"error": f"bad JSON body: {e}"})
+                return
+            fresh = body.get("fresh")
+            if fresh is not None and not isinstance(fresh, dict):
+                self._send(400, {"error": "'fresh' must be a JSON "
+                                          f"object, got {fresh!r}"})
+                return
+            if fresh is not None:
+                seed = fresh.get("seed", 0)
+                if not isinstance(seed, int) or isinstance(seed, bool):
+                    self._send(400, {"error": "'fresh.seed' must be an "
+                                              f"integer, got {seed!r}"})
+                    return
+            try:
+                # load and warm on this handler thread: the dispatch
+                # thread goes on serving the live version
+                with server.admin_lock:
+                    if fresh is not None:
+                        mv = registry.add_fresh(
+                            version=fresh.get("version"),
+                            seed=fresh.get("seed", 0))
+                    else:
+                        mv = registry.load_latest(
+                            directory=body.get("dir"),
+                            version=body.get("version"))
+                self._send(200, mv.describe())
+            except FileNotFoundError as e:
+                self._send(404, {"error": str(e)})
+            except ValueError as e:
+                self._send(400, {"error": str(e)})
+            except RuntimeError as e:
+                # a lifecycle conflict (e.g. registry full)
+                self._send(409, {"error": str(e)})
+            except Exception as e:
+                self._send(500, {"error": f"{type(e).__name__}: {e}"})
+
+        def _models_promote(self):
+            try:
+                body = self._json_body()
+            except (ValueError, json.JSONDecodeError) as e:
+                self._send(400, {"error": f"bad JSON body: {e}"})
+                return
+            version = body.get("version")
+            mode = body.get("mode", "live")
+            if not version:
+                self._send(400, {"error": "missing 'version'"})
+                return
+            if mode not in ("live", "shadow", "canary"):
+                self._send(400, {"error": f"unknown mode {mode!r}"})
+                return
+            # malformed input is a 400, decided before the lifecycle
+            # block, whose ValueError means "the rules refused it" (409)
+            try:
+                fraction = float(body.get("fraction", 0.1))
+            except (TypeError, ValueError):
+                self._send(400, {"error": "'fraction' must be a number, "
+                                          f"got {body.get('fraction')!r}"})
+                return
+            infer_dtype = body.get("infer_dtype")
+            if infer_dtype is not None:
+                if mode != "live":
+                    self._send(400, {"error": "'infer_dtype' only "
+                                              "applies to mode 'live'"})
+                    return
+                if infer_dtype not in INFER_DTYPES:
+                    self._send(400, {"error": f"unknown infer_dtype "
+                                              f"{infer_dtype!r}; one of "
+                                              f"{list(INFER_DTYPES)}"})
+                    return
+            cascade_threshold = body.get("cascade_threshold")
+            if cascade_threshold is not None:
+                if mode != "live":
+                    self._send(400, {"error": "'cascade_threshold' only "
+                                              "applies to mode 'live'"})
+                    return
+                try:
+                    cascade_threshold = float(cascade_threshold)
+                except (TypeError, ValueError):
+                    self._send(400, {
+                        "error": "'cascade_threshold' must be a number, "
+                                 f"got {body.get('cascade_threshold')!r}"})
+                    return
+                if (not math.isfinite(cascade_threshold)
+                        or not 0.0 <= cascade_threshold <= 1.0):
+                    self._send(400, {
+                        "error": "'cascade_threshold' must be a finite "
+                                 "number in [0, 1], got "
+                                 f"{cascade_threshold!r}"})
+                    return
+            try:
+                with server.admin_lock:
+                    if cascade_threshold is not None:
+                        # no version has a cascade here (ROADMAP §1
+                        # item 6): the JAX registry's refusal, after its
+                        # unknown-version check
+                        registry.get(version)
+                        raise RuntimeError(
+                            f"version {version!r} has no cascade to "
+                            "re-threshold; enable one first")
+                    if mode == "live":
+                        mv = registry.promote(version,
+                                              infer_dtype=infer_dtype)
+                    elif mode == "shadow":
+                        mv = registry.set_shadow(version, fraction)
+                    else:
+                        mv = registry.set_canary(version, fraction)
+                self._send(200, {"promoted": mv.version, "mode": mode,
+                                 **registry.describe()["routes"]})
+            except KeyError as e:
+                self._send(404, {"error": str(e)})
+            except (ValueError, RuntimeError) as e:
+                # an unwarmed version, a bad fraction: the lifecycle
+                # rules refuse it
+                self._send(409, {"error": str(e)})
+            except Exception as e:
+                self._send(500, {"error": f"{type(e).__name__}: {e}"})
+
+        # -- data path ----------------------------------------------------
+
+        def _predict(self):
+            length = self._content_length()
+            if length is None:
+                self._send(400, {"error": "Content-Length must be a "
+                                          "non-negative integer"})
+                return
+            if length == 0 or length % IMAGE_BYTES:
+                self._send(400, {"error": "body must be n*784 raw "
+                                          "uint8 pixel bytes"})
+                return
+            if length > max_body:
+                self._send(413, {"error": f"at most {server.max_batch} "
+                                          "images per request"})
+                return
+            # X-Deadline-Ms: the client's latency budget. It rides the
+            # request into the batcher, which sheds it before dispatch if
+            # it expires while queued, and bounds this handler's wait.
+            hdr = self.headers.get("X-Deadline-Ms")
+            budget_s = deadline_s = None
+            if hdr is not None:
+                try:
+                    budget_s = float(hdr) / 1e3
+                except ValueError:
+                    self._send(400, {"error": "X-Deadline-Ms must be a "
+                                              f"number, got {hdr!r}"})
+                    return
+                if not math.isfinite(budget_s) or budget_s <= 0:
+                    # nan passes a bare <= 0 check and would disable the
+                    # deadline silently
+                    self._send(400, {"error": "X-Deadline-Ms must be a "
+                                              "finite number > 0"})
+                    return
+                deadline_s = time.monotonic() + budget_s
+            acc_hdr = self.headers.get("X-Accuracy-Class")
+            if acc_hdr is not None:
+                if acc_hdr.strip().lower() not in ACCURACY_CLASSES:
+                    self._send(400, {
+                        "error": "X-Accuracy-Class must be one of "
+                                 f"{'|'.join(ACCURACY_CLASSES)}, got "
+                                 f"{acc_hdr!r}"})
+                    return
+                self._send(400, {
+                    "error": "X-Accuracy-Class requires the confidence "
+                             f"cascade, not ported yet ({UNPORTED})"})
+                return
+            if self.headers.get("X-Tenant") is not None:
+                self._send(400, {
+                    "error": "X-Tenant requires multi-tenant serving, "
+                             f"not ported yet ({UNPORTED})"})
+                return
+            raw = self.rfile.read(length)
+            x = np.frombuffer(raw, np.uint8).reshape(-1, IMAGE_BYTES)
+            try:
+                fut = batcher.submit(x, deadline_s=deadline_s)
+                # bounded: a wedged pipeline sheds its waiters instead of
+                # holding handler threads forever
+                logits = fut.result(timeout=(
+                    server.request_timeout if budget_s is None
+                    else min(server.request_timeout, budget_s)))
+            except Rejected:
+                self._send(503, {"error": "overloaded; retry"},
+                           extra=server.retry_after())
+                return
+            except NoLiveModel:
+                self._send(503, {"error": "no warmed model is live yet"},
+                           extra=server.retry_after())
+                return
+            except DeadlineExceeded as e:
+                self._send(504, {"error": str(e)},
+                           extra=server.retry_after())
+                return
+            except concurrent.futures.TimeoutError:
+                if (deadline_s is not None
+                        and time.monotonic() >= deadline_s):
+                    self._send(504, {"error": "deadline expired while "
+                                              "awaiting inference"},
+                               extra=server.retry_after())
+                else:
+                    self._send(504, {
+                        "error": "inference timed out after "
+                                 f"{server.request_timeout:g}s"})
+                return
+            except Exception as e:
+                self._send(500, {"error": f"{type(e).__name__}: {e}"})
+                return
+            self._send(200, {"classes": logits.argmax(-1).tolist(),
+                             "n": int(x.shape[0]),
+                             "version": getattr(fut, "version", None)})
+
+    return Handler

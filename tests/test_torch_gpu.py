@@ -9,9 +9,10 @@ bit for bit against the CPU's, an MLP training step through the kernel
 against the same step through the plain version, and a LeNet step on the
 card against the same step on the CPU. Then LeNet serving: each
 precision's engine on the card against the same engine on the CPU (the
-plain versions), and the int8 dense stack bit for bit. Last, the
-bench's throughput mode through dense_relu. Every test is marked `gpu`
-and skips without a card.
+plain versions), and the int8 dense stack bit for bit. Then the
+bench's throughput mode through dense_relu. Last, the HTTP server booted
+on the card answering one /predict. Every test is marked `gpu` and
+skips without a card.
 
 This file imports no jax (the card's machine has none), and
 tests/conftest.py does, so on the card run it without the conftest:
@@ -438,3 +439,41 @@ def test_bench_throughput_launches_dense_relu_on_card(capsys):
     assert rec["detail"]["bench_steps"] == 8
     # the warmup block and two timed blocks of 4 steps, one launch a step
     assert fused.LAUNCHES["dense_relu"] >= 12
+
+
+@pytest.mark.gpu
+def test_http_server_answers_predict_on_card():
+    """`python -m distributedmnist_tpu_torch.serve --port 0` on the card
+    (its default device): /healthz turns 200 with the card's name, one
+    3-row /predict answers the CPU model's classes, and SIGTERM exits 0
+    with a serve_summary and dense_relu launches on stderr."""
+    _need_card()
+    import os
+    import sys
+
+    from distributedmnist_tpu_torch.serve.process import ServerProcess
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    srv = ServerProcess(
+        [sys.executable, "-m", "distributedmnist_tpu_torch.serve",
+         "--model", "mlp", "--serve-max-batch", "16", "--port", "0",
+         "--seed", "3"], env=env, cwd=repo, ready_timeout=300)
+    try:
+        health = srv.wait_for("/healthz 200", srv.healthy_payload)
+        assert health["backend"] == "cuda"
+        assert health["device_kind"] == torch.cuda.get_device_name(0)
+        x = _rng(3).integers(0, 256, (3, 784), dtype=np.uint8)
+        got = srv.ok("/predict", data=x.tobytes(), timeout=60)
+    finally:
+        done = srv.stop()
+    assert done.rc == 0, done.stderr
+    assert any(r.get("metric") == "serve_summary" for r in done.records)
+    net = models.build("mlp", device="cpu")
+    net.load_state_dict(models.init_params("mlp", 3))
+    with torch.no_grad():
+        want = net(torch.from_numpy(x).float() / 255.0).argmax(-1).tolist()
+    assert got["n"] == 3 and got["version"] == health["live_version"]
+    assert got["classes"] == want
+    assert len(done.launches) == 1 and done.launches[0]["dense_relu"] > 0

@@ -610,11 +610,15 @@ def test_lenet_builds_but_is_not_served_yet():
 
 def test_selftest_cli_imports_no_jax():
     """The selftest, end to end in a fresh interpreter, with the bench
-    module imported too: one serve_selftest line with nothing rejected,
-    and neither jax nor the JAX package in sys.modules afterwards."""
+    module and the HTTP server's modules imported too: one serve_selftest
+    line with nothing rejected, and neither jax nor the JAX package in
+    sys.modules afterwards."""
     code = (
         "import json, sys\n"
         "import distributedmnist_tpu_torch.bench\n"
+        "import distributedmnist_tpu_torch.serve.process\n"
+        "import distributedmnist_tpu_torch.serve.resilience\n"
+        "import distributedmnist_tpu_torch.serve.server\n"
         "from distributedmnist_tpu_torch.serve.__main__ import main\n"
         "rc = main(['--device', 'cpu', '--model', 'mlp', '--selftest', "
         "'48', '--serve-max-batch', '16', '--serve-infer-dtype', "
