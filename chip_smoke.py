@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's MLP serving path, its training path and its
-LeNet-5 serving path on one CUDA card.
+"""Drive the PyTorch port's MLP serving path, its training paths (one
+card, and data-parallel ranks sharing it), its LeNet-5 serving path, its
+HTTP server and its bench on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -9,8 +10,9 @@ LeNet-5 serving path on one CUDA card.
    per source, all at once) and prints each build's -Xptxas -v report.
 2. Holds every kernel against its plain PyTorch version on the card at
    the serving path's shapes (buckets 1, 7, 128 and 512) and dense_relu
-   at the training path's (a config-1 step's 64 rows, an eval batch's
-   2048), checks that the split-K kernels give the same bits on two
+   at the training paths' (a config-1 step's 64 rows, an eval batch's
+   2048, and each data-parallel rank's share of a step and of an eval
+   batch in phase 5: 64, 128, 255 and 1024 rows), checks that the split-K kernels give the same bits on two
    calls, and times it with CUDA events beside the plain version, one
    PyTorch library call for the same function (timed here only; the port
    never calls it) and its bound: the larger of bytes over 3.35 TB/s and
@@ -33,12 +35,26 @@ LeNet-5 serving path on one CUDA card.
    checkpoints every 1000 steps into a temporary directory, each held to a test-accuracy floor from
    the CPU run of the same recipe; then a run killed by the fault hook
    and resumed from its checkpoint.
-5. Holds the kernels at LeNet's serving shapes (dense_relu bf16 400->120
+5. Drives data-parallel training, with every launch count set to 0
+   first, each rank a child process that reports its own counts:
+   config 3 at full width (`train --preset mlp-dp2 --synthetic
+   --learning-rate 0.02 --steps 1000`: the CLI starts 2 ranks sharing
+   the card over gloo), held to the backend line, the topology, an
+   accuracy floor from the CPU run of the same command (the summary
+   counts one chip for the two processes) and each rank's
+   dense_relu launches (its steps and eval batches); 20 steps of config
+   3 in both SPMD modes (parallel/mh_smoke.py), auto against explicit
+   and 2 ranks against 1; config 5 (`--preset lenet-multihost` over the
+   coordinator flags, 2 ranks) killed at step 200 by the fault hook on
+   both ranks and restored there, its checkpoint loaded with the LeNet
+   template; and NCCL at world size 1 (config 4's LeNet, `--num-devices
+   1`), 200 steps.
+6. Holds the kernels at LeNet's serving shapes (dense_relu bf16 400->120
    and 120->84, quant_dense 400->120, 120->84 and 84->10, buckets 1, 7,
    128 and 512) against their plain versions on the trained weights'
    activations, int8 exact, timed as in 2, and times LeNet's forward per
    precision and bucket.
-6. Drives LeNet serving through the port's entry points, with every
+7. Drives LeNet serving through the port's entry points, with every
    launch count set to 0 first: bootstrap from config 2's checkpoint
    (TF32 turned on before, which the engine must turn off), the float32
    engine against the same params' CPU engine at every bucket, the
@@ -47,7 +63,7 @@ LeNet-5 serving path on one CUDA card.
    precision through the dynamic batcher, then the lifecycle: the trainer commits a later
    step, the registry loads and promotes it, rolls back from it, and the
    first version must be live again with the rollback event recorded.
-7. Drives the port's HTTP server, `python -m distributedmnist_tpu_torch.serve
+8. Drives the port's HTTP server, `python -m distributedmnist_tpu_torch.serve
    --port 0`, one subprocess a server, each on its own launch counts.
    The MLP server boots the fitted weights from a checkpoint at
    --serve-infer-dtype megakernel: /healthz polled to 200, 200
@@ -64,7 +80,7 @@ LeNet-5 serving path on one CUDA card.
    Each server prints its launch counts on stderr at exit: the MLP
    server must have launched dense_relu and mlp_megakernel, the LeNet
    server quant_dense.
-8. Runs the port's bench, `python -m distributedmnist_tpu_torch.bench`,
+9. Runs the port's bench, `python -m distributedmnist_tpu_torch.bench`,
    one subprocess a run, with short explicit windows: throughput of the
    MLP (batch 64) and of LeNet-5 (batch 512), LeNet-5's
    time-to-accuracy to 0.99 (one trial), and the serve legs of the MLP
@@ -74,7 +90,7 @@ LeNet-5 serving path on one CUDA card.
    or engine build after warmup, and the trial must reach its target;
    each record is printed on a `bench` line, and the launches the runs
    report are the `bench` path's.
-9. Prints a `kernels` JSON line (launches on each path, error, times,
+10. Prints a `kernels` JSON line (launches on each path, error, times,
    bound) and, last, {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero before the last line. Without a
@@ -160,6 +176,23 @@ LENET_F32_TOL = 1e-4
 # floor could hold it. The step's work, and so its time, does not depend
 # on the rate.
 MLP_LR = 0.02
+# The data-parallel phase. Config 3 at full width runs at MLP_LR too, its
+# floor below what the CPU run of the same command reached
+# (`python -m distributedmnist_tpu_torch.train --preset mlp-dp2
+# --synthetic --learning-rate 0.02 --steps 1000 --device cpu`: 0.9679 /
+# 0.9763 / 0.9823 / 0.9799 / 0.9818 at its five evals)
+# by the margin a trajectory summed in another order may drift. Its
+# trajectory legs: 2 ranks in auto against explicit (the same sums, one
+# by DDP, one by hand: 1e-6), and 2 ranks against 1 at the same global
+# batch from the same init (other matmul shapes: losses rtol 1e-4, params
+# atol 1e-4, the tolerance of the kernel-against-plain comparison).
+DP_STEPS = 1000
+DP_ACCURACY_FLOOR = 0.97
+TRAJ_STEPS = 20
+TRAJ_TOL = {"modes": dict(rtol=1e-6, atol=1e-6),
+            "ranks": dict(loss_rtol=1e-4, param_atol=1e-4)}
+NCCL_STEPS = 200
+DP_TIMEOUT_S = 300
 # the kernel-against-plain comparison on the training path
 COMPARE_STEPS = 50
 COMPARE_TOL = dict(loss_rtol=1e-4, param_atol=1e-4)
@@ -430,10 +463,31 @@ def lenet_kernel_cases(params: dict, images):
             h = fused.quant_dense_reference(xq, w, s, b, relu=relu)
 
 
+def dp_dense_relu_rows() -> list[tuple[str, int]]:
+    """The rows of each dense_relu launch on the data-parallel path, as
+    the trainer splits them: a rank's share of a step's global batch and
+    of an eval batch (min(2048, test images), rounded up to the world),
+    for each MLP run of drive_dp_path: config 3 at full size on 2 ranks,
+    and the trajectory's 2 ranks and 1 rank on mh_smoke's data."""
+    from distributedmnist_tpu_torch.config import PRESETS
+    from distributedmnist_tpu_torch.parallel import mh_smoke
+    from distributedmnist_tpu_torch.utils import round_up
+
+    batch = PRESETS["mlp-dp2"].batch_size
+    smoke_n = mh_smoke.SMOKE_DATA["test_n"]
+    rows = set()
+    for world, test_n in ((2, 10_000), (2, smoke_n), (1, smoke_n)):
+        rows.add(("train", batch // world))
+        rows.add(("eval", round_up(min(2048, test_n), world) // world))
+    return sorted(rows, key=lambda r: (r[1], r[0]))
+
+
 def training_cases(data):
-    """dense_relu f32 at the training path's shapes, on its inputs: the
-    fresh MLP of the training run, a step's decoded batch (64 rows) and
-    an eval batch (2048 rows); the same tuple as kernel_cases."""
+    """dense_relu f32 at the training paths' shapes, on their inputs:
+    the fresh MLP of the training run, a step's decoded batch (64 rows)
+    and an eval batch (2048 rows) on one card, and each rank's share of
+    a step and of an eval batch under data parallelism
+    (dp_dense_relu_rows); the same tuple as kernel_cases."""
     import torch
 
     from distributedmnist_tpu_torch import models
@@ -443,10 +497,12 @@ def training_cases(data):
     dev = torch.device("cuda")
     p = {k: v.to(dev) for k, v in models.init_params("mlp", SEED).items()}
     k, h = 784, 128
-    for m, pixels in ((64, data["train_x"][:64]),
-                      (2048, data["test_x"][:2048])):
+    shapes = [("train", 64), ("eval", 2048)] + [
+        (f"dp {kind}", m) for kind, m in dp_dense_relu_rows()]
+    for kind, m in shapes:
+        pixels = data["test_x" if kind.endswith("eval") else "train_x"][:m]
         x32 = normalize(torch.from_numpy(pixels.reshape(m, k)).to(dev))
-        yield ("dense_relu", f"f32 train b={m}", "float32",
+        yield ("dense_relu", f"f32 {kind} b={m}", "float32",
                lambda x=x32: fused.dense_relu_inference(
                    x, p["hidden_kernel"], p["hidden_bias"]),
                lambda x=x32: fused.dense_relu_reference(
@@ -684,6 +740,224 @@ def drive_training_path(data, lenet_data, lenet_checkpoint_dir) -> dict:
     print(f"kill/resume: restored {out['restored']}, {out['steps']} steps, "
           f"test accuracy {out['test_accuracy']:.4f}", flush=True)
     return phases
+
+
+def _child_env() -> dict:
+    """The environment of a child process of the port: the repository on
+    PYTHONPATH, one CPU thread a process (as torchrun gives a rank)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def _run_ranks(argvs, timeout=DP_TIMEOUT_S) -> list:
+    """Start one child a command line, all at once, from the repository
+    root; wait for all of them (every one killed if any outlives the
+    timeout). Returns [(rc, stdout, stderr)], one a child."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen([sys.executable, *argv], cwd=here,
+                              env=_child_env(), stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for argv in argvs]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return [(p.returncode, out, err) for p, (out, err) in zip(procs, outs)]
+
+
+def _summary(out: str) -> dict:
+    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    if len(lines) != 1:
+        raise RuntimeError(f"{len(lines)} summary lines, not 1:\n{out}")
+    return lines[0]
+
+
+def _train_launches(err: str) -> list:
+    """Each `train: launches {...}` line a rank printed on stderr."""
+    return [json.loads(ln.split("train: launches ", 1)[1])
+            for ln in err.splitlines() if "train: launches " in ln]
+
+
+def _coordinated(port: int, n: int, *args) -> list:
+    """The train CLI as n ranks started with the coordinator flags."""
+    return [["-m", "distributedmnist_tpu_torch.train", *args,
+             "--coordinator-address", f"localhost:{port}",
+             "--num-processes", str(n), "--process-id", str(i)]
+            for i in range(n)]
+
+
+def drive_dp_path(card: str) -> tuple[dict, dict]:
+    """Data-parallel training through the port's entry points on the
+    card, every rank a child process: config 3 at full width as 2 ranks
+    sharing the card over gloo (the train CLI starts them), config 3's
+    trajectory in both SPMD modes against 1 rank, config 5's
+    checkpoint/restore over the coordinator flags, and NCCL at world size
+    1. Returns (phases, the kernel launches the ranks report, summed)."""
+    import numpy as np
+
+    from distributedmnist_tpu_torch import checkpoint, models
+    from distributedmnist_tpu_torch.ops import fused
+    from distributedmnist_tpu_torch.parallel import launch, mh_smoke
+
+    phases: dict = {}
+    launches = dict.fromkeys(fused.LAUNCHES, 0)
+
+    def add(counts: dict) -> None:
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    # 1. config 3 at full width: 2 ranks on the card, the CLI's launcher,
+    # alone on the card (its step time is a figure PERF.md keeps)
+    t0 = time.perf_counter()
+    [(rc, out, err)] = _run_ranks([[
+        "-m", "distributedmnist_tpu_torch.train", "--preset", "mlp-dp2",
+        "--synthetic", "--learning-rate", str(MLP_LR), "--steps",
+        str(DP_STEPS)]])
+    took = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"config 3 exited {rc}:\n{err[-4000:]}")
+    s = _summary(out)
+    ranks = _train_launches(err)
+    eval_batches = -(-10_000 // 2048)
+    want = s["steps"] + s["n_evals"] * eval_batches
+    bad = []
+    if (s["n_chips"], s["n_processes"], s["spmd_mode"], s["steps"]) != (
+            1, 2, "auto", DP_STEPS):
+        bad.append("topology or steps")
+    if "dist: backend gloo, 2 ranks on 1 card(s)" not in err:
+        bad.append("no gloo backend line")
+    if len(ranks) != 2 or any(r["dense_relu"] < want for r in ranks):
+        bad.append(f"dense_relu launches {ranks}, want >= {want} a rank")
+    if s["test_accuracy"] < DP_ACCURACY_FLOOR:
+        bad.append(f"test accuracy under {DP_ACCURACY_FLOOR}")
+    if bad:
+        raise RuntimeError(f"config 3: {bad}: {s}\n{err[-3000:]}")
+    for r in ranks:
+        add(r)
+    phases["config3"] = {**{k: s[k] for k in (
+        "images_per_sec", "images_per_sec_per_chip", "step_ms",
+        "test_accuracy", "steps", "n_evals", "wall_clock_s", "n_chips",
+        "spmd_mode")}, "dense_relu_launches": [r["dense_relu"]
+                                               for r in ranks],
+        "process_s": took}
+    print(f"dp config 3: 2 ranks sharing the card over gloo, "
+          f"{s['step_ms']:.4f} ms a step, {s['images_per_sec']:.1f} "
+          f"images/s ({s['images_per_sec'] / 2:.1f} a rank), test "
+          f"accuracy {s['test_accuracy']:.4f} after {s['steps']} steps, "
+          f"dense_relu launches {[r['dense_relu'] for r in ranks]} on "
+          f"{card}", flush=True)
+    print("dp_summary " + json.dumps({"run": "config3", **s}), flush=True)
+
+    with tempfile.TemporaryDirectory() as d:
+        # 2. the trajectory (2 ranks in both modes, beside 1 rank), 4.
+        # NCCL at world size 1 and 3. config 5's killed run, all at once
+        runs = [{"spmd_mode": mode, "learning_rate": MLP_LR,
+                 "steps_per_call": 1, "checkpoint_dir": f"{d}/{mode}"}
+                for mode in ("auto", "explicit")]
+        port = launch.free_port()
+        smoke = [["-m", "distributedmnist_tpu_torch.parallel.mh_smoke",
+                  str(r), "2", str(port), "--device", "cuda", "--preset",
+                  "mlp-dp2", "--steps", str(TRAJ_STEPS), "--runs",
+                  json.dumps(runs)] for r in range(2)]
+        nccl = _coordinated(launch.free_port(), 1, "--preset", "lenet-dp8",
+                            "--synthetic", "--num-devices", "1", "--steps",
+                            str(NCCL_STEPS))
+        ck = f"{d}/config5"
+        c5 = ("--preset", "lenet-multihost", "--synthetic", "--steps",
+              "300", "--checkpoint-every", "100", "--checkpoint-dir", ck)
+        killed = _coordinated(launch.free_port(), 2, *c5, "--fail-at-step",
+                              "200")
+        t0 = time.perf_counter()
+        results = _run_ranks(smoke + nccl + killed)
+        phases["concurrent_s"] = time.perf_counter() - t0
+        for rc, out, err in results[:3]:
+            if rc != 0:
+                raise RuntimeError(f"a rank exited {rc}:\n{err[-4000:]}")
+        recs = [[json.loads(ln.split(" ", 1)[1]) for ln in out.splitlines()
+                 if ln.startswith("MHSMOKE ")] for _, out, _ in results[:2]]
+        one = mh_smoke.run(mh_smoke.smoke_config(
+            "mlp-dp2", device="cuda", steps=TRAJ_STEPS,
+            learning_rate=MLP_LR, steps_per_call=1,
+            checkpoint_dir=f"{d}/one"), mh_smoke.smoke_data())
+        auto, explicit = recs[0]
+        for rank in recs:
+            for rec, first in zip(rank, recs[0]):
+                if (rec["losses"] != first["losses"]
+                        or (rec["n_chips"], rec["n_processes"]) != (1, 2)
+                        or rec["backend"] != "gloo"
+                        or len(rec["losses"]) != TRAJ_STEPS):
+                    raise RuntimeError(f"ranks disagree: {rec} {first}")
+                add(rec["launches"])
+        np.testing.assert_allclose(explicit["losses"], auto["losses"],
+                                   **TRAJ_TOL["modes"])
+        np.testing.assert_allclose(auto["losses"], one["losses"],
+                                   rtol=TRAJ_TOL["ranks"]["loss_rtol"])
+        p2, _ = checkpoint.restore_latest_params(f"{d}/auto")
+        p1, _ = checkpoint.restore_latest_params(f"{d}/one")
+        param_err = max(float((p2[k] - p1[k]).abs().max()) for k in p1)
+        if param_err > TRAJ_TOL["ranks"]["param_atol"]:
+            raise RuntimeError(f"2 ranks' params {param_err} from 1 rank's")
+        mode_err = max(abs(a - b) for a, b in zip(auto["losses"],
+                                                  explicit["losses"]))
+        rank_err = max(abs(a - b) / abs(b) for a, b in zip(auto["losses"],
+                                                           one["losses"]))
+        phases["trajectory"] = {"steps": TRAJ_STEPS, "auto_vs_explicit":
+                                mode_err, "two_vs_one_rank_rtol": rank_err,
+                                "param_max_abs": param_err}
+        print(f"dp trajectory: {TRAJ_STEPS} steps, auto vs explicit "
+              f"{mode_err:.3g}, 2 ranks vs 1 (rel) {rank_err:.3g}, params "
+              f"{param_err:.3g}", flush=True)
+        rc, out, err = results[2]
+        s = _summary(out)
+        if ("dist: backend nccl, 1 ranks on 1 card(s)" not in err
+                or s["steps"] != NCCL_STEPS
+                or not np.isfinite(s["final_loss"])):
+            raise RuntimeError(f"NCCL at world size 1: {s}\n{err[-3000:]}")
+        for r in _train_launches(err):
+            add(r)
+        phases["nccl_world1"] = {k: s[k] for k in (
+            "steps", "final_loss", "test_accuracy", "n_chips", "multihost")}
+        print(f"dp NCCL at world size 1: config 4's LeNet, {s['steps']} "
+              f"steps, final loss {s['final_loss']:.4f}", flush=True)
+
+        # 3. config 5, killed at step 200 on both ranks above: restored
+        for rc, _, err in results[3:]:
+            if rc == 0 or "SimulatedFailure: injected failure at step 200" \
+                    not in err:
+                raise RuntimeError(f"config 5 was not killed at step 200 "
+                                   f"(rc {rc}):\n{err[-3000:]}")
+        t0 = time.perf_counter()
+        resumed = _run_ranks(_coordinated(launch.free_port(), 2, *c5))
+        phases["config5_resume_s"] = time.perf_counter() - t0
+        for rc, out, err in resumed:
+            s = _summary(out) if rc == 0 else {}
+            if (rc != 0 or not s["restored"] or s["steps"] != 300
+                    or "restored checkpoint at step 200" not in err
+                    or (s["n_chips"], s["n_processes"], s["multihost"])
+                    != (1, 2, True)):
+                raise RuntimeError(f"config 5 resume (rc {rc}): {s}\n"
+                                   f"{err[-3000:]}")
+            for r in _train_launches(err):
+                add(r)
+        params, step = checkpoint.restore_latest_params(
+            ck, template=models.init_params("lenet", 0))
+        if step != 300:
+            raise RuntimeError(f"config 5's checkpoint is at step {step}")
+        phases["config5"] = {"killed_at": 200, "restored_at": 200,
+                             "steps": s["steps"],
+                             "test_accuracy": s["test_accuracy"],
+                             "committed": checkpoint.committed_steps(ck)}
+        print(f"dp config 5: both ranks killed at step 200, restored it, "
+              f"ended at {s['steps']}; the checkpoint loads with the LeNet "
+              f"template (step {step})", flush=True)
+    return phases, launches
 
 
 def drive_serving_path(params: dict) -> dict:
@@ -1322,6 +1596,13 @@ def main() -> int:
         if launches["training"]["dense_relu"] <= 0:
             raise RuntimeError("dense_relu never launched on the training "
                                "path")
+
+        fused.reset_launches()
+        phases, launches["dp_training"] = drive_dp_path(card)
+        print("dp_phases " + json.dumps(phases), flush=True)
+        if launches["dp_training"]["dense_relu"] <= 0:
+            raise RuntimeError("dense_relu never launched on the "
+                               "data-parallel training path")
 
         lenet_params, _ = checkpoint.restore_latest_params(lenet_ckpt)
         held = synthetic_mnist(seed=LENET_SEED, train_n=16,

@@ -15,6 +15,13 @@ thread writes the files into `<dir>/N.tmp-<pid>/`, syncs them to disk
 and renames the directory to `<dir>/N/`. Only all-digit directories are
 committed checkpoints (`committed_steps`), so a save cut off halfway is
 never restored. The newest `max_to_keep` committed steps are kept.
+
+Under data parallelism every rank holds the same state, and the ranks
+share the checkpoint directory (a filesystem they all see, as orbax
+assumes), so only rank 0 writes: save() on any other rank does nothing,
+which stands in for orbax's "every process calls save; process 0 owns
+the commit". On restore rank 0 picks the newest committed step and
+broadcasts it, and every rank loads that step.
 """
 
 from __future__ import annotations
@@ -26,6 +33,8 @@ import shutil
 from typing import Any, Optional, Tuple
 
 import torch
+
+from distributedmnist_tpu_torch.parallel import distributed
 
 log = logging.getLogger("distributedmnist_tpu_torch")
 
@@ -94,7 +103,9 @@ class Checkpointer:
     def __init__(self, directory: str, max_to_keep: int = 3):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
-        os.makedirs(self.directory, exist_ok=True)
+        self.writer = distributed.process_index() == 0
+        if self.writer:
+            os.makedirs(self.directory, exist_ok=True)
         # one directory scan a lifetime: save() skips a step saved before
         self._saved_steps = set(committed_steps(self.directory))
         self._pool = concurrent.futures.ThreadPoolExecutor(
@@ -104,8 +115,9 @@ class Checkpointer:
     def save(self, step: int, state: dict) -> bool:
         """Save `state` = {params, optimizer, scheduler} as step `step`.
         Returns once every tensor is on the host; the write goes on in
-        the background. False when this step was saved already."""
-        if step in self._saved_steps:
+        the background. False when this step was saved already, and on
+        every rank but rank 0."""
+        if not self.writer or step in self._saved_steps:
             return False
         self._reap(block=False)
         params = _to_host(state["params"])
@@ -144,13 +156,15 @@ class Checkpointer:
                 keep.append(fut)
         self._pending = keep
 
-    def maybe_restore(self) -> Optional[dict]:
+    def maybe_restore(self, device="cpu") -> Optional[dict]:
         """{step, params, optimizer, scheduler} of the latest committed
-        checkpoint as CPU tensors, or None when there is none."""
-        steps = committed_steps(self.directory)
-        if not steps:
+        checkpoint as CPU tensors, or None when there is none. In a
+        process group, the latest is rank 0's reading, broadcast on the
+        rank's `device`."""
+        steps = committed_steps(self.directory) if self.writer else []
+        step = distributed.broadcast_int(steps[-1] if steps else -1, device)
+        if step < 0:
             return None
-        step = steps[-1]
         path = os.path.join(self.directory, str(step))
         state = _load(os.path.join(path, STATE_FILE))
         if state["step"] != step:

@@ -1,7 +1,7 @@
 """Configuration of the port: the training and serving subsets of the JAX
 package's Config (distributedmnist_tpu/config.py), with the same field
 names, defaults and flag names, plus the device the port runs on, and
-the presets of the two single-card workloads.
+the presets of BASELINE.json's five training workloads.
 
 `device` defaults to "cuda": an entry point runs on the card unless the
 caller asks for "cpu", and with no card it raises rather than carry on
@@ -42,6 +42,13 @@ class Config:
     target_accuracy: Optional[float] = 0.99  # stop early when reached
     seed: int = 0
     device: str = "cuda"            # {cuda, cpu}
+    # data parallelism: one rank per device (parallel/). num_devices is
+    # the world size; None = every rank of the process group (the train
+    # CLI starts one a visible card, or 1 on the cpu).
+    num_devices: Optional[int] = None
+    # auto: DistributedDataParallel; explicit: one hand-written
+    # all-reduce of the flattened gradients per optimizer step
+    spmd_mode: str = "auto"
     # steps launched back to back per block (one index copy, one event
     # each). None = auto: 1 on the cpu; on the card the largest k <= 1024
     # dividing the eval/checkpoint/fail-at cadence.
@@ -59,6 +66,10 @@ class Config:
     # on SIGTERM stop at the next block boundary and force-save a
     # resumable checkpoint (only with a checkpoint_dir)
     graceful_preemption: bool = True
+    # multi-host (config 5): one rank per process, started with these
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
     fail_at_step: Optional[int] = None   # fault injection (SimulatedFailure)
     log_every: int = 100
     # The dynamic batcher's knobs: max_batch bounds rows per dispatch
@@ -92,20 +103,32 @@ class Config:
         return dataclasses.replace(self, **kw)
 
 
-# BASELINE.json configs 1 and 2, with the JAX package's published values
+# BASELINE.json configs 1-5, with the JAX package's published values
 PRESETS: dict[str, Config] = {
     # config 1: single-process 2-layer MLP (784-128-10), SGD, batch 64
     "mlp-sgd": Config(model="mlp", optimizer="sgd", learning_rate=0.1,
-                      batch_size=64),
+                      batch_size=64, num_devices=1),
     # config 2: single-process LeNet-5, Adam
     "lenet-adam": Config(model="lenet", optimizer="adam",
-                         learning_rate=1e-3, batch_size=128),
+                         learning_rate=1e-3, num_devices=1, batch_size=128),
+    # config 3: 2-worker data-parallel MLP with gradient allreduce
+    "mlp-dp2": Config(model="mlp", optimizer="sgd", learning_rate=0.1,
+                      batch_size=128, num_devices=2),
+    # config 4: 8-chip data-parallel LeNet-5, per-rank sharding, batch 512
+    "lenet-dp8": Config(model="lenet", optimizer="adam", learning_rate=1e-3,
+                        batch_size=512, num_devices=8),
+    # config 5: multi-host data-parallel LeNet-5 with async
+    # checkpoint/restore (the coordinator flags given on the command line)
+    "lenet-multihost": Config(model="lenet", optimizer="adam",
+                              learning_rate=1e-3, batch_size=512,
+                              checkpoint_dir="checkpoints",
+                              checkpoint_every=200),
 }
 
 
 def add_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--preset", choices=sorted(PRESETS), default=None,
-                   help="named workload preset (BASELINE.json configs 1-2)")
+                   help="named workload preset (BASELINE.json configs 1-5)")
     p.add_argument("--model", choices=["mlp", "lenet"], default=None)
     p.add_argument("--optimizer", choices=["sgd", "adam"], default=None)
     p.add_argument("--learning-rate", type=float, default=None)
@@ -130,6 +153,11 @@ def add_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--device", choices=["cuda", "cpu"], default=None,
                    help="where the port runs (default cuda; cpu only "
                         "when asked)")
+    p.add_argument("--num-devices", type=int, default=None,
+                   help="ranks, one device each (default: every visible "
+                        "card, or 1 on the cpu); N > 1 without the "
+                        "coordinator flags starts N local ranks")
+    p.add_argument("--spmd-mode", choices=["auto", "explicit"], default=None)
     p.add_argument("--steps-per-call", type=int, default=None)
     p.add_argument("--max-inflight", type=int, default=None)
     p.add_argument("--grad-accum", type=int, default=None,
@@ -146,6 +174,12 @@ def add_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    default=None,
                    help="restore from --checkpoint-dir and evaluate; "
                         "no training steps")
+    p.add_argument("--coordinator-address", default=None,
+                   help="HOST:PORT of rank 0's rendezvous (multi-host: "
+                        "one process a rank, with --num-processes and "
+                        "--process-id)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--fail-at-step", type=int, default=None)
     p.add_argument("--log-every", type=int, default=None)
     p.add_argument("--serve-max-batch", type=int, default=None,

@@ -1,5 +1,5 @@
 """Device-resident dataset and the seeded per-step index stream — the
-port of distributedmnist_tpu/data/loader.py, for one card.
+port of distributedmnist_tpu/data/loader.py.
 
 The whole train set (47 MB of uint8 pixels at MNIST's size) is copied to
 the card once; each step selects its batch there by an index array, and
@@ -8,8 +8,13 @@ host in the training loop. Batch order is a function of (seed, epoch)
 only, the same permutation the JAX package draws: that is what lets the
 tests hold the port's loss trajectory against the JAX package's.
 
-The JAX package's mesh and sharding are left out: the port runs on one
-card.
+Under data parallelism every rank holds the whole dataset (replicated,
+as the JAX package replicates it over the mesh: a gather of arbitrary
+global indices from a row-sharded dataset would need an all-to-all) and
+draws the same global permutation; each copies only its own columns of
+every global batch to its device (parallel/mesh.batch_shard). So batch
+order stays a function of (seed, epoch) only, and 1 rank computes what N
+ranks compute together.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import numpy as np
 import torch
 
 from distributedmnist_tpu_torch.data.packing import pack_rows
+from distributedmnist_tpu_torch.parallel.mesh import batch_shard
 
 
 class DeviceDataset:
@@ -94,12 +100,17 @@ class IndexStream:
         self.step += k
         return idx
 
-    def next_block(self, k: int, device) -> torch.Tensor:
-        """The next k steps' indices as one int64 tensor on `device`: one
-        host-to-device copy per block of steps. To the card it goes from
-        pinned memory without waiting: a copy from pageable memory would
-        wait for everything queued on the stream before it."""
-        idx = torch.from_numpy(self.host_block(k).astype(np.int64))
+    def next_block(self, k: int, device, rank: int = 0,
+                   world: int = 1) -> torch.Tensor:
+        """The next k steps' indices as one (k, global_batch / world)
+        int64 tensor on `device`: rank `rank`'s columns of each global
+        batch, in one host-to-device copy per block of steps. To the card
+        it goes from pinned memory without waiting: a copy from pageable
+        memory would wait for everything queued on the stream before
+        it."""
+        cols = batch_shard(self.global_batch, rank, world)
+        idx = torch.from_numpy(
+            self.host_block(k)[:, cols].astype(np.int64))
         if torch.device(device).type == "cuda":
             return idx.pin_memory().to(device, non_blocking=True)
         return idx

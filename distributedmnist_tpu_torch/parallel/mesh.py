@@ -1,0 +1,77 @@
+"""A rank's device and its slice of a global batch — the port of
+distributedmnist_tpu/parallel/mesh.py.
+
+The JAX package builds one ('data',) mesh over every chip a process
+sees, and shards the batch axis of each global array over it. The port
+runs one rank per device (parallel/distributed.py), so there is no mesh
+object: a rank holds one device, and the 'data' sharding of a global
+batch becomes the rank's contiguous column slice of it, the block
+`[r*B/n, (r+1)*B/n)` that `P('data')` puts on device r of n.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from distributedmnist_tpu_torch.parallel import distributed
+from distributedmnist_tpu_torch.utils.device import resolve_device
+
+START_HINT = (
+    "start one rank per device: the train CLI with --num-devices N "
+    "(python -m distributedmnist_tpu_torch.train), or each rank with "
+    "--coordinator-address HOST:PORT --num-processes N --process-id I")
+
+
+def get_device(device: str = "cuda",
+               num_devices: Optional[int] = None) -> torch.device:
+    """This rank's device. On CUDA, card LOCAL_RANK modulo the cards
+    visible (ranks on one host beyond its cards share them), made the
+    current card. `num_devices` must be the world size when given
+    (None = every rank of the group, or 1 outside a group)."""
+    dev = resolve_device(device)
+    world = distributed.process_count()
+    if num_devices is not None:
+        if num_devices < 1:
+            raise ValueError(f"num_devices must be >= 1, got {num_devices}")
+        if num_devices > 1 and not torch.distributed.is_initialized():
+            raise ValueError(
+                f"num_devices={num_devices} needs {num_devices} ranks, and "
+                f"this process is not in a process group: {START_HINT}")
+        if num_devices > world:
+            raise RuntimeError(
+                f"requested {num_devices} devices, only {world} visible "
+                f"(hint: {START_HINT})")
+        if num_devices < world:
+            raise ValueError(
+                f"requested {num_devices} devices, but the process group "
+                f"has {world} ranks, one device each")
+    if dev.type == "cuda":
+        dev = torch.device("cuda", distributed.topology().local_rank
+                           % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def chip_count(dev: torch.device) -> int:
+    """The distinct devices the group's ranks run on: the summary's
+    n_chips, the size of the JAX package's mesh. A rank on the cpu is a
+    device of its own; ranks that share a card (more ranks on a host than
+    cards, over gloo) count it once, through its first rank, the one
+    whose local rank is below the host's card count. 1 outside a group."""
+    if not torch.distributed.is_initialized():
+        return 1
+    first = (dev.type != "cuda" or distributed.topology().local_rank
+             < torch.cuda.device_count())
+    return distributed.all_sum(int(first), dev)
+
+
+def batch_shard(global_batch: int, rank: int, world: int) -> slice:
+    """The columns of a global batch that rank `rank` of `world` holds:
+    what `batch_sharded` gives device `rank` of a ('data',) mesh."""
+    if global_batch % world:
+        raise ValueError(f"global batch {global_batch} not divisible by "
+                         f"{world} ranks")
+    per = global_batch // world
+    return slice(rank * per, (rank + 1) * per)

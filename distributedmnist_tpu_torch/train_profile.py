@@ -1,12 +1,15 @@
-"""Where a training step's time goes, on one CUDA card.
+"""Where a training step's time goes, on the card.
 
     python -m distributedmnist_tpu_torch.train_profile [--steps N]
-        [--trace-dir DIR]
+        [--trace-dir DIR] [--recipe PRESET]
 
 For each single-card recipe (config 1: the MLP with SGD at batch 64;
-config 2: LeNet-5 with Adam at batch 128), on full-size synthetic MNIST
-and through the trainer's own step (trainer.make_train_step), after 50
-warm-up steps:
+config 2: LeNet-5 with Adam at batch 128), or for the one preset named
+by --recipe, on full-size synthetic MNIST and through the trainer's own
+step (trainer.data_parallel_step), after 50 warm-up steps. A
+data-parallel preset (mlp-dp2) runs as its ranks, started here as the
+train CLI starts them (one a card, sharing the card where there are
+fewer), each through its step under DDP, and rank 0's line is printed:
 
 1. Host time per step: N steps launched back to back as the trainer
    launches a block, the clock stopped after a synchronize.
@@ -15,9 +18,10 @@ warm-up steps:
    the window (the union of those intervals over the window from the
    first launch to the last device event), kernel launches per step,
    the calls in which the host waited for the card (synchronizes and
-   blocking copies) and the kernels that took the most device time. The
-   chrome traces go to DIR (default: csrc/build/train_profile, beside
-   the built kernels).
+   blocking copies), the host time inside collectives (the profiler's
+   gloo:/nccl: spans) and the kernels that took the most device time.
+   The chrome traces go to DIR (default: csrc/build/train_profile,
+   beside the built kernels).
 
 Prints the card's name and power limit, then one JSON line per recipe.
 Without a card it exits nonzero.
@@ -39,6 +43,8 @@ from distributedmnist_tpu_torch.data import (DeviceDataset, IndexStream,
                                              synthetic_mnist)
 from distributedmnist_tpu_torch.kernel_profile import card_line
 from distributedmnist_tpu_torch.ops import kernel_lib
+from distributedmnist_tpu_torch.parallel import (distributed, get_device,
+                                                 launch)
 from distributedmnist_tpu_torch.utils.device import float32_numerics
 
 WARMUP = 50
@@ -75,12 +81,15 @@ def _read_trace(path: Path, steps: int) -> dict:
     for ev in events:
         if ev.get("cat") == "cuda_runtime" and ev["name"] in WAITS:
             waits[ev["name"]] = waits.get(ev["name"], 0) + 1
+    collective = sum(ev["dur"] for ev in events
+                     if ev["name"].startswith(("gloo:", "nccl:")))
     return {
         "window_us_per_step": (last - first) / steps,
         "device_us_per_step": sum(ev["dur"] for ev in device) / steps,
         "device_busy_share": busy / (last - first),
         "kernels_per_step": len(launches) / steps,
         "host_waits": waits,
+        "collective_us_per_step": collective / steps,
         "top_kernels_us_per_step": [
             {"kernel": name[:90], "us": us / steps} for name, us in top],
     }
@@ -91,18 +100,20 @@ def profile_recipe(name: str, data: dict, steps: int,
     from torch.profiler import ProfilerActivity, profile
 
     cfg = PRESETS[name]
-    dev = torch.device("cuda")
+    dev = get_device("cuda", cfg.num_devices)
+    rank, world = distributed.process_index(), distributed.process_count()
     ds = DeviceDataset(data, dev, pixel_format=cfg.pixel_format)
     net = models.build(cfg.model, device=dev)
     net.load_state_dict(models.init_params(cfg.model, cfg.seed))
     opt, sched = optim.build(cfg.optimizer, net.parameters(),
                              optim.make_schedule(cfg.learning_rate),
                              cfg.momentum)
-    step = trainer.make_train_step(net, opt, sched, cfg.pixel_format)
+    step = trainer.data_parallel_step(net, opt, sched, cfg.pixel_format, 1,
+                                      cfg.spmd_mode, dev)
     stream = IndexStream(ds.train_n, cfg.batch_size, cfg.seed)
 
     def run(k: int) -> None:
-        idx = stream.next_block(k, dev)
+        idx = stream.next_block(k, dev, rank, world)
         for i in range(k):
             step(ds.train_x, ds.train_y, idx[i])
 
@@ -125,7 +136,8 @@ def profile_recipe(name: str, data: dict, steps: int,
         if rec["kernels_per_step"] >= 1:
             break
     return {"recipe": name, "model": cfg.model, "optimizer": cfg.optimizer,
-            "batch": cfg.batch_size, "steps": steps,
+            "batch": cfg.batch_size, "ranks": world,
+            "backend": distributed.topology().backend, "steps": steps,
             "step_ms": host_ms,
             "images_per_sec": cfg.batch_size * 1e3 / host_ms, **rec}
 
@@ -135,17 +147,32 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--trace-dir", type=Path,
                     default=kernel_lib.BUILD_DIR / "train_profile")
+    ap.add_argument("--recipe", choices=sorted(PRESETS), default=None,
+                    help="one preset (default: mlp-sgd and lenet-adam)")
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("train_profile: needs a CUDA card", file=sys.stderr)
         return 2
-    print(f"card: {card_line()}", flush=True)
-    args.trace_dir.mkdir(parents=True, exist_ok=True)
-    data = synthetic_mnist(seed=0)
-    with float32_numerics():
-        for name in ("mlp-sgd", "lenet-adam"):
-            print(json.dumps(profile_recipe(name, data, args.steps,
-                                            args.trace_dir)), flush=True)
+    if args.recipe:
+        rc = launch.run_ranks("distributedmnist_tpu_torch.train_profile",
+                              argv, PRESETS[args.recipe])
+        if rc is not None:
+            return rc
+    distributed.maybe_initialize(None, None, None, "cuda")
+    try:
+        if distributed.process_index() == 0:
+            print(f"card: {card_line()}", flush=True)
+        trace_dir = args.trace_dir / f"rank{distributed.process_index()}"
+        trace_dir.mkdir(parents=True, exist_ok=True)
+        data = synthetic_mnist(seed=0)
+        with float32_numerics():
+            for name in ((args.recipe,) if args.recipe
+                         else ("mlp-sgd", "lenet-adam")):
+                print(json.dumps(profile_recipe(name, data, args.steps,
+                                                trace_dir)), flush=True)
+    finally:
+        distributed.shutdown()
     return 0
 
 

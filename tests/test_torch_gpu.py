@@ -10,9 +10,11 @@ against the same step through the plain version, and a LeNet step on the
 card against the same step on the CPU. Then LeNet serving: each
 precision's engine on the card against the same engine on the CPU (the
 plain versions), and the int8 dense stack bit for bit. Then the
-bench's throughput mode through dense_relu. Last, the HTTP server booted
-on the card answering one /predict. Every test is marked `gpu` and
-skips without a card.
+bench's throughput mode through dense_relu, the HTTP server booted on
+the card answering one /predict, and last config 3's MLP as 2
+data-parallel ranks sharing the card over gloo (DDP against the
+hand-written all-reduce, losses within 1e-6). Every test is marked `gpu`
+and skips without a card.
 
 This file imports no jax (the card's machine has none), and
 tests/conftest.py does, so on the card run it without the conftest:
@@ -477,3 +479,65 @@ def test_http_server_answers_predict_on_card():
     assert got["n"] == 3 and got["version"] == health["live_version"]
     assert got["classes"] == want
     assert len(done.launches) == 1 and done.launches[0]["dense_relu"] > 0
+
+
+@pytest.mark.gpu
+def test_two_ranks_share_the_card_over_gloo(tmp_path):
+    """Config 3's MLP as 2 ranks on cuda:0 (parallel/mh_smoke.py): the
+    ranks share the card, so the backend is gloo and the summary counts
+    one chip for two processes; DDP (auto) and the
+    hand-written all-reduce (explicit) give the same losses within 1e-6,
+    every rank reports the same global run, and each launched dense_relu
+    for each of its steps and its eval batch."""
+    _need_card()
+    from torch_dp_util import collect, spawn_smoke
+
+    steps = 5
+    runs = [{"spmd_mode": "auto"}, {"spmd_mode": "explicit"}]
+    recs, logs = collect(spawn_smoke(
+        2, str(tmp_path), runs,
+        ("--device", "cuda", "--preset", "mlp-dp2", "--steps", str(steps)),
+        env_extra={"CUDA_VISIBLE_DEVICES": "0"}), len(runs))
+    assert "dist: backend gloo, 2 ranks on 1 card(s)" in logs[0]
+    for rank in recs:
+        for rec, first in zip(rank, recs[0]):
+            assert rec["backend"] == "gloo"
+            assert (rec["n_chips"], rec["n_processes"]) == (1, 2)
+            assert rec["steps"] == steps and not rec["jax_loaded"]
+            assert rec["losses"] == first["losses"]
+            assert rec["launches"]["dense_relu"] >= steps + 1
+    np.testing.assert_allclose(recs[0][1]["losses"], recs[0][0]["losses"],
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_ranks_on_their_own_cards_over_nccl(tmp_path):
+    """On a machine with 2 or more cards, config 3's MLP as one rank a
+    card (up to 4) over NCCL: 20 steps in both SPMD modes, against each
+    other (1e-6) and against the same steps on one rank in this process
+    (losses rtol 1e-4, as chip_smoke.py holds 2 ranks sharing a card)."""
+    _need_card()
+    n = min(4, torch.cuda.device_count())
+    if n < 2:
+        pytest.skip("needs 2 or more cards: one rank a card")
+    from distributedmnist_tpu_torch.parallel import mh_smoke
+    from torch_dp_util import launch_smoke
+
+    steps = 20
+    runs = [{"spmd_mode": m, "learning_rate": 0.02} for m in
+            ("auto", "explicit")]
+    recs, logs = launch_smoke(
+        n, str(tmp_path), runs,
+        ("--device", "cuda", "--preset", "mlp-dp2", "--steps", str(steps)))
+    assert f"dist: backend nccl, {n} ranks on {n} card(s)" in logs[0]
+    for rank in recs:
+        for rec, first in zip(rank, recs[0]):
+            assert rec["backend"] == "nccl" and rec["n_chips"] == n
+            assert rec["losses"] == first["losses"]
+    one = mh_smoke.run(mh_smoke.smoke_config(
+        "mlp-dp2", device="cuda", steps=steps, learning_rate=0.02),
+        mh_smoke.smoke_data())
+    auto, explicit = recs[0]
+    np.testing.assert_allclose(explicit["losses"], auto["losses"],
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(auto["losses"], one["losses"], rtol=1e-4)

@@ -514,14 +514,17 @@ TRAIN_FIELDS = ("model", "optimizer", "learning_rate", "momentum",
                 "eval_every", "target_accuracy", "seed", "steps_per_call",
                 "max_inflight", "grad_accum", "checkpoint_dir",
                 "checkpoint_every", "resume", "eval_only",
-                "graceful_preemption", "fail_at_step", "log_every")
+                "graceful_preemption", "fail_at_step", "log_every",
+                "num_devices", "spmd_mode", "coordinator_address",
+                "num_processes", "process_id")
 
 
 def test_training_config_matches_jax():
     ours, ref = tconfig.Config(), jconfig.Config()
     for f in TRAIN_FIELDS:
         assert getattr(ours, f) == getattr(ref, f), f
-    assert set(tconfig.PRESETS) == {"mlp-sgd", "lenet-adam"}
+    assert set(tconfig.PRESETS) == set(jconfig.PRESETS) == {
+        "mlp-sgd", "lenet-adam", "mlp-dp2", "lenet-dp8", "lenet-multihost"}
     for name, preset in tconfig.PRESETS.items():
         for f in TRAIN_FIELDS:
             assert getattr(preset, f) == getattr(jconfig.PRESETS[name], f), \
@@ -578,6 +581,8 @@ def test_train_cli_imports_no_jax(tmp_path):
     write_idx_fixtures(tmp_path, src)
     code = (
         "import json, sys\n"
+        "import distributedmnist_tpu_torch.parallel.launch\n"
+        "import distributedmnist_tpu_torch.parallel.mh_smoke\n"
         "from distributedmnist_tpu_torch.train import main\n"
         f"rc = main(['--device', 'cpu', '--preset', 'lenet-adam', "
         f"'--data-dir', {str(tmp_path)!r}, '--steps', '6', "
