@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's MLP serving path, its training paths (one
-card, and data-parallel ranks sharing it), its LeNet-5 serving path, its
-HTTP server and its bench on one CUDA card.
+card, data-parallel and tensor-parallel ranks sharing it, bfloat16, the
+streaming pipeline), its LeNet-5 serving path, its HTTP server and its
+bench on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -90,8 +91,28 @@ HTTP server and its bench on one CUDA card.
    or engine build after warmup, and the trial must reach its target;
    each record is printed on a `bench` line, and the launches the runs
    report are the `bench` path's.
-10. Prints a `kernels` JSON line (launches on each path, error, times,
-   bound) and, last, {"ok": true, "device": {...}}.
+10. The rest of training (after phase 5), with every launch count set to
+   0 first, children reporting their own: dense_relu f32 at each
+   tensor-parallel rank's column shard (N = 64 and 32: the trainer's
+   split of config 3's batch and of an eval batch at (world,
+   model_parallel) 2x2, 4x2 and 4x4) and bf16 at N = 128 (64, 512 and
+   2048 rows) against its plain version in phase 2's checks; the MLP
+   (200 steps) and LeNet-5 (20 steps, Adam) at --model-parallel 2 as 2
+   ranks sharing the card over gloo (mh_smoke), their losses within
+   1e-4 of 1 rank's and each MLP rank's dense_relu launches at least its
+   steps and eval batch; both through the train CLI at full width, 500
+   steps, beside 1 rank at the same global batch; configs 1 and 2 for
+   1000 steps in float32 and bfloat16 (bf16 accuracy floors; the MLP's
+   dense_relu launched in bf16); config 2 through --data-pipeline stream
+   against the device pipeline under cuDNN's deterministic algorithms
+   (losses within 1e-6); IDX files written from the synthetic set, read
+   through the native reader (built first, its reads counted), then the
+   train CLI on them with --supervise and --profile-dir (a trace file
+   must exist). Phase 9 also runs the bench's sweep (LeNet-5, batches 64
+   and 512) and smoke (the MLP in bfloat16).
+11. Prints a `kernels` JSON line (launches on each path, error, times,
+   bound; dense_relu's entry lists the new shapes) and, last,
+   {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero before the last line. Without a
 card, or without the rest of the repository beside this file, it exits
@@ -200,6 +221,28 @@ COMPARE_TOL = dict(loss_rtol=1e-4, param_atol=1e-4)
 # default windows take minutes on the card) and one-second serve phases.
 # The serve runs of LeNet-5 boot from a copy of config 2's last
 # checkpoint, the one whose gates the LeNet serving phase held.
+# The rest-of-training phase. Tensor parallelism: model_parallel 2 as 2
+# ranks sharing the card over gloo, on mh_smoke's data, against 1 rank at
+# the same global batch (losses rtol 1e-4, as the data-parallel ranks are
+# held: other product shapes and sums), and the train CLI's step time at
+# full width beside 1 rank's. The MLP runs 200 steps; LeNet-5 runs 20:
+# over 200 Adam steps its 2 ranks and 1 rank part by 2e-3 on the CPU
+# already (Adam divides by the RMS of the gradient, so rounding residues
+# grow), while 20 steps agree within 1e-6 there. bfloat16: configs 1
+# and 2 for REST_STEPS each, beside the same runs in float32, held to
+# floors under what the first card run reached. The streaming pipeline:
+# config 2 under cuDNN's deterministic algorithms, its losses the device
+# pipeline's within 1e-6. Layouts of the kernel cases: (world,
+# model_parallel).
+TP_STEPS = {"mlp": 200, "lenet": 20}
+TP_TOL = 1e-4
+TP_CLI_STEPS = 500
+TP_LAYOUTS = ((2, 2), (4, 2), (4, 4))
+REST_STEPS = 1000
+# measured on an H100 (PERF.md §6): 0.9729 and 0.9910 in bf16, 0.9713 and
+# 0.9902 in f32, after 1000 steps
+BF16_ACCURACY_FLOOR = {"mlp-sgd": 0.96, "lenet-adam": 0.98}
+STREAM_TOL = 1e-6
 BENCH_RUNS = (
     ("throughput", "--model", "mlp", "--global-batch", "64",
      "--steps-per-call", "256", "--warmup-steps", "256", "--bench-steps",
@@ -214,6 +257,10 @@ BENCH_RUNS = (
      "--serve-duration", "1", "--checkpoint-dir", "{ckpt}"),
     ("serve", "--model", "lenet", "--serve-infer-dtype", "int8",
      "--serve-duration", "1", "--checkpoint-dir", "{ckpt}"),
+    ("sweep", "--model", "lenet", "--sweep-batches", "64,512",
+     "--steps-per-call", "128", "--warmup-steps", "128", "--bench-steps",
+     "256", "--repeats", "2"),
+    ("smoke", "--model", "mlp", "--dtype", "bfloat16"),
 )
 BENCH_TIMEOUT_S = 300
 # The HTTP phase: sequential 1-row /predict calls timed per server, the
@@ -222,9 +269,18 @@ BENCH_TIMEOUT_S = 300
 HTTP_TIMED_CALLS = 200
 HTTP_CHECK_ROWS = 512
 HTTP_READY_S = 300
-# The root bench's record keys (its THROUGHPUT_r05.json, TTA_r05.json and
-# BENCH_serve_r13.json records, the serve legs not ported yet left out)
+# The root bench's record keys (its THROUGHPUT_r05.json, TTA_r05.json,
+# BENCH_serve_r13.json, SWEEP_r05.json and SMOKE_r05.json records, the
+# serve legs not ported yet left out; the smoke metric is named "smoke")
 BENCH_KEYS = {
+    "predicted_8chip_images_per_sec_per_chip": {
+        "model", "backend", "dtype", "n_chips_measured", "curve_img_s_chip",
+        "n_params", "grad_bytes_f32", "ici_assumed_gbps", "allreduce_ms_est",
+        "allreduce_modeled", "strong_scaling", "weak_scaling",
+        "weak_scaling_at_largest", "prediction_range"},
+    "smoke": {
+        "backend", "n_chips", "model", "data", "legs", "final_accuracy",
+        "images_per_sec_per_chip", "short_window", "window_steps"},
     "train_images_per_sec_per_chip": {
         "model", "data", "global_batch", "n_chips", "backend", "dtype",
         "bench_steps", "steps_per_call", "step_ms", "windows_img_s_chip"},
@@ -960,6 +1016,299 @@ def drive_dp_path(card: str) -> tuple[dict, dict]:
     return phases, launches
 
 
+def tp_dense_relu_shapes() -> list[tuple[str, int, int]]:
+    """(kind, rows, columns) of each dense_relu launch under tensor
+    parallelism, as the trainer splits them, for each (world,
+    model_parallel) of TP_LAYOUTS: a rank's share of config 3's global
+    batch over its data index, and of an eval batch (min(2048, test
+    images) rounded up to the data-parallel size), on its 128/mp hidden
+    columns."""
+    from distributedmnist_tpu_torch.config import PRESETS
+    from distributedmnist_tpu_torch.parallel.mesh import make_mesh
+    from distributedmnist_tpu_torch.utils import round_up
+
+    batch = PRESETS["mlp-dp2"].batch_size
+    out = set()
+    for world, mp in TP_LAYOUTS:
+        mesh = make_mesh(world, mp)
+        n = 128 // mp
+        out.add(("tp train", batch // mesh.dp, n))
+        out.add(("tp eval", round_up(min(2048, 10_000), mesh.dp) // mesh.dp,
+                 n))
+    return sorted(out, key=lambda r: (-r[2], r[1], r[0]))
+
+
+# the rows of bfloat16 training's dense_relu launches: config 1's step,
+# the bench's batch, an eval batch
+BF16_ROWS = (("train step", 64), ("bench step", 512), ("train eval", 2048))
+
+
+def rest_cases(params: dict, data):
+    """dense_relu at the rest-of-training shapes, on the fitted MLP's
+    weights (fit_params: its hidden bias is non-zero, where a fresh
+    init's is all zero and would leave the bias epilogue unchecked) and
+    the data's pixels: f32 at each tensor-parallel rank's column shard
+    (tp_dense_relu_shapes), and bf16 at N=128 (BF16_ROWS), decoded
+    straight to bf16 as the trainer does. The same tuple as
+    kernel_cases."""
+    import torch
+
+    from distributedmnist_tpu_torch.data.packing import normalize
+    from distributedmnist_tpu_torch.ops import fused
+
+    dev = torch.device("cuda")
+    p = {k: v.to(dev) for k, v in params.items()}
+    k = 784
+    shapes = [(kind, m, n, torch.float32)
+              for kind, m, n in tp_dense_relu_shapes()]
+    shapes += [(kind, m, 128, torch.bfloat16) for kind, m in BF16_ROWS]
+    for kind, m, n, dt in shapes:
+        pixels = data["test_x" if kind.endswith("eval") else "train_x"][:m]
+        x = normalize(torch.from_numpy(pixels.reshape(m, k)).to(dev), dt)
+        w = p["hidden_kernel"][:, :n].to(dt).contiguous()
+        b = p["hidden_bias"][:n].to(dt).contiguous()
+        if int((b != 0).sum()) < n // 2:
+            raise RuntimeError(f"rest_cases: the bias of 784->{n} is "
+                               f"mostly zero; the epilogue goes unchecked")
+        size = x.element_size()
+        f32 = dt == torch.float32
+        yield ("dense_relu", f"{'f32' if f32 else 'bf16'} {kind} "
+               f"784->{n} b={m}", "float32" if f32 else "bfloat16",
+               lambda x=x, w=w, b=b: fused.dense_relu_inference(x, w, b),
+               lambda x=x, w=w, b=b: fused.dense_relu_reference(x, w, b),
+               lambda x=x, w=w, b=b: torch.relu(torch.addmm(b, x, w)),
+               size * (m * k + k * n + n + m * n), 2 * m * k * n + 2 * m * n,
+               dict(rtol=1e-5, atol=1e-5) if f32
+               # one bf16 rounding step of the output (2**-8 relative)
+               else dict(rtol=1e-2, atol=1e-2))
+
+
+def _write_idx(directory: str, data: dict) -> None:
+    """`data`'s four arrays as the MNIST distribution's raw IDX files."""
+    import struct
+
+    import numpy as np
+
+    for name, arr in (("train-images-idx3-ubyte", data["train_x"][..., 0]),
+                      ("train-labels-idx1-ubyte", data["train_y"]),
+                      ("t10k-images-idx3-ubyte", data["test_x"][..., 0]),
+                      ("t10k-labels-idx1-ubyte", data["test_y"])):
+        with open(os.path.join(directory, name), "wb") as f:
+            f.write(struct.pack(f">I{arr.ndim}I", 0x0800 | arr.ndim,
+                                *arr.shape))
+            f.write(np.ascontiguousarray(arr, dtype=np.uint8).tobytes())
+
+
+def _fit_record(name: str, out: dict, launched: int) -> dict:
+    rec = {k: out[k] for k in (
+        "images_per_sec", "step_ms", "test_accuracy", "steps", "n_evals",
+        "final_loss", "global_batch", "model_parallel", "data_pipeline",
+        "pixel_format", "n_processes")}
+    rec["dense_relu_launches"] = launched
+    print(f"rest {name}: {out['step_ms']:.4f} ms a step, "
+          f"{out['images_per_sec']:.1f} images/s, test accuracy "
+          f"{out['test_accuracy']:.4f} after {out['steps']} steps, "
+          f"dense_relu launches {launched}", flush=True)
+    return rec
+
+
+def drive_rest_of_training(card: str, data: dict) -> tuple[dict, dict]:
+    """The rest of training through the port's entry points on the card:
+    model_parallel 2 (2 ranks sharing the card over gloo: mh_smoke's
+    trajectories against 1 rank, the train CLI's step time at full width
+    against 1 rank's), bfloat16 configs 1 and 2 against float32, the
+    streaming pipeline against the device pipeline, and --data-dir read
+    by the native IDX reader with --supervise and --profile-dir. Returns
+    (phases, the kernel launches of this process and its children)."""
+    import numpy as np
+
+    from distributedmnist_tpu_torch import trainer
+    from distributedmnist_tpu_torch.config import PRESETS
+    from distributedmnist_tpu_torch.data import load_mnist, native
+    from distributedmnist_tpu_torch.ops import fused
+    from distributedmnist_tpu_torch.parallel import launch, mh_smoke
+    from distributedmnist_tpu_torch.utils import MetricsLogger
+
+    phases: dict = {}
+    children = dict.fromkeys(fused.LAUNCHES, 0)
+
+    def add(counts: dict) -> None:
+        for k, n in counts.items():
+            children[k] = children.get(k, 0) + n
+
+    # 1. TP trajectories: 2 ranks at model_parallel 2 against 1 rank
+    runs = {"mlp": {"learning_rate": MLP_LR},
+            "lenet": {"model": "lenet", "optimizer": "adam",
+                      "learning_rate": 1e-3}}
+    port = launch.free_port()
+    specs = [{"model_parallel": 2, "steps_per_call": 1,
+              "steps": TP_STEPS[n], **r} for n, r in runs.items()]
+    results = _run_ranks([[
+        "-m", "distributedmnist_tpu_torch.parallel.mh_smoke", str(r), "2",
+        str(port), "--device", "cuda", "--preset", "mlp-dp2", "--runs",
+        json.dumps(specs)] for r in range(2)])
+    recs = []
+    for rc, out, err in results:
+        if rc != 0:
+            raise RuntimeError(f"a TP rank exited {rc}:\n{err[-4000:]}")
+        recs.append([json.loads(ln.split(" ", 1)[1])
+                     for ln in out.splitlines() if ln.startswith("MHSMOKE ")])
+    eval_batches = 1                      # mh_smoke's 255 test images
+    for (name, run), spec, *ranks in zip(runs.items(), specs, *recs):
+        one = mh_smoke.run(mh_smoke.smoke_config(
+            "mlp-dp2", device="cuda", steps_per_call=1,
+            steps=TP_STEPS[name], **run), mh_smoke.smoke_data())
+        for rec in ranks:
+            bad = []
+            if rec["losses"] != ranks[0]["losses"]:
+                bad.append("the ranks disagree")
+            if (rec["model_parallel"], rec["n_processes"], rec["n_chips"],
+                    rec["backend"]) != (2, 2, 1, "gloo"):
+                bad.append("topology")
+            if name == "mlp" and rec["launches"]["dense_relu"] < (
+                    TP_STEPS[name] + eval_batches):
+                bad.append(f"dense_relu launches {rec['launches']}")
+            if bad:
+                raise RuntimeError(f"TP {name}: {bad}: {rec}")
+            add(rec["launches"])
+        got, want = np.array(ranks[0]["losses"]), np.array(one["losses"])
+        err = float(np.max(np.abs(got - want) / np.abs(want)))
+        if len(got) != TP_STEPS[name] or err > TP_TOL:
+            raise RuntimeError(f"TP {name}: 2 ranks at model_parallel 2 "
+                               f"vs 1 rank: {err} over {len(got)} steps")
+        phases[f"tp_{name}_trajectory"] = {
+            "steps": TP_STEPS[name], "max_loss_rtol": err,
+            "launches": [r["launches"]["dense_relu"] for r in ranks],
+            "test_accuracy": ranks[0]["test_accuracy"]}
+        print(f"tp {name}: {TP_STEPS[name]} steps, 2 ranks at "
+              f"model_parallel 2 vs 1 rank: losses {err:.3g} apart "
+              f"(rel), dense_relu launches "
+              f"{[r['launches']['dense_relu'] for r in ranks]}", flush=True)
+
+    # 2. TP at full width through the train CLI (its launcher starts the
+    # 2 ranks), each beside 1 rank at the same global batch in this
+    # process: per-rank figures of a shared card, no scaling figure
+    cli = {"mlp": ("--preset", "mlp-dp2", "--learning-rate", str(MLP_LR)),
+           "lenet": ("--preset", "lenet-dp8", "--num-devices", "2",
+                     "--batch-size", "128")}
+    for name, args in cli.items():
+        [(rc, out, err)] = _run_ranks([[
+            "-m", "distributedmnist_tpu_torch.train", *args, "--synthetic",
+            "--model-parallel", "2", "--steps", str(TP_CLI_STEPS)]])
+        if rc != 0:
+            raise RuntimeError(f"TP {name} CLI exited {rc}:\n{err[-4000:]}")
+        s = _summary(out)
+        ranks = _train_launches(err)
+        want = s["steps"] + s["n_evals"] * (-(-10_000 // 2048))
+        if ((s["model_parallel"], s["n_processes"], s["n_chips"])
+                != (2, 2, 1) or len(ranks) != 2
+                or (name == "mlp" and any(r["dense_relu"] < want
+                                          for r in ranks))):
+            raise RuntimeError(f"TP {name} CLI: {s} {ranks}")
+        for r in ranks:
+            add(r)
+        preset = PRESETS["mlp-dp2" if name == "mlp" else "lenet-dp8"]
+        before = fused.LAUNCHES["dense_relu"]
+        one = trainer.fit(preset.replace(
+            synthetic=True, num_devices=1, batch_size=s["global_batch"],
+            learning_rate=MLP_LR if name == "mlp" else preset.learning_rate,
+            steps=TP_CLI_STEPS, device="cuda"), data=data)
+        phases[f"tp_{name}_cli"] = {
+            "mp2": {**{k: s[k] for k in ("step_ms", "images_per_sec",
+                                         "test_accuracy", "steps")},
+                    "dense_relu_launches": [r["dense_relu"] for r in ranks]},
+            "one_rank": _fit_record(f"{name} 1 rank", one,
+                                    fused.LAUNCHES["dense_relu"] - before)}
+        print(f"tp {name} CLI: model_parallel 2, 2 ranks sharing the card "
+              f"over gloo, {s['step_ms']:.4f} ms a step "
+              f"({s['images_per_sec']:.1f} images/s), test accuracy "
+              f"{s['test_accuracy']:.4f}; 1 rank {one['step_ms']:.4f} ms "
+              f"on {card}", flush=True)
+
+    # 3. bfloat16 against float32, configs 1 and 2
+    recipes = {"mlp-sgd": PRESETS["mlp-sgd"].replace(learning_rate=MLP_LR),
+               "lenet-adam": PRESETS["lenet-adam"]}
+    for name, base in recipes.items():
+        for dt in ("float32", "bfloat16"):
+            # blocks of 100 steps: the first is the timer's warm-up
+            cfg = base.replace(synthetic=True, steps=REST_STEPS,
+                               eval_every=REST_STEPS, seed=SEED,
+                               target_accuracy=None, device="cuda", dtype=dt,
+                               steps_per_call=100)
+            before = fused.LAUNCHES["dense_relu"]
+            out = trainer.fit(cfg, data=data)
+            launched = fused.LAUNCHES["dense_relu"] - before
+            phases[f"{name}_{dt}"] = _fit_record(f"{name} {dt}", out,
+                                                 launched)
+            if not np.isfinite(out["final_loss"]) or out["steps"] != \
+                    REST_STEPS:
+                raise RuntimeError(f"{name} {dt}: bad run {out}")
+            if dt == "bfloat16" and out["test_accuracy"] < \
+                    BF16_ACCURACY_FLOOR[name]:
+                raise RuntimeError(f"{name} bfloat16: test accuracy "
+                                   f"{out['test_accuracy']} under "
+                                   f"{BF16_ACCURACY_FLOOR[name]}")
+            if name == "mlp-sgd" and launched < REST_STEPS + 5:
+                raise RuntimeError(f"{name} {dt}: dense_relu launched "
+                                   f"{launched} times")
+
+    # 4. the streaming pipeline against the device pipeline, config 2
+    losses = {}
+    for pipe in ("device", "stream"):
+        cfg = PRESETS["lenet-adam"].replace(
+            synthetic=True, steps=REST_STEPS, eval_every=REST_STEPS,
+            seed=SEED, target_accuracy=None, device="cuda",
+            data_pipeline=pipe, steps_per_call=100, log_every=100)
+        mlog = MetricsLogger()
+        with deterministic_cudnn():
+            out = trainer.fit(cfg, data=data, log=mlog)
+        losses[pipe] = [r["loss"] for r in mlog.history if "loss" in r]
+        phases[f"lenet-adam_{pipe}"] = _fit_record(f"lenet-adam {pipe}",
+                                                   out, 0)
+    np.testing.assert_allclose(losses["stream"], losses["device"],
+                               rtol=STREAM_TOL, atol=STREAM_TOL)
+    phases["stream_vs_device_max_abs"] = float(np.max(np.abs(
+        np.array(losses["stream"]) - np.array(losses["device"]))))
+
+    # 5. --data-dir through the native reader, --supervise, --profile-dir
+    with tempfile.TemporaryDirectory() as d:
+        idx_dir, prof = os.path.join(d, "idx"), os.path.join(d, "prof")
+        os.makedirs(idx_dir)
+        _write_idx(idx_dir, data)
+        if not native.ensure_built(force=True):
+            raise RuntimeError("the native IDX reader did not build")
+        before = native.READS[0]
+        real = load_mnist(idx_dir)
+        if native.READS[0] - before != 4 or real["source"] != "real" or \
+                not all(np.array_equal(real[k], data[k]) for k in (
+                    "train_x", "train_y", "test_x", "test_y")):
+            raise RuntimeError("--data-dir was not read by the native "
+                               "reader as the synthetic set")
+        [(rc, out, err)] = _run_ranks([[
+            "-m", "distributedmnist_tpu_torch.train", "--preset", "mlp-sgd",
+            "--learning-rate", str(MLP_LR), "--data-dir", idx_dir,
+            "--steps", "200", "--eval-every", "200", "--supervise",
+            "--stall-timeout", "120", "--profile-dir", prof]])
+        if rc != 0:
+            raise RuntimeError(f"--data-dir --supervise exited {rc}:\n"
+                               f"{err[-4000:]}")
+        s = _summary(out)
+        traces = os.listdir(prof) if os.path.isdir(prof) else []
+        if s["data"] != "real" or s["steps"] != 200 or not traces:
+            raise RuntimeError(f"--data-dir run: {s}, traces {traces}")
+        for r in _train_launches(err):
+            add(r)
+        phases["data_dir"] = {"native_reads": native.READS[0] - before,
+                              "test_accuracy": s["test_accuracy"],
+                              "trace_files": traces,
+                              "trace_bytes": os.path.getsize(
+                                  os.path.join(prof, traces[0]))}
+        print(f"--data-dir: 4 IDX files read natively; the supervised CLI "
+              f"trained 200 steps on them (data {s['data']}, test accuracy "
+              f"{s['test_accuracy']:.4f}) and wrote {traces}", flush=True)
+    return phases, children
+
+
 def drive_serving_path(params: dict) -> dict:
     """The port's serving path, through its entry points, on the card."""
     import numpy as np
@@ -1574,7 +1923,8 @@ def main() -> int:
           f"{LENET_SEED}), made in {time.perf_counter() - t0:.1f}s",
           flush=True)
     records = check_kernels(itertools.chain(
-        kernel_cases(params, np.asarray(images)), training_cases(data)))
+        kernel_cases(params, np.asarray(images)), training_cases(data),
+        rest_cases(params, data)))
     time_forwards("mlp", params, np.asarray(images),
                   ("float32", "bfloat16", "int8", "megakernel"))
     compare_training_step(data)
@@ -1603,6 +1953,17 @@ def main() -> int:
         if launches["dp_training"]["dense_relu"] <= 0:
             raise RuntimeError("dense_relu never launched on the "
                                "data-parallel training path")
+
+        fused.reset_launches()
+        t0 = time.perf_counter()
+        phases, children = drive_rest_of_training(card, data)
+        launches["rest_training"] = {k: fused.LAUNCHES[k] + children[k]
+                                     for k in fused.LAUNCHES}
+        phases["phase_s"] = time.perf_counter() - t0
+        print("rest_phases " + json.dumps(phases), flush=True)
+        if launches["rest_training"]["dense_relu"] <= 0:
+            raise RuntimeError("dense_relu never launched on the rest of "
+                               "the training path")
 
         lenet_params, _ = checkpoint.restore_latest_params(lenet_ckpt)
         held = synthetic_mnist(seed=LENET_SEED, train_n=16,
@@ -1649,6 +2010,12 @@ def main() -> int:
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
             "library_ms": timed["library_ms"], "case": timed["case"]})
+    # the rest of training's new shapes, each case beside its bound
+    line[0]["new_shapes"] = [
+        {k: r[k] for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by",
+                           "library_ms", "max_abs_err")}
+        for r in records if r["case"].startswith(("f32 tp", "bf16 train",
+                                                  "bf16 bench"))]
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

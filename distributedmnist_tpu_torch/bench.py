@@ -1,7 +1,7 @@
 """Benchmark of the port, printed as ONE JSON line on stdout:
 `python -m distributedmnist_tpu_torch.bench`.
 
-The port's counterpart of the root bench.py, in three of its modes, with
+The port's counterpart of the root bench.py, in its five modes, with
 its flag names, defaults and record keys:
 
 - throughput (default): steady-state training images/sec on one card
@@ -13,6 +13,14 @@ its flag names, defaults and record keys:
   --target-accuracy on the tuned recipe (tta_config), over --trials
   trials at distinct seeds; the median is reported beside the steps and
   evals each trial needed.
+- sweep: the throughput measurement at each per-card batch of
+  --sweep-batches, and from that curve the root bench's 8-card
+  prediction (strong and weak scaling, a sensitivity band), with the
+  gradient all-reduce modelled at the bus bandwidth NCCL measured among
+  this host's own cards (ALLREDUCE_BUS_GBPS).
+- smoke: an end-to-end gate: trainer.fit for 64 steps with evals and
+  checkpoints, then a restore that resumes to step 96, held to a 0.85
+  test-accuracy floor.
 - serve (also `python -m distributedmnist_tpu_torch.bench serve`): the
   in-process load legs of the serving stack. Closed loop at in-flight 1,
   one open-loop point at the lowest rate, closed loop at
@@ -23,11 +31,23 @@ its flag names, defaults and record keys:
   parity-gated variant before any measured phase.
 
 Runs on the card; --device cpu runs on the CPU, and without a card the
-bench raises. Progress marks go to stderr, and at the end the kernel
-launch counts (`bench: launches {...}`). The bench writes no file.
+bench raises. --dtype bfloat16 trains in bfloat16 (throughput,
+time-to-accuracy, sweep, smoke); --data-dir reads MNIST from IDX files or
+mnist.npz there instead of the synthetic set. Progress marks go to
+stderr, and at the end the kernel launch counts (`bench: launches
+{...}`). The bench writes no file.
+
+As the root bench does, the measurement runs in a supervised worker
+process (utils/supervise.py: killed and retried when it goes silent for
+--stall-timeout seconds or exits without a record, up to --max-attempts
+times); --inline runs it in this process. Unlike the root bench, which
+re-runs on the CPU when every attempt fails, the port's bench then
+fails: a CPU number is never a result of the card's bench.
 
     python -m distributedmnist_tpu_torch.bench throughput --model mlp
     python -m distributedmnist_tpu_torch.bench time-to-accuracy
+    python -m distributedmnist_tpu_torch.bench sweep --sweep-batches 64,512
+    python -m distributedmnist_tpu_torch.bench smoke --dtype bfloat16
     python -m distributedmnist_tpu_torch.bench serve --model lenet \\
         --checkpoint-dir ckpt --serve-infer-dtype int8
 
@@ -40,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import sys
@@ -53,15 +74,20 @@ from distributedmnist_tpu_torch.analysis.locks import make_thread
 # bounds how long a trial may run, not how fast the lr decays.
 TTA_DECAY_STEPS = 2340
 
+# The sweep's all-reduce model: NCCL's all-reduce bus bandwidth, GB/s, of
+# each model's float32 gradients (grad_bytes_f32: 246,824 and 407,080
+# bytes, 48.1 and 51.8 us an all-reduce) among this kind of host's cards,
+# measured by `python -m distributedmnist_tpu_torch.allreduce_bw` on four
+# NVIDIA H100 80GB HBM3 (power limit 700.00 W each) over NVLink, one rank
+# a card (PERF.md §6 names the run). The root bench's figure was a TPU's
+# interconnect; none of it is the port's.
+ALLREDUCE_BUS_GBPS = {"lenet": 7.6941584720758485, "mlp": 11.78708403662699}
+
 MODES = ("throughput", "time-to-accuracy", "sweep", "smoke", "serve")
 
 # Flags and modes of the root bench whose machinery the port does not
 # have yet, each with the ROADMAP.md item that ports it. They exit 2.
 UNPORTED = {
-    "--dtype bfloat16": "section 1 item 5 (bfloat16 training)",
-    "--data-dir": "section 1 item 5 (real MNIST; none is in the repo)",
-    "sweep": "section 1 item 5 (bench sweep)",
-    "smoke": "section 1 item 5 (bench smoke)",
     "--zipf": "section 1 item 6 (the prediction cache)",
     "--zipf-cache-off": "section 1 item 6 (the prediction cache)",
     "--serve-cache": "section 1 item 6 (the prediction cache)",
@@ -108,28 +134,42 @@ def _parser() -> argparse.ArgumentParser:
                         "when asked)")
     p.add_argument("--model", choices=["mlp", "lenet"], default="lenet")
     p.add_argument("--dtype", choices=["float32", "bfloat16"],
-                   default="float32")
-    p.add_argument("--data-dir", default=None)
+                   default="float32",
+                   help="training compute dtype (throughput, "
+                        "time-to-accuracy, sweep, smoke)")
+    p.add_argument("--data-dir", default=None,
+                   help="real MNIST IDX/npz dir (default: the synthetic "
+                        "set)")
     p.add_argument("--target-accuracy", type=float, default=0.99)
     p.add_argument("--max-epochs", type=int, default=20)
     p.add_argument("--global-batch", type=int, default=None,
-                   help="global batch (default 512)")
+                   help="global batch (default 512; sweep mode rejects "
+                        "this — it takes --sweep-batches)")
     p.add_argument("--warmup-steps", type=int, default=None,
-                   help="[throughput] warmup steps (default 20)")
+                   help="[throughput/sweep] warmup steps (default 20)")
     p.add_argument("--bench-steps", type=int, default=None,
-                   help="[throughput] timed steps, >= 1 (default: 8192 on "
-                        "the card, 64 on the cpu)")
+                   help="[throughput/sweep] timed steps, >= 1 (default: "
+                        "8192 on the card, 64 on the cpu)")
     p.add_argument("--steps-per-call", type=int, default=None,
                    help="steps launched per block (default: 1 on the cpu; "
                         "on the card min(4096, max(256, 1024*512 // b)) in "
                         "throughput mode, trainer.fit's auto depth in "
                         "time-to-accuracy mode)")
     p.add_argument("--repeats", type=int, default=None,
-                   help="[throughput] timed windows, median reported "
+                   help="[throughput/sweep] timed windows, median reported "
                         "(default: 3 on the card, 1 on the cpu)")
     p.add_argument("--trials", type=int, default=None,
                    help="[time-to-accuracy] full training runs, median "
                         "reported (default: 3 on the card, 1 on the cpu)")
+    p.add_argument("--sweep-batches", default="64,128,256,512",
+                   help="[sweep] comma-separated per-card batch sizes")
+    p.add_argument("--stall-timeout", type=float, default=300.0,
+                   help="kill and retry the worker if it is silent this "
+                        "long")
+    p.add_argument("--max-attempts", type=int, default=3,
+                   help="worker attempts before giving up (no CPU re-run)")
+    p.add_argument("--inline", action="store_true",
+                   help="run in this process (no supervised worker)")
     p.add_argument("--checkpoint-dir", default=None,
                    help="[serve] boot from this directory's latest "
                         "committed checkpoint (fresh-init without one)")
@@ -185,13 +225,8 @@ def _parse(argv) -> argparse.Namespace:
                     f"--mode {args.mode!r}")
         args.mode = args.mode_pos
     args.mode = args.mode or "throughput"
-    unported = [args.mode] if args.mode in UNPORTED else []
-    unported += [f for f in _UNPORTED_SWITCHES + _UNPORTED_VALUES
-                 if getattr(args, f[2:].replace("-", "_")) is not None]
-    if args.dtype != "float32":
-        unported.append("--dtype bfloat16")
-    if args.data_dir is not None:
-        unported.append("--data-dir")
+    unported = [f for f in _UNPORTED_SWITCHES + _UNPORTED_VALUES
+                if getattr(args, f[2:].replace("-", "_")) is not None]
     if unported:
         p.error("not ported yet: " + "; ".join(
             f"{u} (ROADMAP.md {UNPORTED[u]})" for u in unported))
@@ -211,11 +246,15 @@ def _parse(argv) -> argparse.Namespace:
         if given or args.serve_rows != 1:
             p.error(f"{', '.join(given) or '--serve-rows'} are serve-mode "
                     "flags; rejected rather than silently ignored")
+    if args.mode != "sweep" and args.sweep_batches != "64,128,256,512":
+        p.error("--sweep-batches is a sweep-mode flag; rejected rather "
+                "than silently ignored")
     if args.mode == "serve":
         if (args.warmup_steps is not None or args.bench_steps is not None
                 or args.repeats is not None or args.trials is not None
                 or args.steps_per_call is not None
-                or args.global_batch is not None):
+                or args.global_batch is not None
+                or args.data_dir is not None or args.dtype != "float32"):
             p.error("serve mode takes --model and the --serve-* flags; "
                     "training measurement flags belong to the other modes")
         for flag, v, lo in (("--serve-rows", args.serve_rows, 1),
@@ -241,7 +280,7 @@ def _parse(argv) -> argparse.Namespace:
                 p.error("--serve-qps must be comma-separated numbers")
             if not args.serve_qps or args.serve_qps[0] <= 0:
                 p.error("--serve-qps targets must be positive")
-    elif args.mode == "throughput":
+    elif args.mode in ("throughput", "sweep"):
         if args.trials is not None:
             p.error("--trials is a time-to-accuracy flag; throughput "
                     "takes --repeats")
@@ -251,6 +290,25 @@ def _parse(argv) -> argparse.Namespace:
             p.error("--repeats must be >= 1")
         args.warmup_steps = (20 if args.warmup_steps is None
                              else args.warmup_steps)
+        if args.mode == "sweep":
+            if args.global_batch is not None:
+                p.error("--global-batch is meaningless in sweep mode "
+                        "(the curve comes from --sweep-batches); "
+                        "rejected rather than silently ignored")
+            try:
+                args.sweep_batches = sorted(
+                    {int(b) for b in args.sweep_batches.split(",")})
+            except ValueError:
+                p.error("--sweep-batches must be comma-separated ints")
+            if not args.sweep_batches or args.sweep_batches[0] < 1:
+                p.error("--sweep-batches must be positive")
+    elif args.mode == "smoke":
+        if (args.warmup_steps is not None or args.bench_steps is not None
+                or args.repeats is not None or args.trials is not None
+                or args.steps_per_call is not None):
+            p.error("smoke mode takes only --model/--dtype/--data-dir/"
+                    "--global-batch; measurement flags belong to "
+                    "throughput/sweep/time-to-accuracy")
     else:
         if (args.warmup_steps is not None or args.bench_steps is not None
                 or args.repeats is not None):
@@ -265,9 +323,18 @@ def _parse(argv) -> argparse.Namespace:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = _parse(argv)
+    from distributedmnist_tpu_torch.utils import supervise
+
+    if not args.inline and not supervise.is_worker():
+        # no fallback_env: when every attempt fails, the bench fails
+        return supervise.run_supervised(
+            ["-m", "distributedmnist_tpu_torch.bench", *argv],
+            accept=supervise.json_record_acceptor("metric"),
+            stall_timeout=args.stall_timeout, attempts=args.max_attempts)
     run = {"throughput": _throughput, "time-to-accuracy": _time_to_accuracy,
-           "serve": _serve}[args.mode]
+           "sweep": _sweep, "smoke": _smoke, "serve": _serve}[args.mode]
     rc = run(args)
     from distributedmnist_tpu_torch.ops import fused
 
@@ -294,8 +361,9 @@ class _Runner:
         self.on_cpu = self.device.type == "cpu"
         _mark(f"backend up: 1x {self.device.type}")
         self.model = args.model
-        data = data if data is not None else load_mnist(synthetic=True,
-                                                        seed=0)
+        self.dtype = args.dtype
+        data = data if data is not None else load_mnist(
+            args.data_dir, synthetic=args.data_dir is None, seed=0)
         # the trainer's defaults: packed pixel rows on the device
         self.ds = DeviceDataset(data, self.device, pixel_format="packed")
         # On the CPU every op has finished when it returns: one step a
@@ -309,13 +377,14 @@ class _Runner:
         from distributedmnist_tpu_torch import models, optim, trainer
         from distributedmnist_tpu_torch.data import IndexStream
 
-        net = models.build(self.model, device=self.device)
+        net = models.build(self.model, dtype=self.dtype, device=self.device)
         net.load_state_dict(params if params is not None
                             else models.init_params(self.model, 0))
         optimizer, scheduler = optim.build("adam", net.parameters(),
                                            optim.make_schedule(1e-3))
         step = trainer.make_train_step(net, optimizer, scheduler,
-                                       self.ds.pixel_format)
+                                       self.ds.pixel_format,
+                                       dtype=models.DTYPES[self.dtype])
         stream = IndexStream(self.ds.train_n, gb, seed=0)
         train_x, train_y = self.ds.train_x, self.ds.train_y
 
@@ -426,14 +495,19 @@ def tta_config(args, gb: int):
     the lr has reached 0)."""
     from distributedmnist_tpu_torch.config import Config
 
-    steps = min(args.max_epochs * (60_000 // gb), TTA_DECAY_STEPS)
+    # the cap is the 60k-row task's; a --data-dir of unknown size keeps
+    # the plain epochs budget
+    steps = None
+    if args.data_dir is None:
+        steps = min(args.max_epochs * (60_000 // gb), TTA_DECAY_STEPS)
     return Config(model=args.model, optimizer="adam", learning_rate=6e-3,
                   lr_schedule="cosine", lr_decay_steps=TTA_DECAY_STEPS,
-                  data_dir=None, synthetic=True, batch_size=gb,
-                  epochs=args.max_epochs, steps=steps,
+                  data_dir=args.data_dir, synthetic=args.data_dir is None,
+                  batch_size=gb, epochs=args.max_epochs, steps=steps,
                   eval_every=200, log_every=0,
                   target_accuracy=args.target_accuracy,
-                  steps_per_call=args.steps_per_call, device=args.device)
+                  steps_per_call=args.steps_per_call, device=args.device,
+                  dtype=args.dtype)
 
 
 def _time_to_accuracy(args) -> int:
@@ -504,6 +578,171 @@ def _time_to_accuracy(args) -> int:
             "n_chips": 1,
             "backend": device.type,
             "dtype": args.dtype,
+        },
+    }), flush=True)
+    return 0
+
+
+# -- sweep and smoke ----------------------------------------------------------
+
+
+def _sweep(args) -> int:
+    """The batch sweep and the root bench's 8-card scaling estimate.
+
+    A per-card batch b on 1 card is the same step as global batch 8b on 8
+    cards but for the gradient all-reduce, which the estimate adds as a
+    model: ring all-reduce time 2 * grad_bytes * (8 - 1) / 8 over the bus
+    bandwidth NCCL measured among this host's cards (ALLREDUCE_BUS_GBPS).
+    Strong scaling holds the global batch at 8x the smallest per-card
+    batch, weak scaling the per-card batch at the curve's peak (and, for
+    a fixed anchor, at the largest); the band recomputes the prediction
+    at 1x and 2x the modelled all-reduce and 0.8-1.2x the measured step."""
+    from distributedmnist_tpu_torch import models
+
+    r = _Runner(args)
+    if args.bench_steps is None:
+        args.bench_steps = 64 if r.on_cpu else 8192
+    curve = {}
+    for b in args.sweep_batches:
+        m = r.measure(args, b, args.bench_steps)
+        curve[b] = {"img_s_chip": round(m["img_s_chip"], 1),
+                    "step_ms": round(m["step_ms"], 4),
+                    "steps_per_call": m["steps_per_call"]}
+
+    n_params = sum(math.prod(s)
+                   for s in models.full_shapes(args.model).values())
+    grad_bytes = n_params * 4
+    bus_gbps = ALLREDUCE_BUS_GBPS[args.model]
+    # one card measured: the whole all-reduce is modelled
+    modeled_ms = 2 * grad_bytes * (8 - 1) / 8 / (bus_gbps * 1e9) * 1e3
+    smallest, largest = min(curve), max(curve)
+    peak = max(curve, key=lambda b: curve[b]["img_s_chip"])
+    strong_step_ms = curve[smallest]["step_ms"] + modeled_ms
+    strong_img_s_chip = smallest / strong_step_ms * 1e3
+
+    def _weak_block(b: int) -> dict:
+        step_ms = curve[b]["step_ms"] + modeled_ms
+        img_s_chip = b / step_ms * 1e3
+        return {
+            "per_chip_batch": b,
+            "global_batch_8chip": 8 * b,
+            "step_ms": round(step_ms, 4),
+            "img_s_chip": round(img_s_chip, 1),
+            "global_img_s": round(8 * img_s_chip, 1),
+            "efficiency_vs_1chip": round(
+                img_s_chip / curve[b]["img_s_chip"], 4),
+        }
+
+    def _band(base_ms: float, per_chip_b: int) -> list:
+        preds = [per_chip_b / (base_ms * f + ar * modeled_ms) * 1e3
+                 for f in (0.8, 1.0, 1.2) for ar in (1, 2)]
+        return [round(min(preds), 1), round(max(preds), 1)]
+
+    print(json.dumps({
+        "metric": "predicted_8chip_images_per_sec_per_chip",
+        "value": round(strong_img_s_chip, 1),
+        "unit": "images/sec/chip",
+        # the root bench's TARGET_IPS_PER_CHIP is a TPU target
+        "vs_baseline": None,
+        "detail": {
+            "model": args.model,
+            "backend": r.device.type,
+            "dtype": args.dtype,
+            "n_chips_measured": 1,
+            "curve_img_s_chip": {str(k): v for k, v in curve.items()},
+            "n_params": n_params,
+            "grad_bytes_f32": grad_bytes,
+            # the root bench's key: here NCCL's measured bus bandwidth
+            # among this host's own cards
+            "ici_assumed_gbps": bus_gbps,
+            "allreduce_ms_est": round(modeled_ms, 4),
+            "allreduce_modeled": True,
+            "strong_scaling": {
+                "per_chip_batch": smallest,
+                "global_batch_8chip": 8 * smallest,
+                "step_ms": round(strong_step_ms, 4),
+                "img_s_chip": round(strong_img_s_chip, 1),
+                "global_img_s": round(8 * strong_img_s_chip, 1),
+            },
+            "weak_scaling": {"anchor": "peak", **_weak_block(peak)},
+            "weak_scaling_at_largest": {"anchor": "largest",
+                                        **_weak_block(largest)},
+            "prediction_range": {
+                "strong_img_s_chip": _band(curve[smallest]["step_ms"],
+                                           smallest),
+                "weak_img_s_chip": _band(curve[peak]["step_ms"], peak),
+                "grid": {"allreduce_x": [1, 2],
+                         "fixed_cost_x": [0.8, 1.0, 1.2]},
+            },
+        },
+    }), flush=True)
+    return 0
+
+
+SMOKE_STEPS, SMOKE_RESUME_TO, SMOKE_FLOOR = 64, 96, 0.85
+
+
+def _smoke(args) -> int:
+    """The end-to-end gate of the root bench's smoke mode: trainer.fit for
+    64 steps (evals and checkpoints every 32), then a restore that
+    resumes to step 96, whose test accuracy must reach 0.85 (96 Adam
+    steps reach about 0.95 on the synthetic set: a regression that still
+    completes must fail)."""
+    import logging
+    import tempfile
+
+    from distributedmnist_tpu_torch import trainer
+    from distributedmnist_tpu_torch.config import Config
+    from distributedmnist_tpu_torch.utils.device import resolve_device
+
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr)
+    device = resolve_device(args.device)
+    _mark(f"backend up: 1x {device.type}")
+    gb = min(args.global_batch, 256)
+    legs = []
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        cfg = Config(model=args.model, optimizer="adam",
+                     learning_rate=1e-3, synthetic=args.data_dir is None,
+                     data_dir=args.data_dir, batch_size=gb,
+                     steps=SMOKE_STEPS, eval_every=32, log_every=0,
+                     target_accuracy=None, checkpoint_dir=ckpt_dir,
+                     checkpoint_every=32, dtype=args.dtype,
+                     device=args.device)
+        out1 = trainer.fit(cfg)
+        if out1["steps"] != SMOKE_STEPS:
+            raise RuntimeError(f"smoke: the first run ended at step "
+                               f"{out1['steps']}: {out1}")
+        legs += ["train", "eval", "checkpoint-save"]
+        _mark("first run done; restoring and resuming")
+        out2 = trainer.fit(cfg.replace(steps=SMOKE_RESUME_TO))
+        if not (out2["restored"] and out2["steps"] == SMOKE_RESUME_TO):
+            raise RuntimeError(f"smoke: the resume did not restore and "
+                               f"reach step {SMOKE_RESUME_TO}: {out2}")
+        legs.append("restore-resume")
+        if out2["test_accuracy"] < SMOKE_FLOOR:
+            raise RuntimeError(f"smoke accuracy floor: "
+                               f"{out2['test_accuracy']:.4f} < "
+                               f"{SMOKE_FLOOR}")
+        legs.append("accuracy-floor")
+    print(json.dumps({
+        "metric": "smoke",
+        "value": 1.0,
+        "unit": "ok",
+        "vs_baseline": None,
+        "detail": {
+            "backend": device.type,
+            "n_chips": 1,
+            "model": args.model,
+            "data": out2["data"],
+            "legs": legs,
+            "final_accuracy": round(out2["test_accuracy"], 4),
+            # the first run's: a 64-step window broken by evals and
+            # checkpoint copies, far below the steady state (throughput
+            # mode), as the flags below say
+            "images_per_sec_per_chip":
+                round(out1["images_per_sec_per_chip"], 1),
+            "short_window": True,
+            "window_steps": SMOKE_STEPS,
         },
     }), flush=True)
     return 0

@@ -32,6 +32,15 @@ class Config:
     data_dir: Optional[str] = None  # dir with IDX (*-ubyte[.gz]) or mnist.npz
     synthetic: bool = False         # force deterministic synthetic MNIST
     batch_size: int = 512
+    # "device": the whole train set on the card, each batch gathered
+    # there by indices; "stream": each rank gathers its rows of every
+    # batch on the host and copies them to the card (data/host_loader.py).
+    # The same batch order either way.
+    data_pipeline: str = "device"
+    # the streaming pipeline's host gather: "numpy" (in the training
+    # loop) or "tfdata" (the same role in torch's idiom: a background
+    # thread that gathers blocks ahead; not tf.data)
+    stream_source: str = "numpy"
     # the train set on the card: "u8" bytes, or "packed" 4 pixels per
     # int32 word (data/packing.py); the same pixels either way
     pixel_format: str = "packed"
@@ -49,6 +58,12 @@ class Config:
     # auto: DistributedDataParallel; explicit: one hand-written
     # all-reduce of the flattened gradients per optimizer step
     spmd_mode: str = "auto"
+    # tensor-parallel degree: the ranks fold into a (data, model) layout
+    # and the dense layers are split Megatron-style over each model group
+    # (parallel/tp.py). 1 = pure data parallelism.
+    model_parallel: int = 1
+    # compute dtype {float32, bfloat16}
+    dtype: str = "float32"
     # steps launched back to back per block (one index copy, one event
     # each). None = auto: 1 on the cpu; on the card the largest k <= 1024
     # dividing the eval/checkpoint/fail-at cadence.
@@ -72,6 +87,18 @@ class Config:
     process_id: Optional[int] = None
     fail_at_step: Optional[int] = None   # fault injection (SimulatedFailure)
     log_every: int = 100
+    # rank 0 writes a torch.profiler Chrome trace of the training loop
+    # (CPU and CUDA activities) into this directory
+    profile_dir: Optional[str] = None
+    # the MLP's hidden layer: auto/pallas = the dense_relu kernel (its
+    # plain version on the cpu), xla = plain relu(x @ w + b)
+    fused_kernels: str = "auto"
+    # LeNet's convolutions: lax = F.conv2d/F.avg_pool2d, im2col = patch
+    # matmuls and reshape pooling; auto = lax
+    conv_impl: str = "auto"
+    # True: one multi-tensor (foreach) optimizer update across all
+    # parameters, the counterpart of optax.flatten; False: per parameter
+    flat_optimizer: bool = True
     # The dynamic batcher's knobs: max_batch bounds rows per dispatch
     # (and the engine's top bucket); max_wait_us bounds how long the
     # oldest queued request waits for coalescing; queue_depth is the
@@ -142,6 +169,17 @@ def add_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         "is the run's own total step count")
     p.add_argument("--data-dir", default=None)
     p.add_argument("--synthetic", action="store_true", default=None)
+    p.add_argument("--data-pipeline", choices=["device", "stream"],
+                   default=None,
+                   help="device: the train set on the card, batches "
+                        "gathered there; stream: each rank gathers its "
+                        "rows on the host into pinned memory and copies "
+                        "them over (same batch order)")
+    p.add_argument("--stream-source", choices=["numpy", "tfdata"],
+                   default=None,
+                   help="[stream] numpy: gather in the training loop; "
+                        "tfdata: a background thread gathers two blocks "
+                        "ahead (torch's idiom for the role; not tf.data)")
     p.add_argument("--pixel-format", choices=["packed", "u8"],
                    default=None)
     p.add_argument("--batch-size", type=int, default=None)
@@ -158,6 +196,16 @@ def add_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         "card, or 1 on the cpu); N > 1 without the "
                         "coordinator flags starts N local ranks")
     p.add_argument("--spmd-mode", choices=["auto", "explicit"], default=None)
+    p.add_argument("--model-parallel", type=int, default=None,
+                   help="tensor-parallel degree: ranks r with the same "
+                        "r // N split the MLP's hidden layer (LeNet's "
+                        "fc1/fc2) N ways, Megatron-style; the world size "
+                        "must divide by N")
+    p.add_argument("--dtype", choices=["float32", "bfloat16"], default=None,
+                   help="compute dtype (bfloat16: the MLP's hidden layer "
+                        "runs the dense_relu kernel in bf16 on bf16 "
+                        "params; the rest computes in bf16 on float32 "
+                        "params)")
     p.add_argument("--steps-per-call", type=int, default=None)
     p.add_argument("--max-inflight", type=int, default=None)
     p.add_argument("--grad-accum", type=int, default=None,
@@ -181,7 +229,28 @@ def add_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--fail-at-step", type=int, default=None)
+    p.add_argument("--profile-dir", default=None,
+                   help="rank 0 writes a torch.profiler Chrome trace of "
+                        "the training loop here")
     p.add_argument("--log-every", type=int, default=None)
+    p.add_argument("--fused-kernels", choices=["auto", "pallas", "xla"],
+                   default=None,
+                   help="the MLP's hidden layer: auto or pallas = the "
+                        "hand-written dense_relu kernel (its plain version "
+                        "on the cpu); xla = plain relu(x @ w + b)")
+    p.add_argument("--conv-impl", choices=["auto", "im2col", "lax"],
+                   default=None,
+                   help="LeNet's convolutions: lax = F.conv2d and "
+                        "F.avg_pool2d; im2col = patch matmuls and reshape "
+                        "pooling; auto = lax")
+    p.add_argument("--no-flat-optimizer", dest="flat_optimizer",
+                   action="store_false", default=None,
+                   help="per-parameter optimizer update instead of one "
+                        "multi-tensor (foreach) update")
+    p.add_argument("--flat-optimizer", dest="flat_optimizer",
+                   action="store_true", default=None,
+                   help="one multi-tensor (foreach) update across all "
+                        "parameters (the default)")
     p.add_argument("--serve-max-batch", type=int, default=None,
                    help="max rows per inference dispatch (also the "
                         "engine's top bucket)")

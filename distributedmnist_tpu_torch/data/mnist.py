@@ -2,9 +2,9 @@
 IDX and npz readers and `load_mnist`, plus a copy of `synthetic_mnist`,
 whose arrays must be byte-identical to the JAX package's for the same
 seed (the registry's parity batch, the int8 calibration batch and the
-trainer's synthetic data are built from it). The IDX reader is the
-Python parser only; the JAX package's optional C++ reader (data/native)
-is not ported."""
+trainer's synthetic data are built from it). A raw IDX file is read by
+the native C++ reader (data/native) when its library has been built,
+else, and for a gzipped file, by the Python parser: the same arrays."""
 
 from __future__ import annotations
 
@@ -31,7 +31,13 @@ _IDX_FILES = {
 
 def _read_idx(path: str) -> np.ndarray:
     """Parse an IDX file (the MNIST distribution format), raw or
-    gzipped."""
+    gzipped: raw files through the native reader when it is built
+    (data/native), the rest by this Python parser."""
+    if not path.endswith(".gz"):
+        from distributedmnist_tpu_torch.data import native
+        arr = native.read_idx(path) if native.available() else None
+        if arr is not None:
+            return arr
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "rb") as f:
         magic = struct.unpack(">I", f.read(4))[0]

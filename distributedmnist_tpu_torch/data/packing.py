@@ -5,8 +5,10 @@ distributedmnist_tpu/data/packing.py.
 pixels per int32 word, little-endian within the word. `unpack_rows`
 undoes it on a torch int32 tensor with `(w >> 8*i) & 0xFF` (the mask
 makes the arithmetic shift of a negative word safe; torch's uint32 is
-only partly supported on CUDA) and then divides by 255 in float32, so
-its pixels are bit-identical to the JAX decode's.
+only partly supported on CUDA) and then divides by 255 in the compute
+dtype (float32, or bfloat16 straight from the bytes, as the JAX decode
+does: `x.astype(dtype) / 255` in that dtype), so its pixels are
+bit-identical to the JAX decode's.
 """
 
 from __future__ import annotations

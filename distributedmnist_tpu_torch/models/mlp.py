@@ -1,12 +1,25 @@
 """2-layer MLP, 784-128-10 — the port of distributedmnist_tpu/models/mlp.py.
 
-flatten -> dense(128) -> relu -> dense(10), 101,770 parameters. The
-hidden layer always goes through the fused dense+relu kernel
-(ops/fused.dense_relu: the hand-written kernel on the card, its plain
-version on the CPU). Parameters keep flax's layout and orientation — a
-dense kernel is (in, out) — under the names of the JAX model's fused
-layout (hidden_kernel/hidden_bias), so weights carry across (interop.py)
-without a transpose.
+flatten -> dense(128) -> relu -> dense(10), 101,770 parameters.
+Parameters keep flax's layout and orientation — a dense kernel is (in,
+out) — under the names of the JAX model's fused layout
+(hidden_kernel/hidden_bias), so weights carry across (interop.py)
+without a transpose, whichever path computes the hidden layer:
+
+- the kernel path (fused "auto" or "pallas", the default): the fused
+  dense+relu kernel (ops/fused.dense_relu: the hand-written kernel on
+  the card, its plain version on the CPU). As the JAX model's Pallas
+  path creates them in its compute dtype, hidden_kernel and hidden_bias
+  are held in `dtype` (bfloat16 parameters under bfloat16 training).
+- fused "xla": plain relu(x @ w + b), the counterpart of the JAX model's
+  nn.Dense + relu; every parameter float32, computed in `dtype`.
+
+The logits layer is float32 parameters computed in `dtype`, as
+nn.Dense(dtype=...) does. Under tensor parallelism (parallel/tp.py) the
+hidden layer is column-parallel (each rank holds 128/mp columns and runs
+the kernel on them: a column split with an elementwise relu needs no
+collective) and the logits layer row-parallel: each rank's partial
+product, summed over the model group, then the bias once.
 """
 
 from __future__ import annotations
@@ -17,6 +30,7 @@ import torch
 from torch import nn
 
 from distributedmnist_tpu_torch.ops import fused
+from distributedmnist_tpu_torch.parallel import tp as tp_lib
 
 # flax's truncated_normal draws from N(0, 1) cut at ±2, whose standard
 # deviation is this; variance_scaling divides it out so the kept samples
@@ -36,17 +50,41 @@ def lecun_normal_(t: torch.Tensor, generator: torch.Generator) -> None:
                           generator=generator)
 
 
+def full_shapes(in_features: int = 784, hidden: int = 128,
+                num_classes: int = 10) -> dict:
+    return {"hidden_kernel": (in_features, hidden), "hidden_bias": (hidden,),
+            "logits_kernel": (hidden, num_classes),
+            "logits_bias": (num_classes,)}
+
+
+def local_shape(name: str, shape: tuple, tp) -> tuple:
+    """A parameter's shape on this rank: its full shape, its sharded dim
+    cut by the model group's size under tensor parallelism."""
+    dim = None if tp is None else tp.placement.get(name)
+    if dim is None:
+        return tuple(shape)
+    return tuple(n // tp.size if d == dim else n for d, n in enumerate(shape))
+
+
 class MLP(nn.Module):
     def __init__(self, in_features: int = 784, hidden: int = 128,
-                 num_classes: int = 10, device=None):
+                 num_classes: int = 10, device=None,
+                 dtype: torch.dtype = torch.float32, kernel: bool = True,
+                 tp=None):
         super().__init__()
-        kw = {"device": device, "dtype": torch.float32}
-        self.hidden_kernel = nn.Parameter(
-            torch.zeros(in_features, hidden, **kw))
-        self.hidden_bias = nn.Parameter(torch.zeros(hidden, **kw))
-        self.logits_kernel = nn.Parameter(
-            torch.zeros(hidden, num_classes, **kw))
-        self.logits_bias = nn.Parameter(torch.zeros(num_classes, **kw))
+        self.dtype, self.kernel, self.tp = dtype, kernel, tp
+        for name, shape in full_shapes(in_features, hidden,
+                                       num_classes).items():
+            held = dtype if kernel and name.startswith("hidden") \
+                else torch.float32
+            self.register_parameter(name, nn.Parameter(torch.zeros(
+                local_shape(name, shape, tp), device=device, dtype=held)))
+        # the two kernels' split dims are the hidden width: both shard,
+        # or both fall back
+        if tp is not None and (tp.placement["logits_kernel"] is None) != (
+                tp.placement["hidden_kernel"] is None):
+            raise ValueError("the hidden and logits kernels must both be "
+                             "split or both replicated")
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -58,6 +96,17 @@ class MLP(nn.Module):
         self.logits_bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.reshape(x.shape[0], -1).to(torch.float32)
-        h = fused.dense_relu(x, self.hidden_kernel, self.hidden_bias)
-        return h @ self.logits_kernel + self.logits_bias
+        dt, tp = self.dtype, self.tp
+        x = x.reshape(x.shape[0], -1).to(dt)
+        w, b = self.hidden_kernel.to(dt), self.hidden_bias.to(dt)
+        if tp is not None and tp.placement["hidden_kernel"] is not None \
+                and tp.placement["hidden_bias"] is None:
+            b = tp_lib.slice_replicated(b, tp)      # the partial fallback
+        if self.kernel:
+            h = fused.dense_relu(x, w, b)
+        else:
+            h = torch.relu(x @ w + b)
+        if tp is None or tp.placement["logits_kernel"] is None:
+            return h @ self.logits_kernel.to(dt) + self.logits_bias.to(dt)
+        y = tp_lib.reduce_from_model(h @ self.logits_kernel.to(dt), tp)
+        return y + self.logits_bias.to(dt)

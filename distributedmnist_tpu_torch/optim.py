@@ -15,9 +15,12 @@ same order and sets each group's lr to schedule(count) exactly.
   `torch.optim.Adam` compute the same function in another rounding
   order.
 
-Both use torch's multi-tensor (`foreach`) update, the counterpart of the
-JAX package's flat update (optax.flatten): one fused update across all
-parameters, with no numerical effect.
+`flat=True` (the default, config flat_optimizer) uses torch's
+multi-tensor (`foreach`) update, the counterpart of the JAX package's
+flat update (optax.flatten): one fused update across all parameters;
+`flat=False` updates parameter by parameter. Both compute the same
+numbers. A parameter's optimizer state has its dtype (bfloat16 moments
+for bfloat16 parameters, as optax's per-leaf state with mu_dtype None).
 """
 
 from __future__ import annotations
@@ -86,15 +89,15 @@ def make_schedule(learning_rate: float, schedule: str = "constant",
 
 
 def build(name: str, params: Iterable[torch.nn.Parameter],
-          schedule: Schedule, momentum: float = 0.9):
+          schedule: Schedule, momentum: float = 0.9, flat: bool = True):
     """(optimizer, scheduler) over `params`. Call `scheduler.step()` after
     every `optimizer.step()`."""
     if name == "sgd":
         opt = torch.optim.SGD(params, lr=1.0, momentum=momentum,
-                              dampening=0.0, nesterov=False, foreach=True)
+                              dampening=0.0, nesterov=False, foreach=flat)
     elif name == "adam":
         opt = torch.optim.Adam(params, lr=1.0, betas=(0.9, 0.999),
-                               eps=1e-8, foreach=True)
+                               eps=1e-8, foreach=flat)
     else:
         raise ValueError(f"unknown optimizer {name!r} (expected sgd|adam)")
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, schedule)

@@ -11,6 +11,7 @@ batch becomes the rank's contiguous column slice of it, the block
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -75,3 +76,81 @@ def batch_shard(global_batch: int, rank: int, world: int) -> slice:
                          f"{world} ranks")
     per = global_batch // world
     return slice(rank * per, (rank + 1) * per)
+
+
+@dataclasses.dataclass(frozen=True)
+class RankMesh:
+    """The ranks of a run as JAX's mesh lays out its devices: a 1-D
+    ('data',) mesh, or with model_parallel > 1 a ('data', 'model') mesh
+    of shape (world // mp, mp) whose row d holds ranks d*mp .. d*mp+mp-1."""
+    world: int
+    model_parallel: int = 1
+
+    @property
+    def dp(self) -> int:
+        return self.world // self.model_parallel
+
+    def data_index(self, rank: int) -> int:
+        return rank // self.model_parallel
+
+    def model_index(self, rank: int) -> int:
+        return rank % self.model_parallel
+
+    def data_ranks(self, model_index: int) -> list[int]:
+        """The ranks that hold the same model shard: one data group."""
+        return [d * self.model_parallel + model_index
+                for d in range(self.dp)]
+
+    def model_ranks(self, data_index: int) -> list[int]:
+        """The ranks that see the same rows: one model group."""
+        mp = self.model_parallel
+        return list(range(data_index * mp, (data_index + 1) * mp))
+
+
+def make_mesh(world: int, model_parallel: int = 1) -> RankMesh:
+    """The rank layout of JAX's make_mesh(devices, model_parallel), with
+    its error for an indivisible size."""
+    if model_parallel > 1 and world % model_parallel:
+        raise ValueError(f"{world} devices not divisible by "
+                         f"model_parallel={model_parallel}")
+    return RankMesh(world, max(1, model_parallel))
+
+
+@dataclasses.dataclass(frozen=True)
+class Groups:
+    """This rank's place in a RankMesh and its two process groups: the
+    data group (the ranks holding its model shard; None = the whole
+    world) and the model group (the ranks seeing its rows; None without
+    tensor parallelism)."""
+    mesh: RankMesh
+    rank: int
+    data: Optional[object] = None
+    model: Optional[object] = None
+
+    @property
+    def data_index(self) -> int:
+        return self.mesh.data_index(self.rank)
+
+    @property
+    def model_index(self) -> int:
+        return self.mesh.model_index(self.rank)
+
+
+def process_groups(mesh: RankMesh, rank: int) -> Groups:
+    """This rank's groups of `mesh`. Every rank builds every group, in the
+    same order (torch.distributed.new_group is a collective of the whole
+    world): the data groups by model index, then the model groups by
+    data index. Without tensor parallelism no group is built: the data
+    group is the world."""
+    if mesh.model_parallel <= 1:
+        return Groups(mesh, rank)
+    data = model = None
+    for m in range(mesh.model_parallel):
+        g = torch.distributed.new_group(mesh.data_ranks(m))
+        if mesh.model_index(rank) == m:
+            data = g
+    for d in range(mesh.dp):
+        g = torch.distributed.new_group(mesh.model_ranks(d))
+        if mesh.data_index(rank) == d:
+            model = g
+    return Groups(mesh, rank, data, model)

@@ -69,7 +69,8 @@ def run(cfg, data: dict, init_params: Optional[dict] = None) -> dict:
     rec.update({k: out[k] for k in (
         "multihost", "n_processes", "n_chips", "spmd_mode", "steps",
         "restored", "preempted", "test_accuracy", "final_loss",
-        "global_batch")})
+        "global_batch", "model_parallel", "data_pipeline",
+        "pixel_format")})
     rec["backend"] = distributed.topology().backend
     rec["checkpoint_dir"] = cfg.checkpoint_dir
     rec["losses"] = [r["loss"] for r in mlog.history if "loss" in r]

@@ -13,11 +13,24 @@ flags, this CLI starts N ranks of itself on this host
 multi-host run (lenet-multihost) starts one process a rank with
 --coordinator-address HOST:PORT --num-processes N --process-id I.
 
+--supervise runs the whole command (the launcher and its ranks) in a
+watchdog-supervised worker process (utils/supervise.py): a worker silent
+for --stall-timeout seconds, or one that exits without a summary line,
+is killed and started again, up to --max-attempts times, and the summary
+line is passed on.
+
     python -m distributedmnist_tpu_torch.train --preset mlp-sgd --synthetic
     python -m distributedmnist_tpu_torch.train --preset lenet-adam \\
         --synthetic --steps 1000 --checkpoint-dir ckpt
     python -m distributedmnist_tpu_torch.train --preset mlp-dp2 \\
         --synthetic --device cpu --steps 50 [--spmd-mode explicit]
+    # tensor parallelism: 2 ranks split the hidden layer's columns
+    python -m distributedmnist_tpu_torch.train --preset mlp-dp2 \\
+        --synthetic --device cpu --steps 50 --model-parallel 2
+    # bfloat16, the streaming pipeline, a profiler trace, supervised
+    python -m distributedmnist_tpu_torch.train --preset mlp-sgd \\
+        --synthetic --dtype bfloat16 --data-pipeline stream \\
+        --profile-dir prof --supervise
     # config 5 on one host, one shell a rank:
     python -m distributedmnist_tpu_torch.train --preset lenet-multihost \\
         --synthetic --device cpu --coordinator-address localhost:29500 \\
@@ -46,7 +59,26 @@ def main(argv=None) -> int:
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
     config_lib.add_args(p)
-    cfg = config_lib.from_args(p.parse_args(argv))
+    p.add_argument("--supervise", action="store_true",
+                   help="run training in a watchdog-supervised worker "
+                        "process, retried if it goes silent or exits "
+                        "without a summary; the summary JSON line is "
+                        "forwarded")
+    p.add_argument("--stall-timeout", type=float, default=300.0,
+                   help="[--supervise] kill and retry the worker if it is "
+                        "silent this long")
+    p.add_argument("--max-attempts", type=int, default=3,
+                   help="[--supervise] worker attempts before giving up")
+    args = p.parse_args(argv)
+    cfg = config_lib.from_args(args)
+
+    from distributedmnist_tpu_torch.utils import supervise
+    if args.supervise and not supervise.is_worker():
+        return supervise.run_supervised(
+            ["-m", "distributedmnist_tpu_torch.train",
+             *[a for a in argv if a != "--supervise"]],
+            accept=supervise.json_record_acceptor("test_accuracy"),
+            stall_timeout=args.stall_timeout, attempts=args.max_attempts)
 
     from distributedmnist_tpu_torch.parallel import launch
     rc = launch.run_ranks("distributedmnist_tpu_torch.train", argv, cfg)

@@ -3,9 +3,12 @@ the root bench.py, on the CPU at small sizes: the time-to-accuracy recipe
 field for field, the throughput runner's losses against the JAX
 package's make_train_step from the same initial params, and each mode's
 one JSON line with the root bench's record keys (taken from the JAX
-package's committed records), in a fresh interpreter with no jax; plus
-the guards: no card without --device cpu raises, an unported flag exits
-2.
+package's committed records), in a fresh interpreter with no jax: the
+throughput, time-to-accuracy, serve, sweep and smoke modes, bfloat16
+throughput, and --data-dir on IDX files through the supervised worker;
+plus the guards: no card without --device cpu raises, an unported flag
+exits 2, a misplaced flag exits 2, and a supervised bench whose every
+attempt fails exits 1 with no CPU re-run.
 
 Tolerances: losses rtol=1e-4 (Adam's update in another rounding order,
 as tests/test_torch_train.py holds lenet-adam's trajectory); schedules
@@ -66,7 +69,7 @@ def _run(*argv, timeout=300):
     code = (
         "import json, sys\n"
         "from distributedmnist_tpu_torch.bench import main\n"
-        f"rc = main({list(argv)!r})\n"
+        f"rc = main({list(argv) + ['--inline']!r})\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'distributedmnist_tpu' "
         "or m.startswith('distributedmnist_tpu.'))\n"
@@ -134,7 +137,8 @@ def test_throughput_runner_losses_match_jax(fused):
                                 jnp.zeros((1, 28, 28, 1)))
     step_fn = jtrainer.make_train_step(model, tx, make_mesh(jax.devices()[:1]),
                                        mode="auto", pixel_format="packed")
-    args = argparse.Namespace(device="cpu", model="mlp", bench_steps=8)
+    args = argparse.Namespace(device="cpu", model="mlp", bench_steps=8,
+                              dtype="float32", data_dir=None)
     runner = tbench._Runner(args, data=data)
     run_block = runner.stepper(128, params=interop.mlp_params_from_flax(
         jax.tree.map(np.asarray, state.params)))
@@ -230,14 +234,10 @@ def test_bench_raises_without_a_card(argv):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
-        tbench.main(argv)
+        tbench.main(argv + ["--inline"])
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["sweep"], "item 5"),
-    (["smoke"], "item 5"),
-    (["--dtype", "bfloat16"], "item 5"),
-    (["--data-dir", "/nonexistent"], "item 5"),
     (["serve", "--zipf"], "item 6"),
     (["serve", "--lowlat"], "item 6"),
     (["serve", "--chaos"], "item 6"),
@@ -248,7 +248,7 @@ def test_bench_raises_without_a_card(argv):
     (["serve", "--artifact-dir", "out"], "item 6")])
 def test_unported_flag_exits_2(argv, item, capsys):
     with pytest.raises(SystemExit) as exc:
-        tbench.main(argv)
+        tbench.main(argv + ["--inline"])
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and f"ROADMAP.md section 1 {item}" in err
@@ -262,5 +262,117 @@ def test_unported_flag_exits_2(argv, item, capsys):
     ["serve", "--serve-duration", "0"]])
 def test_misplaced_flags_exit_2(argv):
     with pytest.raises(SystemExit) as exc:
-        tbench.main(argv)
+        tbench.main(argv + ["--inline"])
+    assert exc.value.code == 2
+
+
+# -- the sweep and smoke modes, bfloat16, --data-dir, supervision -----------------
+
+
+def test_sweep_record():
+    """Two per-card batches; the record has SWEEP_r05.json's keys, the
+    all-reduce modelled at the NCCL bandwidth measured on the card's host
+    (no TPU constant), vs_baseline null."""
+    rec, modules, _ = _run(
+        "sweep", "--device", "cpu", "--model", "mlp", "--sweep-batches",
+        "32,64", "--bench-steps", "4", "--warmup-steps", "2")
+    assert modules == []
+    assert set(rec) == RECORD_KEYS
+    with open(os.path.join(REPO, "SWEEP_r05.json")) as f:
+        root = json.load(f)["detail"]
+    d = rec["detail"]
+    assert set(d) == set(root)
+    for block in ("strong_scaling", "weak_scaling", "weak_scaling_at_largest",
+                  "prediction_range"):
+        assert set(d[block]) == set(root[block]), block
+    assert rec["metric"] == "predicted_8chip_images_per_sec_per_chip"
+    assert rec["vs_baseline"] is None and rec["value"] > 0
+    assert sorted(d["curve_img_s_chip"]) == ["32", "64"]
+    assert set(d["curve_img_s_chip"]["32"]) == set(root["curve_img_s_chip"]
+                                                   ["64"])
+    assert d["n_params"] == 101_770 and d["grad_bytes_f32"] == 407_080
+    assert d["ici_assumed_gbps"] == tbench.ALLREDUCE_BUS_GBPS["mlp"]
+    assert d["ici_assumed_gbps"] != root["ici_assumed_gbps"]
+    assert d["backend"] == "cpu" and d["strong_scaling"]["per_chip_batch"] \
+        == 32
+    lo, hi = d["prediction_range"]["strong_img_s_chip"]
+    assert lo <= rec["value"] <= hi
+
+
+def test_smoke_record():
+    rec, modules, _ = _run("smoke", "--device", "cpu", "--model", "mlp")
+    assert modules == []
+    assert set(rec) == RECORD_KEYS
+    assert set(rec["detail"]) == _jax_detail_keys("SMOKE_r05.json")
+    assert rec["metric"] == "smoke" and rec["vs_baseline"] is None
+    d = rec["detail"]
+    assert d["legs"] == ["train", "eval", "checkpoint-save",
+                         "restore-resume", "accuracy-floor"]
+    assert d["backend"] == "cpu" and d["final_accuracy"] >= 0.85
+    assert d["window_steps"] == 64 and d["short_window"] is True
+
+
+def test_bfloat16_throughput_record():
+    rec, modules, _ = _run(
+        "throughput", "--device", "cpu", "--model", "mlp", "--dtype",
+        "bfloat16", "--global-batch", "64", "--bench-steps", "4",
+        "--warmup-steps", "2")
+    assert modules == []
+    assert set(rec["detail"]) == _jax_detail_keys("THROUGHPUT_r05.json")
+    assert rec["detail"]["dtype"] == "bfloat16" and rec["value"] > 0
+
+
+def test_data_dir_runs_on_idx_files_through_the_supervised_worker(
+        tmp_path):
+    """--data-dir on IDX fixtures written from a small synthetic set, the
+    bench supervised as by default: the worker's record is forwarded, and
+    it read real-format files (data "real")."""
+    from idx_util import write_idx_fixtures
+
+    write_idx_fixtures(str(tmp_path), tmnist.synthetic_mnist(
+        seed=4, train_n=1024, test_n=256))
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-m", "distributedmnist_tpu_torch.bench",
+         "throughput", "--device", "cpu", "--model", "mlp", "--data-dir",
+         str(tmp_path), "--global-batch", "64", "--bench-steps", "4",
+         "--warmup-steps", "2"], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert rec["detail"]["data"] == "real"
+    assert "bench: launches" in proc.stderr
+
+
+def test_supervised_bench_fails_with_no_cpu_rerun():
+    """Every attempt of the supervised worker fails (no card for the
+    default device): the bench exits 1 after --max-attempts attempts and
+    never re-runs on the CPU, as the root bench's fallback would."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-m", "distributedmnist_tpu_torch.bench",
+         "throughput", "--model", "mlp", "--bench-steps", "1",
+         "--max-attempts", "2"], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 1
+    assert not [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    assert "attempt 2/2" in proc.stderr and "attempt 3" not in proc.stderr
+    assert "fallback" not in proc.stderr
+    assert "all attempts failed" in proc.stderr
+
+
+@pytest.mark.parametrize("argv", [
+    ["sweep", "--global-batch", "64"],
+    ["throughput", "--sweep-batches", "64,128"],
+    ["sweep", "--sweep-batches", "a,b"],
+    ["smoke", "--bench-steps", "4"],
+    ["serve", "--dtype", "bfloat16"],
+    ["serve", "--data-dir", "d"]])
+def test_new_mode_flags_misplaced_exit_2(argv):
+    with pytest.raises(SystemExit) as exc:
+        tbench.main(argv + ["--inline"])
     assert exc.value.code == 2

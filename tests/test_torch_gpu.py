@@ -13,7 +13,12 @@ plain versions), and the int8 dense stack bit for bit. Then the
 bench's throughput mode through dense_relu, the HTTP server booted on
 the card answering one /predict, and last config 3's MLP as 2
 data-parallel ranks sharing the card over gloo (DDP against the
-hand-written all-reduce, losses within 1e-6). Every test is marked `gpu`
+hand-written all-reduce, losses within 1e-6). Then the rest of training:
+dense_relu at a tensor-parallel rank's column shard (N = 64 and 32), the
+MLP and LeNet-5 at model_parallel 2 as 2 ranks sharing the card against
+1 rank (losses rtol 1e-4, as 2 data-parallel ranks are held), config 1
+in bfloat16 through the bf16 kernel, and the streaming pipeline against
+the device-resident one (losses within 1e-6). Every test is marked `gpu`
 and skips without a card.
 
 This file imports no jax (the card's machine has none), and
@@ -434,7 +439,8 @@ def test_bench_throughput_launches_dense_relu_on_card(capsys):
     fused.reset_launches()
     assert bench.main(["throughput", "--model", "mlp", "--global-batch",
                        "64", "--steps-per-call", "4", "--warmup-steps",
-                       "4", "--bench-steps", "8", "--repeats", "1"]) == 0
+                       "4", "--bench-steps", "8", "--repeats", "1",
+                       "--inline"]) == 0
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rec["metric"] == "train_images_per_sec_per_chip"
     assert rec["value"] > 0 and rec["detail"]["backend"] == "cuda"
@@ -541,3 +547,132 @@ def test_ranks_on_their_own_cards_over_nccl(tmp_path):
     np.testing.assert_allclose(explicit["losses"], auto["losses"],
                                rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(auto["losses"], one["losses"], rtol=1e-4)
+
+
+# -- the rest of training -----------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", (64, 32))
+@pytest.mark.parametrize("m", (32, 64, 128, 1024, 2048))
+def test_dense_relu_at_a_column_shard_on_card(m, n):
+    """f32 at N = 128/mp (mp 2 and 4): a tensor-parallel rank's hidden
+    layer, at its step and eval rows."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, w, b = _cuda(*_dense_inputs(m, K, n, seed=m + n))
+    x = (x.abs() / 4).clamp(max=1.0).contiguous()
+    before = fused.LAUNCHES["dense_relu"]
+    _check_dense(x, w, b)
+    assert fused.LAUNCHES["dense_relu"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ("mlp", "lenet"))
+def test_tensor_parallel_ranks_share_the_card(tmp_path, model):
+    """model_parallel 2 as 2 ranks on cuda:0 over gloo: both ranks report
+    the same run at model_parallel 2, each MLP rank launched dense_relu on
+    its columns for each step and its eval batch, and the losses are the
+    1-rank run's within rtol 1e-4."""
+    _need_card()
+    from distributedmnist_tpu_torch.parallel import mh_smoke
+    from torch_dp_util import collect, spawn_smoke
+
+    steps = 10
+    spec = ({"learning_rate": 0.02} if model == "mlp" else
+            {"model": "lenet", "optimizer": "adam", "learning_rate": 1e-3})
+    recs, logs = collect(spawn_smoke(
+        2, str(tmp_path), [{"model_parallel": 2, **spec}],
+        ("--device", "cuda", "--preset", "mlp-dp2", "--steps", str(steps)),
+        env_extra={"CUDA_VISIBLE_DEVICES": "0"}), 1)
+    assert "dist: backend gloo, 2 ranks on 1 card(s)" in logs[0]
+    for (rec,) in recs:
+        assert rec["model_parallel"] == 2 and rec["backend"] == "gloo"
+        assert rec["losses"] == recs[0][0]["losses"]
+        if model == "mlp":
+            assert rec["launches"]["dense_relu"] >= steps + 1
+    with float32_numerics():
+        one = mh_smoke.run(mh_smoke.smoke_config(
+            "mlp-dp2", device="cuda", steps=steps, **spec),
+            mh_smoke.smoke_data())
+    np.testing.assert_allclose(recs[0][0]["losses"], one["losses"],
+                               rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_bfloat16_config1_runs_the_bf16_kernel():
+    """Config 1 in bfloat16 on the card: the hidden layer's params are
+    bf16 and every step and eval batch goes through dense_relu (bf16, the
+    only dtype it can take them in); the loss falls."""
+    _need_card()
+    from distributedmnist_tpu_torch.config import PRESETS
+    from distributedmnist_tpu_torch.utils import MetricsLogger
+
+    data = mnist.synthetic_mnist(seed=0, train_n=4096, test_n=512)
+    cfg = PRESETS["mlp-sgd"].replace(
+        synthetic=True, learning_rate=0.02, steps=60, eval_every=60,
+        log_every=10, steps_per_call=10, target_accuracy=None,
+        dtype="bfloat16")
+    fused.reset_launches()
+    mlog = MetricsLogger()
+    out = trainer.fit(cfg, data=data, log=mlog)
+    losses = [r["loss"] for r in mlog.history if "loss" in r]
+    assert out["steps"] == 60 and losses[-1] < losses[0]
+    assert fused.LAUNCHES["dense_relu"] >= 60 + 1
+
+
+@pytest.mark.gpu
+def test_streaming_pipeline_matches_the_device_pipeline_on_card():
+    """Config 1 through --data-pipeline stream (host gather, pinned copy)
+    against the device-resident pipeline from the same seed: the same
+    losses within 1e-6, in both host sources."""
+    _need_card()
+    from distributedmnist_tpu_torch.config import PRESETS
+    from distributedmnist_tpu_torch.utils import MetricsLogger
+
+    data = mnist.synthetic_mnist(seed=0, train_n=4096, test_n=512)
+    cfg = PRESETS["mlp-sgd"].replace(
+        synthetic=True, learning_rate=0.02, steps=40, eval_every=40,
+        log_every=1, target_accuracy=None, steps_per_call=8)
+    runs = {}
+    for name, kw in (("device", {}), ("stream", {"data_pipeline": "stream"}),
+                     ("tfdata", {"data_pipeline": "stream",
+                                 "stream_source": "tfdata"})):
+        mlog = MetricsLogger()
+        out = trainer.fit(cfg.replace(**kw), data=data, log=mlog)
+        runs[name] = [r["loss"] for r in mlog.history if "loss" in r]
+        assert out["data_pipeline"] == cfg.replace(**kw).data_pipeline
+    for name in ("stream", "tfdata"):
+        np.testing.assert_allclose(runs[name], runs["device"], rtol=1e-6,
+                                   atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_tensor_parallel_over_nccl_on_four_cards(tmp_path):
+    """On a machine with 4 or more cards, dp 2 x mp 2 as one rank a card
+    over NCCL: the MLP (20 SGD steps) and LeNet-5 (20 Adam steps), every
+    rank reporting the same run, the losses within rtol 1e-4 of one
+    rank's in this process."""
+    _need_card()
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 cards: dp 2 x mp 2, one rank a card")
+    from distributedmnist_tpu_torch.parallel import mh_smoke
+    from torch_dp_util import launch_smoke
+
+    steps = 20
+    specs = [{"learning_rate": 0.02},
+             {"model": "lenet", "optimizer": "adam", "learning_rate": 1e-3}]
+    recs, logs = launch_smoke(
+        4, str(tmp_path), [{"model_parallel": 2, **s} for s in specs],
+        ("--device", "cuda", "--preset", "mlp-dp2", "--steps", str(steps)))
+    assert "dist: backend nccl, 4 ranks on 4 card(s)" in logs[0]
+    for i, spec in enumerate(specs):
+        for rank in recs:
+            assert rank[i]["model_parallel"] == 2
+            assert rank[i]["backend"] == "nccl" and rank[i]["n_chips"] == 4
+            assert rank[i]["losses"] == recs[0][i]["losses"]
+        one = mh_smoke.run(mh_smoke.smoke_config(
+            "mlp-dp2", device="cuda", steps=steps, **spec),
+            mh_smoke.smoke_data())
+        np.testing.assert_allclose(recs[0][i]["losses"], one["losses"],
+                                   rtol=1e-4)
