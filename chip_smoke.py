@@ -110,8 +110,26 @@ bench on one CUDA card.
    train CLI on them with --supervise and --profile-dir (a trace file
    must exist). Phase 9 also runs the bench's sweep (LeNet-5, batches 64
    and 512) and smoke (the MLP in bfloat16).
-11. Prints a `kernels` JSON line (launches on each path, error, times,
-   bound; dense_relu's entry lists the new shapes) and, last,
+11. The request path (after phase 9), each part on launch counts of its
+   own: the fast lane engine by engine (the MLP at float32, bfloat16,
+   int8 and megakernel, LeNet-5 at float32, bfloat16 and int8), 1-row
+   requests through dispatch_fast and through a batcher with the lane on,
+   bit for bit the pooled dispatch's at bucket 1 and at the parity gate's
+   thresholds against the same engine on the CPU (the kernels' plain
+   versions), all three kernels launched on the fast route; the
+   row-staged route priced against the pooled dispatch and held on a
+   dirty resident buffer; exact fit against the pooled dispatch and a
+   pinned-tensor staging at b = 1;
+   the bench's `serve --lowlat --zipf --chaos --trace` on the MLP (the
+   root bench's leg keys, an exact chaos ledger, one breaker trip and one
+   rollback, nothing built after warmup); and the HTTP server with
+   --serve-fastlane --serve-cache --serve-trace against the same without
+   the lane (1-row /predict p50/p99 each, a cache hit, X-Trace-Id and
+   Server-Timing, GET /trace, a timed Prometheus scrape, /metrics' cache,
+   resilience_policy and trace blocks).
+12. Prints a `kernels` JSON line (launches on each path, error, times,
+   bound; dense_relu's entry lists the new shapes; each entry's
+   `fastlane` its b = 1 case and fast-route launches) and, last,
    {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero before the last line. Without a
@@ -269,6 +287,50 @@ BENCH_TIMEOUT_S = 300
 HTTP_TIMED_CALLS = 200
 HTTP_CHECK_ROWS = 512
 HTTP_READY_S = 300
+# The request-path phase: the fast lane's engines' ladder (its smallest
+# rung 1, the exact-fit route), the 1-row requests each engine serves
+# through it, the b = 1 staging comparison's calls per route, and the
+# record keys of the bench's request legs (the root bench's code; its
+# older committed records predate some of them)
+REQUEST_MAX_BATCH = 16
+FASTLANE_ROWS = 16
+FASTLANE_TIMED = 200
+REQUEST_LEG_KEYS = {
+    "lowlat": {
+        "attribution", "batched", "clients", "coalesce_wait_us",
+        "duration_s", "fastlane", "fastpath_dispatches",
+        "fastpath_lane_fraction", "megakernel", "megakernel_parity",
+        "p50_batched_ms", "p50_best_ms", "p50_fastlane_ms",
+        "p50_improvement_x", "p50_ok", "p99_ok", "recompiles",
+        "recompiles_ok", "rows_per_request",
+        "variant_warmup_compile_events"},
+    "zipf": {
+        "cache_capacity", "cache_enabled", "cache_off", "cache_on",
+        "clients", "device_dispatch_lower", "device_dispatches_off",
+        "device_dispatches_on", "device_dispatches_per_request_off",
+        "device_dispatches_per_request_on", "distinct_keys", "duration_s",
+        "goodput_ok", "goodput_x", "hit_ratio", "hit_ratio_ok",
+        "max_rows_per_request", "p99_off_ms", "p99_on_ms", "parity_ok",
+        "parity_probes", "seed", "single_flight_collapsed", "zipf_s"},
+    "chaos": {
+        "arrivals_seed", "availability_excluding_injected",
+        "availability_ok", "bisect_rescued_requests", "bisect_splits",
+        "breaker_trips", "coalesce_wait_us", "deadline_shed",
+        "deadline_shed_metric", "duration_s", "failovers",
+        "fallback_warmup_compile_events", "hedges",
+        "injected_dispatch_faults", "injected_fetch_faults",
+        "injected_replica_faults_surfaced", "injector_seed",
+        "live_version_after", "ok", "other_failures",
+        "p99_under_faults_ms", "poison_isolated_exact", "poison_unique",
+        "qps", "recompiles_during_chaos", "rejected", "requests",
+        "rollback_engaged", "rollback_events", "rollbacks", "spec"},
+    "trace": {
+        "attribution", "attribution_basis", "attribution_checked",
+        "attribution_ok", "chaos", "coalesce_wait_us",
+        "min_attributed_frac", "open_spans_at_drain", "over_slo_requests",
+        "qps", "requests_traced", "sample", "slo_ms", "span_census",
+        "traces_retained"},
+}
 # The root bench's record keys (its THROUGHPUT_r05.json, TTA_r05.json,
 # BENCH_serve_r13.json, SWEEP_r05.json and SMOKE_r05.json records, the
 # serve legs not ported yet left out; the smoke metric is named "smoke")
@@ -296,7 +358,8 @@ BENCH_KEYS = {
         "rows_per_request", "clients", "duration_s", "params",
         "live_version_final", "warmup_compile_events",
         "recompiles_after_warmup", "bucket_cost_ms", "slo_ms", "adaptive",
-        "closed_loop", "qps_sweep", "ragged", "inflight_comparison"},
+        "closed_loop", "qps_sweep", "ragged", "inflight_comparison",
+        "zipf", "lowlat", "chaos", "trace"},
 }
 
 
@@ -1877,6 +1940,322 @@ def drive_bench_path(lenet_checkpoint_dir: str) -> dict:
     return launches
 
 
+def _fast_engines(params: dict, lenet_params: dict, device: str):
+    """(label, engine) for every serving engine the fast lane can reach:
+    the MLP at float32, bfloat16, int8 and megakernel, LeNet-5 at
+    float32, bfloat16 and int8, on the ladder REQUEST_MAX_BATCH gives
+    (its smallest rung 1: the exact-fit route), each warmed."""
+    from distributedmnist_tpu_torch.serve import InferenceEngine
+
+    out = []
+    for model, p, dtypes in (
+            ("mlp", params, ("float32", "bfloat16", "int8", "megakernel")),
+            ("lenet", lenet_params, ("float32", "bfloat16", "int8"))):
+        for dt in dtypes:
+            eng = InferenceEngine(model, p, device=device,
+                                  max_batch=REQUEST_MAX_BATCH,
+                                  version=f"{model}-{dt}", infer_dtype=dt)
+            eng.warmup(cost_samples=3)
+            out.append((f"{model} {dt}", eng))
+    return out
+
+
+def drive_fastlane(params: dict, lenet_params: dict, mlp_rows,
+                   lenet_rows) -> tuple[dict, dict]:
+    """The fast lane on the card, engine by engine: FASTLANE_ROWS 1-row
+    requests through dispatch_fast (the exact-fit route) and through a
+    DynamicBatcher with the lane on, each held bit for bit against the
+    same engine's pooled dispatch at bucket 1, and the batch against the
+    same engine on the CPU (the kernels' plain versions) at the parity
+    gate's thresholds. Launches are counted over the fast-route calls
+    only (the pooled and CPU references run before the counts are set
+    to 0). Then the row-staged route on a ladder whose smallest rung is
+    8: priced at warmup against the pooled dispatch, held on a dirty
+    resident buffer (turned on for the check if warmup turned it off);
+    and exact fit against the pooled dispatch and against staging
+    through a pinned tensor at b = 1, dispatch and fetch on the host's
+    clock, in turns. Returns (phases, launch counts)."""
+    import numpy as np
+    import torch
+
+    from distributedmnist_tpu_torch.ops import fused
+    from distributedmnist_tpu_torch.serve import (PARITY_GATES,
+                                                  DynamicBatcher,
+                                                  InferenceEngine)
+    from distributedmnist_tpu_torch.utils import parity_check
+
+    gates = {**PARITY_GATES, "float32": (1.0, 1e-4)}
+    card = _fast_engines(params, lenet_params, "cuda")
+    cpu = dict(_fast_engines(params, lenet_params, "cpu"))
+    rows = {"mlp": mlp_rows[:FASTLANE_ROWS], "lenet": lenet_rows[:FASTLANE_ROWS]}
+    pooled, plain = {}, {}
+    for label, eng in card:
+        x = rows[label.split()[0]]
+        pooled[label] = np.stack([eng.infer(x[i:i + 1])[0]
+                                  for i in range(len(x))])
+        plain[label] = cpu[label].infer(x)
+    fused.reset_launches()
+    phases = {}
+    for label, eng in card:
+        x = rows[label.split()[0]]
+        fast = []
+        for i in range(len(x)):
+            h = eng.dispatch_fast(x[i:i + 1])
+            if h is None or not h.resident:
+                raise RuntimeError(f"{label}: dispatch_fast declined a "
+                                   "1-row request on a ladder from 1")
+            fast.append(eng.fetch(h)[0])
+        b = DynamicBatcher(eng, fastlane=True, max_inflight=4).start()
+        try:
+            lane = np.stack([b.submit(x[i:i + 1]).result(timeout=60)[0]
+                             for i in range(len(x))])
+        finally:
+            b.stop()
+        fast = np.stack(fast)
+        if not (np.array_equal(fast, pooled[label])
+                and np.array_equal(lane, pooled[label])):
+            raise RuntimeError(
+                f"{label}: fast-lane logits differ from the pooled "
+                f"dispatch at bucket 1 (max "
+                f"{float(np.abs(fast - pooled[label]).max())})")
+        agree, rel = gates[label.split()[1]]
+        par = parity_check(plain[label], fast, min_agreement=agree,
+                           max_rel_diff=rel)
+        if not par["passed"]:
+            raise RuntimeError(f"{label}: fast lane against the CPU's "
+                               f"plain versions: {par['why']}")
+        phases[label] = {"bit_equal_pooled_b1": True,
+                         "max_rel_logit_diff_vs_cpu":
+                             par["max_rel_logit_diff"]}
+    counts = dict(fused.LAUNCHES)
+    print("fastlane launches " + json.dumps(counts), flush=True)
+    missing = [k for k, n in counts.items() if n <= 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on the fast route: "
+                           f"{missing}")
+
+    # the row-staged route, priced and held on a dirty resident buffer
+    eng = InferenceEngine("mlp", params, device="cuda", max_batch=32,
+                          buckets=(8, 16, 32), version="row")
+    eng.warmup(cost_samples=10)
+    x = mlp_rows[:1]
+    want = eng.infer(x)
+    eng._fast_row_buf[1:] = torch.randint(
+        0, 256, eng._fast_row_buf[1:].shape, dtype=torch.uint8,
+        device="cuda")
+    enabled = eng._fast_row_ok
+    eng._fast_row_ok = True       # held whichever way warmup priced it
+    h = eng.dispatch_fast(x)
+    if h is None or not np.array_equal(eng.fetch(h), want):
+        raise RuntimeError("row-staged route on a dirty buffer differs "
+                           "from the pooled dispatch")
+    phases["row_route"] = {
+        "bucket": 8, "row_ms": eng.fast_row_cost() * 1e3,
+        "pooled_ms": eng.bucket_costs()[8] * 1e3,
+        "enabled": enabled, "dirty_buffer_equal": True}
+
+    # exact fit against the pooled dispatch at b = 1, dispatch + fetch on
+    # the host's clock, in turns
+    eng = card[0][1]
+    x = mlp_rows[:1]
+    out = torch.empty((1, 10), dtype=torch.float32, pin_memory=True)
+
+    def pinned():
+        # the exact fit's other design: staging through a pinned tensor
+        # of torch's caching host allocator (timed here only)
+        host = torch.empty(x.shape, dtype=torch.uint8, pin_memory=True)
+        host.numpy()[:] = x
+        with torch.inference_mode():
+            eng._launch(host.to("cuda", non_blocking=True),
+                        out).synchronize()
+        return out.numpy()[:1].copy()
+
+    times = {"exact_fit": [], "pooled": [], "exact_fit_pinned": []}
+    for _ in range(FASTLANE_TIMED):
+        for route, fn in (
+                ("exact_fit", lambda: eng.fetch(eng.dispatch_fast(x))),
+                ("pooled", lambda: eng.fetch(eng.dispatch([x]))),
+                ("exact_fit_pinned", pinned)):
+            t0 = time.perf_counter()
+            fn()
+            times[route].append((time.perf_counter() - t0) * 1e3)
+    phases["b1_staging_ms"] = {
+        r: {"p50": float(np.percentile(t, 50)),
+            "p99": float(np.percentile(t, 99))} for r, t in times.items()}
+    print("fastlane " + json.dumps(phases), flush=True)
+    return phases, counts
+
+
+def drive_request_bench() -> tuple[dict, dict]:
+    """`bench serve --lowlat --zipf --chaos --trace` on the MLP, one
+    subprocess: the records carry the root bench's leg keys, the chaos
+    ledger is exact (every request failed by the injected dispatch fault
+    is one the injector poisoned), the breaker trips and rolls back once,
+    and no leg builds anything after warmup. Returns (the legs' figures,
+    the run's launch counts)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    argv = ["serve", "--model", "mlp", "--serve-duration", "1",
+            "--serve-qps", "200", "--serve-clients", "8", "--lowlat",
+            "--zipf", "--chaos", "--trace", "--inline"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "distributedmnist_tpu_torch.bench", *argv],
+        cwd=here, env=env, capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT_S)
+    took = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"bench {' '.join(argv)} exited "
+                           f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    rec = json.loads(lines[-1])
+    d = rec["detail"]
+    bad = []
+    if set(d) != BENCH_KEYS["serve_images_per_sec_per_chip"]:
+        bad.append("keys differ from the root bench's")
+    for leg, keys in REQUEST_LEG_KEYS.items():
+        if set(d[leg] or {}) != keys:
+            bad.append(f"{leg} keys differ from the root bench's")
+    chaos = d["chaos"]
+    if not chaos["poison_isolated_exact"]:
+        bad.append("the chaos poison ledger is not exact")
+    if chaos["breaker_trips"] != 1 or chaos["rollbacks"] != 1:
+        bad.append(f"breaker trips {chaos['breaker_trips']}, rollbacks "
+                   f"{chaos['rollbacks']}")
+    if d["recompiles_after_warmup"] != 0:
+        bad.append(f"{d['recompiles_after_warmup']} builds after warmup")
+    if d["zipf"]["parity_ok"] is not True:
+        bad.append("cached bytes differ from computed ones")
+    if bad:
+        raise RuntimeError(f"bench {' '.join(argv)}: {bad}: "
+                           f"{lines[-1][:3000]}")
+    counts = [json.loads(ln.split("launches ", 1)[1])
+              for ln in proc.stderr.splitlines()
+              if ln.startswith("bench: launches ")]
+    low, zipf, tr = d["lowlat"], d["zipf"], d["trace"]
+    figures = {
+        "took_s": took,
+        "lowlat": {k: low[k] for k in (
+            "p50_batched_ms", "p50_fastlane_ms", "p50_best_ms",
+            "p50_improvement_x", "p50_ok", "p99_ok", "recompiles")},
+        "lowlat_p99_ms": {
+            "batched": low["batched"]["latency_ms"]["p99"],
+            "fastlane": low["fastlane"]["latency_ms"]["p99"],
+            "megakernel": (low["megakernel"] or {}).get(
+                "latency_ms", {}).get("p99")},
+        "lowlat_attribution": low["attribution"],
+        "zipf": {k: zipf[k] for k in (
+            "hit_ratio", "hit_ratio_ok", "goodput_x", "goodput_ok",
+            "device_dispatches_off", "device_dispatches_on",
+            "single_flight_collapsed")},
+        "zipf_rows_per_sec": {"off": zipf["cache_off"]["rows_per_sec"],
+                              "on": zipf["cache_on"]["rows_per_sec"]},
+        "trace": {k: tr[k] for k in (
+            "over_slo_requests", "min_attributed_frac", "attribution_ok",
+            "open_spans_at_drain")},
+        "chaos": {k: chaos[k] for k in (
+            "requests", "ok", "availability_excluding_injected",
+            "availability_ok", "p99_under_faults_ms", "poison_unique",
+            "poison_isolated_exact", "bisect_splits",
+            "bisect_rescued_requests", "breaker_trips", "rollbacks",
+            "recompiles_during_chaos", "deadline_shed")},
+    }
+    print("request bench " + json.dumps(figures), flush=True)
+    return figures, counts[0]
+
+
+def drive_request_http(params: dict, card: str) -> tuple[dict, dict]:
+    """The HTTP server with the request path on: the MLP (fitted weights
+    from a checkpoint, float32) with --serve-fastlane --serve-cache
+    --serve-trace, and the same without the lane, one subprocess each:
+    HTTP_TIMED_CALLS sequential 1-row /predict calls of distinct rows
+    (no cache hit) timed on each; then, on the lane's server, a repeat
+    that must hit the cache, X-Trace-Id on the response and Server-Timing
+    on one that asks, GET /trace (Chrome trace events), a timed scrape of
+    /metrics?format=prometheus with HELP and TYPE lines, and /metrics with
+    real cache, resilience_policy and trace blocks. Returns (phases,
+    {path: launch counts})."""
+    import urllib.request
+
+    import numpy as np
+
+    from distributedmnist_tpu_torch.checkpoint import Checkpointer
+    from distributedmnist_tpu_torch.data import synthetic_mnist
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    rows = synthetic_mnist(seed=SEED + 3, train_n=16,
+                           test_n=HTTP_TIMED_CALLS)["test_x"].reshape(-1, 784)
+    phases, launches = {}, {}
+    with tempfile.TemporaryDirectory() as ckpt:
+        ck = Checkpointer(ckpt)
+        ck.save(1, {"params": params, "optimizer": {}, "scheduler": {}})
+        ck.close()
+        for tag, lane in (("fastlane", ["--serve-fastlane"]),
+                          ("batched", [])):
+            srv = start_server(["--model", "mlp", "--checkpoint-dir", ckpt,
+                                "--serve-cache", "--serve-trace", *lane],
+                               env, here)
+            try:
+                healthy(srv)
+                rec = {"predict_1row": timed_predicts(srv, rows)}
+                print_latency(f"mlp request path [{tag}]",
+                              rec["predict_1row"], card)
+                if tag == "fastlane":
+                    # a row no timed call sent: its trace has the
+                    # pipeline's stages, not a cache hit's
+                    body = np.ascontiguousarray(255 - rows[0]).tobytes()
+                    req = urllib.request.Request(
+                        srv.base + "/predict", data=body,
+                        headers={"X-Server-Timing": "1"})
+                    with urllib.request.urlopen(req, timeout=60) as r:
+                        hdrs = dict(r.headers)
+                    if "X-Trace-Id" not in hdrs or \
+                            "Server-Timing" not in hdrs:
+                        raise RuntimeError(f"/predict headers: {hdrs}")
+                    rec["server_timing"] = hdrs["Server-Timing"]
+                    trace = srv.ok("/trace")
+                    if not trace["traceEvents"]:
+                        raise RuntimeError("GET /trace has no events")
+                    rec["trace_events"] = len(trace["traceEvents"])
+                    t0 = time.perf_counter()
+                    with urllib.request.urlopen(
+                            srv.base + "/metrics?format=prometheus",
+                            timeout=60) as r:
+                        text = r.read().decode()
+                    rec["prometheus_scrape_ms"] = (
+                        (time.perf_counter() - t0) * 1e3)
+                    rec["prometheus_lines"] = len(text.splitlines())
+                    for fam in ("dmnist_serve_fastpath_dispatches_total",
+                                "dmnist_serve_cache_hits_total",
+                                "dmnist_serve_stage_duration_ms"):
+                        if f"# HELP {fam} " not in text or \
+                                f"# TYPE {fam} " not in text:
+                            raise RuntimeError(f"the exposition lacks {fam}")
+                    m = srv.ok("/metrics")
+                    if (m["cache"] is None or m["trace"] is None
+                            or m["resilience_policy"] is None
+                            or not m["cache"]["hits"]
+                            or not m["fastpath"]["dispatches"]):
+                        raise RuntimeError(
+                            f"/metrics blocks: cache {m['cache']}, "
+                            f"fastpath {m['fastpath']}")
+                    rec["cache_hits"] = m["cache"]["hits"]
+                    rec["fastpath"] = m["fastpath"]
+            finally:
+                summary, counts = stop_server(srv)
+            rec["launches"] = counts
+            phases[tag] = rec
+            launches[f"http_request_{tag}"] = counts
+            if counts["dense_relu"] <= 0:
+                raise RuntimeError(f"the {tag} server did not launch "
+                                   f"dense_relu: {counts}")
+    print("request http " + json.dumps(phases), flush=True)
+    return phases, launches
+
+
 def main() -> int:
     import torch
 
@@ -1994,6 +2373,22 @@ def main() -> int:
             raise RuntimeError(f"kernels never launched on the bench "
                                f"path: {missing}")
 
+        from distributedmnist_tpu_torch.serve.quantize import PARITY_SEED
+
+        t0 = time.perf_counter()
+        parity_rows = np.asarray(synthetic_mnist(
+            seed=PARITY_SEED, train_n=16, test_n=FASTLANE_ROWS)["test_x"])
+        request_phases, launches["fastlane"] = drive_fastlane(
+            params, lenet_params, parity_rows, parity_rows)
+        fused.reset_launches()
+        request_phases["bench"], launches["bench_request"] = \
+            drive_request_bench()
+        request_phases["http"], http_launches = drive_request_http(params,
+                                                                   card)
+        launches.update(http_launches)
+        request_phases["phase_s"] = time.perf_counter() - t0
+        print("request_phases " + json.dumps(request_phases), flush=True)
+
     line = []
     for name in ("dense_relu", "quant_dense", "mlp_megakernel"):
         timed = next(r for r in records if r["name"] == name
@@ -2010,6 +2405,14 @@ def main() -> int:
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
             "library_ms": timed["library_ms"], "case": timed["case"]})
+        # the fast route's shape (b = 1) beside its bound and library
+        b1 = next(r for r in records if r["name"] == name
+                  and r["case"].endswith(" b=1"))
+        line[-1]["fastlane"] = {
+            "launches": launches["fastlane"][name],
+            **{k: b1[k] for k in ("case", "ms", "plain_ms", "bound_ms",
+                                  "bound_by", "library_ms",
+                                  "max_abs_err")}}
     # the rest of training's new shapes, each case beside its bound
     line[0]["new_shapes"] = [
         {k: r[k] for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by",

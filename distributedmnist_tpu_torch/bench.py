@@ -28,7 +28,17 @@ its flag names, defaults and record keys:
   sweep, then the ragged-size leg with the batch former off and on. The
   registry boots from --checkpoint-dir's latest checkpoint when given
   (fresh-init otherwise), and --serve-infer-dtype activates a
-  parity-gated variant before any measured phase.
+  parity-gated variant before any measured phase. Every batcher runs
+  with the resilience policy wired (bisection and the circuit breaker),
+  as the server wires it. Optional legs, the root bench's: --lowlat (one
+  client of 1-row requests, coalesced against the fast lane and the fast
+  lane on the megakernel variant, with a traced attribution sub-phase),
+  --zipf (a hot-key mix with the prediction cache off, then on;
+  --zipf-cache-off runs the control only; --serve-cache-capacity sizes
+  the cache), --trace (stage attribution of the over-SLO tail under a
+  tracer) and --chaos (a seeded fault schedule against bisection, the
+  breaker's rollback and the deadline shed; --serve-cache runs it
+  through the cache front).
 
 Runs on the card; --device cpu runs on the CPU, and without a card the
 bench raises. --dtype bfloat16 trains in bfloat16 (throughput,
@@ -65,6 +75,7 @@ import os
 import statistics
 import sys
 import time
+from typing import Optional
 
 from distributedmnist_tpu_torch.analysis.locks import make_thread
 
@@ -88,32 +99,22 @@ MODES = ("throughput", "time-to-accuracy", "sweep", "smoke", "serve")
 # Flags and modes of the root bench whose machinery the port does not
 # have yet, each with the ROADMAP.md item that ports it. They exit 2.
 UNPORTED = {
-    "--zipf": "section 1 item 6 (the prediction cache)",
-    "--zipf-cache-off": "section 1 item 6 (the prediction cache)",
-    "--serve-cache": "section 1 item 6 (the prediction cache)",
-    "--serve-cache-capacity": "section 1 item 6 (the prediction cache)",
-    "--lowlat": "section 1 item 6 (the fast lane)",
-    "--dtype-sweep": "section 1 item 6 (the dtype-sweep leg)",
-    "--cascade": "section 1 item 6 (the cascade)",
-    "--chaos": "section 1 item 6 (faults and resilience)",
-    "--trace": "section 1 item 6 (tracing)",
-    "--trace-replay": "section 1 item 6 (workload replay)",
-    "--autoscale": "section 1 item 6 (autoscaling)",
-    "--multimodel": "section 1 item 6 (tenancy)",
-    "--swap-during-load": "section 1 item 6 (the swap leg)",
     "--serve-replicas": "section 1 item 6 (the fleet)",
     "--serve-hedge": "section 1 item 6 (the fleet)",
+    "--cascade": "section 1 item 6 (the cascade)",
+    "--multimodel": "section 1 item 6 (tenancy)",
     "--gateway": "section 1 item 6 (the gateway)",
+    "--trace-replay": "section 1 item 6 (workload replay)",
+    "--autoscale": "section 1 item 6 (autoscaling)",
+    "--dtype-sweep": "section 1 item 6 (the dtype-sweep leg)",
+    "--swap-during-load": "section 1 item 6 (the swap leg)",
     "--baseline": "section 1 item 6 (bench artifacts and --baseline)",
     "--artifact-dir": "section 1 item 6 (bench artifacts and --baseline)",
 }
-_UNPORTED_SWITCHES = ("--zipf", "--zipf-cache-off", "--serve-cache",
-                      "--lowlat", "--dtype-sweep", "--cascade", "--chaos",
-                      "--trace", "--autoscale", "--multimodel",
-                      "--swap-during-load", "--serve-hedge")
-_UNPORTED_VALUES = ("--serve-cache-capacity", "--trace-replay",
-                    "--serve-replicas", "--gateway", "--baseline",
-                    "--artifact-dir")
+_UNPORTED_SWITCHES = ("--dtype-sweep", "--cascade", "--autoscale",
+                      "--multimodel", "--swap-during-load", "--serve-hedge")
+_UNPORTED_VALUES = ("--trace-replay", "--serve-replicas", "--gateway",
+                    "--baseline", "--artifact-dir")
 
 
 def _mark(msg: str) -> None:
@@ -206,6 +207,36 @@ def _parser() -> argparse.ArgumentParser:
                    help="[serve] serving precision of the measured phases "
                         "(default float32); a variant the parity gate "
                         "refuses fails the bench")
+    p.add_argument("--lowlat", action="store_true", default=None,
+                   help="[serve] the single-request leg: one client of "
+                        "1-row requests, coalesced vs the fast lane vs "
+                        "the fast lane on the megakernel variant (MLP), "
+                        "p50/p99 and the attribution floor")
+    p.add_argument("--zipf", action="store_true", default=None,
+                   help="[serve] the hot-key leg: a seeded Zipf mix "
+                        "closed-loop with the prediction cache off, then "
+                        "on; hit ratio, goodput ratio, dispatch counts, "
+                        "byte-identity probes")
+    p.add_argument("--zipf-cache-off", action="store_true", default=None,
+                   help="[serve] run only the --zipf leg's cache-off "
+                        "control")
+    p.add_argument("--serve-cache", action="store_true", default=None,
+                   help="[serve] run the --chaos drill through the "
+                        "prediction cache front")
+    p.add_argument("--serve-cache-capacity", type=int, default=None,
+                   help="[serve] prediction-cache entries of the --zipf "
+                        "and --chaos legs (default 4096)")
+    p.add_argument("--chaos", action="store_true", default=None,
+                   help="[serve] the resilience leg: a seeded fault "
+                        "schedule (request-sticky poison + a forced "
+                        "breaker trip) driven open-loop; availability, "
+                        "p99 under faults, bisection, rollback and "
+                        "recompile counts")
+    p.add_argument("--trace", action="store_true", default=None,
+                   help="[serve] the tracing leg: open-loop traffic under "
+                        "a tracer and a stage-attribution row for every "
+                        "over-SLO request; with --chaos the chaos leg is "
+                        "traced too")
     for flag in _UNPORTED_SWITCHES:
         p.add_argument(flag, action="store_true", default=None,
                        help=f"not ported: ROADMAP.md {UNPORTED[flag]}")
@@ -240,7 +271,12 @@ def _parse(argv) -> argparse.Namespace:
                    "--serve-slo-ms": args.serve_slo_ms,
                    "--no-adaptive": args.no_adaptive,
                    "--serve-infer-dtype": args.serve_infer_dtype,
-                   "--checkpoint-dir": args.checkpoint_dir}
+                   "--checkpoint-dir": args.checkpoint_dir,
+                   "--lowlat": args.lowlat, "--zipf": args.zipf,
+                   "--zipf-cache-off": args.zipf_cache_off,
+                   "--serve-cache": args.serve_cache,
+                   "--serve-cache-capacity": args.serve_cache_capacity,
+                   "--chaos": args.chaos, "--trace": args.trace}
     if args.mode != "serve":
         given = [k for k, v in serve_flags.items() if v is not None]
         if given or args.serve_rows != 1:
@@ -280,6 +316,26 @@ def _parse(argv) -> argparse.Namespace:
                 p.error("--serve-qps must be comma-separated numbers")
             if not args.serve_qps or args.serve_qps[0] <= 0:
                 p.error("--serve-qps targets must be positive")
+        if (args.serve_cache_capacity is not None
+                and args.serve_cache_capacity < 1):
+            p.error("--serve-cache-capacity must be >= 1")
+        if args.zipf_cache_off and not args.zipf:
+            p.error("--zipf-cache-off modifies the --zipf leg; pass "
+                    "--zipf too")
+        if args.serve_cache and not args.chaos:
+            p.error("--serve-cache wires the cache front into the "
+                    "--chaos drill (the hot-key cache leg is --zipf); "
+                    "pass --chaos too")
+        if args.chaos:
+            # the programmatic schedule fails here, at argparse, never
+            # minutes into a run
+            from distributedmnist_tpu_torch.serve.faults import parse_spec
+            for template in (chaos_fault_spec("v0", None),
+                             chaos_fault_spec("v0", "r0")):
+                try:
+                    parse_spec(template)
+                except ValueError as e:
+                    p.error(f"chaos schedule template is invalid: {e}")
     elif args.mode in ("throughput", "sweep"):
         if args.trials is not None:
             p.error("--trials is a time-to-accuracy flag; throughput "
@@ -922,6 +978,599 @@ def _serve_ragged_leg(router, metrics, factory, make_batcher,
     return leg
 
 
+class _BuildCounter:
+    """The port's compile-event count: kernel-library builds and loads
+    plus engine builds (the HTTP server's compiles_total). snapshot()
+    deltas around a window must be 0 in steady state."""
+
+    def __init__(self, factory):
+        self.factory = factory
+
+    def snapshot(self) -> int:
+        from distributedmnist_tpu_torch.ops import kernel_lib
+
+        return kernel_lib.load_events() + self.factory.engine_builds
+
+
+def _serve_zipf_leg(router, metrics, factory, make_batcher,
+                    pipelined: int, clients: int, duration: float,
+                    cache_on: bool = True,
+                    cache_capacity: int = 4096) -> dict:
+    """The hot-key leg (the root bench's): one seeded Zipf request mix
+    (64 keys, s=1.1, seed 29) driven closed-loop with the prediction
+    cache front off, then on (LRU + single-flight + intra-batch dedup),
+    over the same request sequence. Byte-identity is checked in the leg:
+    a fresh probe's computed response and its cached repeat must be the
+    same bytes. `cache_on=False` (--zipf-cache-off) runs only the control
+    phase."""
+    import numpy as np
+
+    from distributedmnist_tpu_torch.serve.cache import (CacheFront,
+                                                        PredictionCache)
+
+    n_keys = 64
+    zipf_s = 1.1
+    rng = np.random.default_rng(29)
+    max_rows = min(4, factory.max_batch)
+    keys = [rng.integers(0, 256, (int(sz), 28, 28, 1), dtype=np.uint8)
+            for sz in rng.integers(1, max_rows + 1, n_keys)]
+    weights = 1.0 / np.arange(1, n_keys + 1) ** zipf_s
+    weights /= weights.sum()
+    order = rng.choice(n_keys, size=2048, p=weights)
+    reqs = [keys[i] for i in order]
+
+    def keep(snap: dict) -> dict:
+        return {"rows_per_sec": snap["rows_per_sec"],
+                "requests_per_sec": snap["requests_per_sec"],
+                "latency_ms": snap["latency_ms"],
+                "requests": snap["requests"],
+                "batches": snap["batches"],
+                "dispatched_rows": snap["dispatched_rows"],
+                "rejected_requests": snap["rejected_requests"]}
+
+    b = make_batcher(pipelined, adaptive=False)
+    try:
+        _mark(f"zipf closed loop [cache off]: {clients} clients x "
+              f"{duration:g}s, {n_keys} keys, s={zipf_s}")
+        off = keep(_serve_closed_loop(b, metrics, reqs, clients, duration))
+    finally:
+        b.stop()
+    leg = {
+        "distinct_keys": n_keys,
+        "zipf_s": zipf_s,
+        "seed": 29,
+        "max_rows_per_request": max_rows,
+        "clients": clients,
+        "duration_s": duration,
+        "cache_enabled": cache_on,
+        "cache_capacity": cache_capacity if cache_on else None,
+        "cache_off": off,
+        "cache_on": None,
+    }
+    if not cache_on:
+        _mark(f"zipf [cache off only]: {off['rows_per_sec']:.0f} rows/s, "
+              f"p99 {off['latency_ms']['p99']} ms, {off['batches']} "
+              "device dispatches")
+        return leg
+
+    cache = PredictionCache(cache_capacity)
+    b2 = make_batcher(pipelined, adaptive=False, dedup=True)
+    front = CacheFront(b2, router, cache, metrics=metrics)
+    parity_probes = 0
+    parity_ok = True
+    try:
+        _mark(f"zipf closed loop [cache on]: {clients} clients x "
+              f"{duration:g}s (capacity {cache_capacity})")
+        on_snap = _serve_closed_loop(front, metrics, reqs, clients,
+                                     duration)
+        probe_rng = np.random.default_rng(31)
+        for _ in range(8):
+            probe = probe_rng.integers(0, 256, (2, 28, 28, 1),
+                                       dtype=np.uint8)
+            computed = front.submit(probe).result(timeout=60)
+            cached = front.submit(probe).result(timeout=60)
+            parity_probes += 1
+            if computed.tobytes() != cached.tobytes():
+                parity_ok = False
+        _drain_or_die(front, timeout=60)
+    finally:
+        b2.stop()
+    on = keep(on_snap)
+    stats = cache.stats()
+    hit_ratio = stats["hit_ratio"]
+    goodput_x = (round(on["rows_per_sec"] / off["rows_per_sec"], 3)
+                 if off["rows_per_sec"] else None)
+    leg.update({
+        "cache_on": {**on, "cache": stats, "dedup": on_snap["dedup"]},
+        # the root bench's bars, unchanged: hit ratio >= 0.5, goodput >=
+        # 2x cache-off, fewer device dispatches per request, cached bytes
+        # identical to computed ones
+        "hit_ratio": hit_ratio,
+        "hit_ratio_ok": hit_ratio is not None and hit_ratio >= 0.5,
+        "goodput_x": goodput_x,
+        "goodput_ok": goodput_x is not None and goodput_x >= 2.0,
+        "p99_off_ms": off["latency_ms"]["p99"],
+        "p99_on_ms": on["latency_ms"]["p99"],
+        "device_dispatches_off": off["batches"],
+        "device_dispatches_on": on["batches"],
+        "device_dispatches_per_request_off": (
+            round(off["batches"] / off["requests"], 4)
+            if off["requests"] else None),
+        "device_dispatches_per_request_on": (
+            round(on["batches"] / on["requests"], 4)
+            if on["requests"] else None),
+        "device_dispatch_lower": (
+            off["requests"] > 0 and on["requests"] > 0
+            and (on["batches"] / on["requests"])
+            < (off["batches"] / off["requests"])),
+        "single_flight_collapsed": stats["collapsed"],
+        "parity_probes": parity_probes,
+        "parity_ok": parity_ok,
+    })
+    _mark(f"zipf: hit ratio {hit_ratio} (bar >= 0.5), goodput "
+          f"{off['rows_per_sec']:.0f} -> {on['rows_per_sec']:.0f} rows/s "
+          f"({goodput_x}x, bar >= 2x), device dispatches "
+          f"{off['batches']} -> {on['batches']}, parity "
+          f"{'ok' if parity_ok else 'FAILED'} ({parity_probes} probes)")
+    return leg
+
+
+def _serve_lowlat_leg(registry, router, factory, metrics, make_batcher,
+                      compiles, duration: float, max_wait_us: int,
+                      model: str) -> dict:
+    """The single-request leg (the root bench's): ONE closed-loop client
+    of 1-row requests through the coalescing path, then through the fast
+    lane, then — where the model has it — the fast lane on the
+    parity-gated megakernel variant (the one leg that reaches
+    mlp_megakernel). An attribution sub-phase runs 64 fast-lane requests
+    under a tracer with a 0.5 ms SLO and reports the worst attributed
+    fraction of the over-SLO ones. The variant's warmup builds are
+    returned for the whole-run recompile exclusion."""
+    import numpy as np
+
+    from distributedmnist_tpu_torch.serve import trace as trace_lib
+    from distributedmnist_tpu_torch.serve.quantize import variant_supported
+
+    req = np.random.default_rng(11).integers(0, 256, (1, 28, 28, 1),
+                                             dtype=np.uint8)
+    live = registry.live_version()
+    steady_from = compiles.snapshot()
+    variant_warmups = 0
+
+    def keep(snap: dict) -> dict:
+        return {"requests": snap["requests"],
+                "requests_per_sec": snap["requests_per_sec"],
+                "latency_ms": snap["latency_ms"],
+                "fastpath": snap["fastpath"],
+                "staging_ms": snap["staging_ms"],
+                "fetch_ms": snap["fetch_ms"]}
+
+    def phase(tag: str, fastlane: bool) -> dict:
+        b = make_batcher(1, adaptive=False, fastlane=fastlane)
+        try:
+            _mark(f"lowlat closed loop [{tag}]: 1 client x {duration:g}s, "
+                  f"1-row requests, wait {max_wait_us}us")
+            out = keep(_serve_closed_loop(b, metrics, [req], 1, duration))
+        finally:
+            b.stop()
+        _mark(f"lowlat [{tag}]: p50 {out['latency_ms']['p50']} ms, p99 "
+              f"{out['latency_ms']['p99']} ms, "
+              f"{out['fastpath']['dispatches']} fastpath dispatches over "
+              f"{out['requests']} requests")
+        return out
+
+    batched = phase("batched", fastlane=False)
+    fast = phase("fastlane", fastlane=True)
+    mega = None
+    mega_parity = None
+    if variant_supported(model, "megakernel"):
+        _mark("lowlat: warming + gating the megakernel variant")
+        before = compiles.snapshot()
+        vi = registry.add_variant(live, "megakernel")
+        variant_warmups = compiles.snapshot() - before
+        mega_parity = vi.parity
+        registry.promote(live, infer_dtype="megakernel")
+        try:
+            mega = phase("fastlane+megakernel", fastlane=True)
+        finally:
+            registry.promote(live, infer_dtype="float32")
+
+    att_slo_ms = 0.5
+    tracer = trace_lib.install(trace_lib.Tracer(capacity=1024, sample=1.0,
+                                                slo_ms=att_slo_ms,
+                                                seed=23))
+    b = make_batcher(1, adaptive=False, fastlane=True)
+    try:
+        for _ in range(64):
+            b.submit(req).result(timeout=60)
+        _drain_or_die(b, timeout=60)
+    finally:
+        b.stop()
+        trace_lib.uninstall()
+    fracs = [trace_lib.attribute_stages(tr)["attributed_frac"]
+             for tr in tracer.traces() if tr["over_slo"]]
+    att_min = round(min(fracs), 4) if fracs else None
+    census = _span_census(tracer)
+
+    recompiles = compiles.snapshot() - steady_from - variant_warmups
+    p50_b = batched["latency_ms"]["p50"]
+    p50_f = fast["latency_ms"]["p50"]
+    cands = [p for p in (p50_f, (mega or {}).get("latency_ms",
+                                                 {}).get("p50"))
+             if p is not None]
+    improvement = (round(p50_b / p50_f, 3) if p50_b and p50_f else None)
+    p99_ok = (fast["latency_ms"]["p99"] is not None
+              and batched["latency_ms"]["p99"] is not None
+              and fast["latency_ms"]["p99"]
+              <= batched["latency_ms"]["p99"])
+    leg = {
+        "clients": 1,
+        "rows_per_request": 1,
+        "duration_s": duration,
+        "coalesce_wait_us": max_wait_us,
+        "batched": batched,
+        "fastlane": fast,
+        "megakernel": mega,
+        "megakernel_parity": mega_parity,
+        # the root bench's bars, unchanged: p50 >= 1.5x better, p99 no
+        # worse, zero recompiles, >= 0.95 attribution over-SLO
+        "p50_batched_ms": p50_b,
+        "p50_fastlane_ms": p50_f,
+        "p50_best_ms": min(cands) if cands else None,
+        "p50_improvement_x": improvement,
+        "p50_ok": improvement is not None and improvement >= 1.5,
+        "p99_ok": p99_ok,
+        "fastpath_dispatches": fast["fastpath"]["dispatches"],
+        "fastpath_lane_fraction": fast["fastpath"]["lane_fraction"],
+        "recompiles": recompiles,
+        "recompiles_ok": recompiles == 0,
+        "variant_warmup_compile_events": variant_warmups,
+        "attribution": {
+            "slo_ms": att_slo_ms,
+            "over_slo_requests": len(fracs),
+            "min_attributed_frac": att_min,
+            "fastpath_spans": census["spans"].get("fastpath", 0),
+            "ok": att_min is not None and att_min >= 0.95,
+        },
+    }
+    _mark(f"lowlat: p50 {p50_b} -> {p50_f} ms ({improvement}x, bar >= "
+          f"1.5x), p99 {batched['latency_ms']['p99']} -> "
+          f"{fast['latency_ms']['p99']} ms, megakernel p50 "
+          f"{(mega or {}).get('latency_ms', {}).get('p50')} ms, "
+          f"attribution min {att_min} over {len(fracs)} over-SLO "
+          f"requests, {recompiles} recompiles")
+    return leg
+
+
+def _trace_attribution_rows(traces: list) -> list:
+    """Stage-attribution rows for every given trace, slowest first: total
+    wall clock, per-stage blame and the unattributed residue."""
+    from distributedmnist_tpu_torch.serve import trace as trace_lib
+
+    rows = []
+    for t in sorted(traces, key=lambda t: -t["duration_ms"]):
+        att = trace_lib.attribute_stages(t)
+        rows.append({
+            "trace_id": t["trace_id"],
+            "status": t["status"],
+            "over_slo": t["over_slo"],
+            "total_ms": round(t["duration_ms"], 3),
+            "stages_ms": {k: round(v, 3)
+                          for k, v in sorted(att["stages_ms"].items())},
+            "residue_ms": round(att["residue_ms"], 3),
+            "attributed_frac": round(att["attributed_frac"], 4),
+        })
+    return rows
+
+
+def _span_census(tracer) -> dict:
+    """Distinct-span counts by name across every retained trace, and how
+    many of each have a parent."""
+    seen: set = set()
+    census: dict = {}
+    parented: dict = {}
+    for t in tracer.traces():
+        for s in t["spans"]:
+            if s["id"] in seen:
+                continue
+            seen.add(s["id"])
+            census[s["name"]] = census.get(s["name"], 0) + 1
+            if s["parent"] is not None:
+                parented[s["name"]] = parented.get(s["name"], 0) + 1
+    return {"spans": census, "parented": parented}
+
+
+def _serve_trace_leg(router, metrics, factory, make_batcher,
+                     pipelined: int, duration: float, qps: float) -> dict:
+    """The tail-attribution leg (the root bench's): a seeded mixed-size
+    open-loop window under a tracer whose SLO is one coalescing wait plus
+    two full-batch service times (from the measured cost table), then a
+    stage-attribution row for every over-SLO request (the slowest
+    retained ones, labelled, when none is over). The root bench also
+    writes the Chrome trace-event file beside its artifact; the port's
+    bench writes no file, so the leg exports the events and counts them."""
+    import numpy as np
+
+    from distributedmnist_tpu_torch.serve import trace as trace_lib
+    from distributedmnist_tpu_torch.serve.scheduler import fit_dispatch_cost
+
+    overhead_s, per_row_s = fit_dispatch_cost(router.bucket_costs())
+    svc_s = overhead_s + per_row_s * factory.buckets[-1]
+    wait_us = max(2000, int(3e6 / qps), int(svc_s * 1e6))
+    slo_ms = wait_us / 1e3 + 2 * svc_s * 1e3
+    tracer = trace_lib.install(trace_lib.Tracer(
+        capacity=4096, sample=1.0, slo_ms=slo_ms, seed=17))
+    rng = np.random.default_rng(11)
+    sizes = [int(s) for s in
+             rng.integers(1, min(8, factory.max_batch) + 1, 128)]
+    reqs = [rng.integers(0, 256, (n, 28, 28, 1), dtype=np.uint8)
+            for n in sizes]
+    b = make_batcher(pipelined, adaptive=False, wait_us=wait_us)
+    try:
+        _mark(f"trace leg: open loop qps={qps:g} x {duration:g}s, slo "
+              f"{slo_ms:.1f} ms, wait {wait_us} us")
+        _serve_open_loop(b, metrics, reqs, qps, duration, wait_us)
+    finally:
+        b.stop()
+        trace_lib.uninstall()
+    traces = tracer.traces()
+    over = [t for t in traces if t["over_slo"]]
+    basis = "over_slo"
+    table_src = over
+    if not table_src:
+        basis = "slowest"
+        table_src = traces
+    rows = _trace_attribution_rows(table_src)
+    # the bar runs over the whole population; only the table is capped
+    min_attr = min((r["attributed_frac"] for r in rows), default=None)
+    table = rows[:32]
+    snap = tracer.snapshot()
+    n_events = len(tracer.export_chrome()["traceEvents"])
+    _mark(f"trace: {len(traces)} retained, {len(over)} over-SLO "
+          f"(basis {basis}, {len(rows)} checked); min attributed frac "
+          f"{min_attr}; {n_events} Chrome trace events")
+    return {
+        "slo_ms": round(slo_ms, 3),
+        "coalesce_wait_us": wait_us,
+        "qps": qps,
+        "sample": 1.0,
+        "requests_traced": snap["requests_finished"],
+        "traces_retained": len(traces),
+        "over_slo_requests": len(over),
+        "attribution_basis": basis,
+        "attribution_checked": len(rows),
+        "attribution": table,
+        "min_attributed_frac": min_attr,
+        # the root bench's bar: >= 95% of each over-SLO request's wall
+        # clock attributed to named stages
+        "attribution_ok": min_attr is not None and min_attr >= 0.95,
+        "open_spans_at_drain": snap["open_spans"],
+        "span_census": _span_census(tracer)["spans"],
+    }
+
+
+def chaos_fault_spec(live_version: str, kill_target) -> str:
+    """The chaos leg's fault schedule, the root bench's: request-sticky
+    poison on ~1.5% of dispatches (bisection's food) and a fetch storm
+    pinned to `live_version` after 40 clean batches (the forced breaker
+    trip; the rollback un-matches the rule, count=200 is the backstop).
+    With `kill_target` (a fleet run) two replica-kill bursts ride along;
+    the port has no fleet yet, so its runs pass None."""
+    spec = ("batch.dispatch:mode=request,p=0.015;"
+            f"engine.fetch:p=1,count=200,after=40,version={live_version}")
+    if kill_target is not None:
+        spec += (f";replica.fetch:p=1,replica={kill_target},"
+                 "after=2,count=4"
+                 f";replica.dispatch:p=1,replica={kill_target},"
+                 "after=8,count=4")
+    return spec
+
+
+def _serve_chaos_leg(registry, router, factory, metrics, make_batcher,
+                     compiles, pipelined: int, duration: float, qps: float,
+                     cache_capacity: Optional[int] = None) -> dict:
+    """The resilience leg (the root bench's): the seeded chaos_fault_spec
+    schedule driven open-loop against bisection, the circuit breaker and
+    the deadline shed, every request's outcome tracked.
+
+    - poison requests: exactly the injector's poisoned rids must fail
+      with the injected dispatch fault (no cohort-mate misblamed, no
+      culprit slipping through);
+    - the forced trip: the breaker must trip and roll back to the
+      healthy fallback loaded up front, which ends the storm;
+    - deadline sheds: every 25th request carries an unmeetable budget.
+
+    Availability is counted over the non-injected population. With
+    `cache_capacity` (--serve-cache) the drill runs through the cache
+    front, with the registry's invalidation hook installed, and the
+    poison ledger is held on a leader basis (collapsed followers echo
+    their leader's fault without a rid of their own)."""
+    import random
+
+    import numpy as np
+
+    from distributedmnist_tpu_torch.serve import (CircuitBreaker,
+                                                  DeadlineExceeded,
+                                                  Rejected,
+                                                  ResiliencePolicy, faults)
+    from distributedmnist_tpu_torch.serve.faults import InjectedFault
+    from distributedmnist_tpu_torch.serve.scheduler import fit_dispatch_cost
+
+    live = registry.live_version()
+    before = compiles.snapshot()
+    fallback = registry.add(factory.init_params(202),
+                            version="v-chaos-fallback", source="fresh-init")
+    fallback_builds = compiles.snapshot() - before
+    steady_from = compiles.snapshot()
+    # a tight breaker so the trip lands well inside the leg
+    breaker = CircuitBreaker(window_s=1.5, min_requests=12,
+                             failure_ratio=0.5, cooldown_s=60.0)
+    res = ResiliencePolicy(bisect=True, breaker=breaker,
+                           registry=registry, metrics=metrics)
+    # cohort-sized coalescing: ~3 inter-arrivals at the driven rate, or
+    # the full-batch service time if longer
+    overhead_s, per_row_s = fit_dispatch_cost(router.bucket_costs())
+    wait_us = max(int(3e6 / qps), 2000, int(
+        (overhead_s + per_row_s * factory.buckets[-1]) * 1e6))
+    chaos_duration = max(3.0 * duration, 6.0)
+    spec = chaos_fault_spec(live, None)
+    inj = faults.install(faults.FaultInjector.from_spec(spec, seed=23))
+    _mark(f"chaos: schedule {spec!r} (seed 23), {chaos_duration:g}s open "
+          f"loop at qps={qps:g}, wait {wait_us}us, fallback "
+          f"{fallback.version} resident")
+    rng = np.random.default_rng(13)
+    sizes = [int(s)
+             for s in rng.integers(1, min(8, factory.max_batch) + 1, 256)]
+    reqs = [rng.integers(0, 256, (n, 28, 28, 1), dtype=np.uint8)
+            for n in sizes]
+    cache = None
+    submitter = None
+    outcomes: list = []
+    futures: list = []
+    poison_echoes = 0
+    cache_hits_ok = 0
+    try:
+        batcher = make_batcher(pipelined, adaptive=False, wait_us=wait_us,
+                               resilience=res)
+        submitter = batcher
+        if cache_capacity is not None:
+            from distributedmnist_tpu_torch.serve.cache import (
+                CacheFront, PredictionCache)
+
+            cache = PredictionCache(cache_capacity)
+            # the real invalidation hook: the forced rollback mid-storm
+            # bumps the epoch atomically with the route swap
+            registry.set_cache(cache)
+            submitter = CacheFront(batcher, router, cache, metrics=metrics)
+            _mark(f"chaos: prediction cache front ON (capacity "
+                  f"{cache_capacity})")
+        metrics.reset()
+        arrivals = random.Random(3)
+        t_end = time.monotonic() + chaos_duration
+        next_t = time.monotonic()
+        i = 0
+        while next_t < t_end:
+            now = time.monotonic()
+            if next_t > now:
+                time.sleep(next_t - now)
+            deadline = None
+            if i % 25 == 7:
+                deadline = time.monotonic() + 5e-4   # unmeetable
+            try:
+                futures.append(submitter.submit(reqs[i % len(reqs)],
+                                                deadline_s=deadline))
+            except DeadlineExceeded:
+                outcomes.append("deadline")
+            except Rejected:
+                outcomes.append("rejected")
+            i += 1
+            next_t += arrivals.expovariate(qps)
+        _drain_or_die(submitter, timeout=120)
+        for fut in futures:
+            try:
+                fut.result(timeout=60)
+                outcomes.append("ok")
+                if getattr(fut, "cache_hit", False):
+                    cache_hits_ok += 1
+            except InjectedFault as e:
+                outcomes.append(f"injected:{e.point}")
+                if (e.point == "batch.dispatch"
+                        and getattr(fut, "collapsed", False)):
+                    poison_echoes += 1
+            except DeadlineExceeded:
+                outcomes.append("deadline")
+            except Rejected:
+                outcomes.append("rejected")
+            except Exception:
+                outcomes.append("other")
+        snap = metrics.snapshot()
+    finally:
+        faults.uninstall()
+        if submitter is not None:
+            submitter.stop()
+        if cache is not None:
+            registry.set_cache(None)
+
+    n = len(outcomes)
+    n_ok = outcomes.count("ok")
+    n_poison = outcomes.count("injected:batch.dispatch")
+    n_fetch = outcomes.count("injected:engine.fetch")
+    n_replica = sum(1 for o in outcomes
+                    if o.startswith("injected:replica."))
+    n_deadline = outcomes.count("deadline")
+    n_rejected = outcomes.count("rejected")
+    n_other = (n - n_ok - n_poison - n_fetch - n_replica - n_deadline
+               - n_rejected)
+    availability = n_ok / max(n_ok + n_other, 1)
+    poisoned = inj.poisoned()
+    n_poison_leaders = n_poison - poison_echoes
+    rollbacks = [e for e in registry.events()
+                 if e.get("event") == "rollback"]
+    recompiles = compiles.snapshot() - steady_from
+    resil = snap["resilience"]
+    leg = {
+        "spec": spec,
+        "injector_seed": 23,
+        "arrivals_seed": 3,
+        "qps": qps,
+        "duration_s": round(chaos_duration, 3),
+        "coalesce_wait_us": wait_us,
+        "requests": n,
+        "ok": n_ok,
+        "injected_dispatch_faults": n_poison,
+        "injected_fetch_faults": n_fetch,
+        "injected_replica_faults_surfaced": n_replica,
+        "deadline_shed": n_deadline,
+        "rejected": n_rejected,
+        "other_failures": n_other,
+        # the root bench's bars, unchanged: non-injected traffic >= 99%
+        # available, every poison isolated exactly, the rollback engaged,
+        # no recompile
+        "availability_excluding_injected": round(availability, 5),
+        "availability_ok": availability >= 0.99,
+        "p99_under_faults_ms": snap["latency_ms"]["p99"],
+        "poison_unique": len(poisoned),
+        "poison_isolated_exact": n_poison_leaders == len(poisoned) > 0,
+        "bisect_splits": resil["bisect_splits"],
+        "bisect_rescued_requests": resil["bisect_rescued_requests"],
+        "deadline_shed_metric": resil["deadline_shed_requests"],
+        "breaker_trips": breaker.trips(),
+        "rollbacks": len(rollbacks),
+        "rollback_events": rollbacks,
+        "rollback_engaged": (len(rollbacks) >= 1
+                             and registry.live_version()
+                             == fallback.version),
+        "live_version_after": registry.live_version(),
+        "fallback_warmup_compile_events": fallback_builds,
+        "recompiles_during_chaos": recompiles,
+        # the fleet's rescue counters: no fleet in the port yet
+        "failovers": None,
+        "hedges": None,
+    }
+    if cache is not None:
+        stats = cache.stats()
+        leg["cache"] = {
+            "enabled": True,
+            "capacity": cache_capacity,
+            "stats": stats,
+            "cache_hits_ok": cache_hits_ok,
+            "poison_client_failures": n_poison,
+            "poison_follower_echoes": poison_echoes,
+            "poison_leaders": n_poison_leaders,
+            "ledger_exact": n_poison_leaders == len(poisoned) > 0,
+        }
+    _mark(f"chaos: {n} requests — {n_ok} ok, {n_poison} poison culprits "
+          f"(unique {len(poisoned)}, exact isolation "
+          f"{leg['poison_isolated_exact']}), {n_fetch} trip victims, "
+          f"{n_deadline} deadline-shed, {n_other} OTHER failures; "
+          f"availability {availability:.4f}; "
+          f"{resil['bisect_rescued_requests']} cohort-mates rescued in "
+          f"{resil['bisect_splits']} splits; breaker trips "
+          f"{breaker.trips()}, rollback -> {leg['live_version_after']}; "
+          f"{recompiles} recompiles")
+    return leg
+
+
 def _git_provenance() -> dict:
     """Commit hash and dirty flag of the checkout; Nones outside a git
     repository or without git, never a failed bench."""
@@ -998,9 +1647,9 @@ def _serve(args) -> int:
     import numpy as np
 
     from distributedmnist_tpu_torch.config import Config
-    from distributedmnist_tpu_torch.ops import kernel_lib
     from distributedmnist_tpu_torch.serve import (DynamicBatcher,
                                                   ServeMetrics,
+                                                  build_resilience,
                                                   build_serving)
     from distributedmnist_tpu_torch.utils.device import resolve_device
 
@@ -1011,6 +1660,7 @@ def _serve(args) -> int:
                                   or (128 if on_cpu else 512)))
     metrics = ServeMetrics()
     registry, router, factory = build_serving(cfg)
+    compiles = _BuildCounter(factory)
     _mark(f"backend up: 1x {factory.platform}")
     # `is None`, not `or`: an explicit 0 (no coalescing wait) is honoured
     max_wait_us = (cfg.serve_max_wait_us if args.serve_max_wait_us is None
@@ -1041,14 +1691,20 @@ def _serve(args) -> int:
                            registry.get(boot.version).variants.values())
     headline_dtype = router.live_infer_dtype() or "float32"
     # engine builds, counted at the factory: none may happen after warmup
-    steady_from = (kernel_lib.load_events(), factory.engine_builds)
+    steady_from = compiles.snapshot()
 
     rng = np.random.default_rng(0)
     req = rng.integers(0, 256, (rows, 28, 28, 1), dtype=np.uint8)
 
+    # every batcher runs with the resilience stack wired, as the server
+    # wires it, so the headline prices it; the chaos leg brings its own
+    default_resilience = build_resilience(cfg, registry=registry,
+                                          metrics=metrics)
+
     def make_batcher(max_inflight: int, split: bool = True,
-                     adaptive: bool = None,
-                     wait_us: int = None) -> DynamicBatcher:
+                     adaptive: bool = None, wait_us: int = None,
+                     resilience=None, dedup: bool = False,
+                     fastlane: bool = False) -> DynamicBatcher:
         if adaptive is None:
             adaptive = not args.no_adaptive
         return DynamicBatcher(router, max_batch=factory.max_batch,
@@ -1057,7 +1713,12 @@ def _serve(args) -> int:
                               queue_depth=queue_depth,
                               max_inflight=max_inflight,
                               slo_ms=args.serve_slo_ms, adaptive=adaptive,
-                              split=split, metrics=metrics).start()
+                              split=split,
+                              resilience=(default_resilience
+                                          if resilience is None
+                                          else resilience),
+                              dedup=dedup, fastlane=fastlane,
+                              metrics=metrics).start()
 
     # Phase 1: the serial chain (in-flight 1), the denominator of the
     # overlap, and one sub-capacity open-loop point for its latency.
@@ -1115,8 +1776,71 @@ def _serve(args) -> int:
                                pipelined, clients, duration, low_qps,
                                max_wait_us)
 
-    recompiles = ((kernel_lib.load_events() - steady_from[0])
-                  + (factory.engine_builds - steady_from[1]))
+    # Optional legs, each on batchers of its own, after the headline
+    # phases: the fast lane, the hot-key cache, tracing, then chaos (so an
+    # injected storm cannot touch the clean numbers)
+    lowlat_leg = None
+    if args.lowlat:
+        lowlat_leg = _serve_lowlat_leg(registry, router, factory, metrics,
+                                       make_batcher, compiles, duration,
+                                       max_wait_us, args.model)
+    zipf_leg = None
+    if args.zipf:
+        zipf_leg = _serve_zipf_leg(
+            router, metrics, factory, make_batcher, pipelined, clients,
+            duration, cache_on=not args.zipf_cache_off,
+            cache_capacity=args.serve_cache_capacity or 4096)
+    trace_leg = None
+    if args.trace:
+        trace_leg = _serve_trace_leg(router, metrics, factory,
+                                     make_batcher, pipelined, duration,
+                                     low_qps)
+    chaos = None
+    if args.chaos:
+        from distributedmnist_tpu_torch.serve import trace as trace_lib
+
+        chaos_tracer = None
+        if args.trace:
+            # traced chaos: bisect splits must show as structured spans
+            chaos_tracer = trace_lib.install(trace_lib.Tracer(
+                capacity=4096, sample=1.0, slo_ms=args.serve_slo_ms,
+                seed=17))
+        try:
+            chaos = _serve_chaos_leg(
+                registry, router, factory, metrics, make_batcher, compiles,
+                pipelined, duration, 2 * low_qps,
+                cache_capacity=((args.serve_cache_capacity or 4096)
+                                if args.serve_cache else None))
+        finally:
+            if chaos_tracer is not None:
+                trace_lib.uninstall()
+        if chaos_tracer is not None:
+            census = _span_census(chaos_tracer)
+            n_bisect = census["spans"].get("bisect.split", 0)
+            trace_leg["chaos"] = {
+                "bisect_split_spans": n_bisect,
+                "bisect_dispatch_spans":
+                    census["spans"].get("bisect.dispatch", 0),
+                "failover_rescue_spans": 0,
+                "failover_rescue_spans_parented": 0,
+                "deadline_shed_spans":
+                    census["spans"].get("deadline.shed", 0),
+                "bisect_split_ok": n_bisect >= 1,
+                # no fleet, no rescue to show (the root bench's None for
+                # a single replica)
+                "failover_rescue_ok": None,
+            }
+            _mark(f"chaos trace: {n_bisect} bisect.split spans, "
+                  f"{trace_leg['chaos']['deadline_shed_spans']} "
+                  "deadline.shed spans")
+
+    recompiles = compiles.snapshot() - steady_from
+    # the warmups the legs caused off the hot path are warmup, not
+    # steady-state builds: the chaos fallback's and the megakernel's
+    if chaos is not None:
+        recompiles -= chaos["fallback_warmup_compile_events"]
+    if lowlat_leg is not None:
+        recompiles -= lowlat_leg["variant_warmup_compile_events"]
     if recompiles:
         _mark(f"WARNING: {recompiles} kernel-library loads or engine "
               "builds after warmup — steady state was to build nothing")
@@ -1154,6 +1878,11 @@ def _serve(args) -> int:
             "closed_loop": closed,
             "qps_sweep": table,
             "ragged": ragged,
+            # the optional legs (None when not asked for)
+            "zipf": zipf_leg,
+            "lowlat": lowlat_leg,
+            "chaos": chaos,
+            "trace": trace_leg,
             # the overlap: pipelined capacity over the serial chain, and
             # the sub-capacity open-loop latency at both depths
             "inflight_comparison": {

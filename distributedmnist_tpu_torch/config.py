@@ -125,6 +125,34 @@ class Config:
     # in-flight depth at the measured batch cost, it is unbounded when a
     # cost spikes, and past ~30 s it just tells clients to go away.
     serve_retry_after_cap_s: float = 30.0
+    # Resilience: serve_bisect isolates a poison request by splitting a
+    # failed multi-request dispatch; the circuit breaker rolls a live
+    # version back when its window (serve_breaker_window_s seconds, at
+    # least serve_breaker_min_requests of volume) crosses
+    # serve_breaker_ratio failures. serve_faults installs a fault
+    # injection schedule (serve/faults.py spec string); None = inert.
+    serve_bisect: bool = True
+    serve_breaker_window_s: float = 5.0
+    serve_breaker_min_requests: int = 20
+    serve_breaker_ratio: float = 0.5
+    serve_faults: Optional[str] = None
+    # Request tracing: GET /trace, X-Trace-Id, Server-Timing and the
+    # per-stage histograms; serve_trace_sample head-samples which OK
+    # traces are kept (errored and over-SLO ones always are),
+    # serve_trace_capacity bounds the ring.
+    serve_trace: bool = False
+    serve_trace_sample: float = 1.0
+    serve_trace_capacity: int = 256
+    # The prediction cache in front of the batcher (bounded LRU,
+    # single-flight), its TTL by monotonic age (None = none), and
+    # intra-batch dedup inside one drain.
+    serve_cache: bool = False
+    serve_cache_capacity: int = 4096
+    serve_cache_ttl_s: Optional[float] = None
+    serve_dedup: bool = False
+    # The single-request fast lane: an idle pipeline dispatches a lone
+    # request on the caller's thread.
+    serve_fastlane: bool = False
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -282,6 +310,55 @@ def add_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    help="ceiling on the pipeline-derived Retry-After "
                         "header (integer seconds per RFC 9110) on shed "
                         "responses")
+    p.add_argument("--no-bisect", dest="serve_bisect",
+                   action="store_false", default=None,
+                   help="fail a whole batch on a dispatch error instead "
+                        "of bisecting it to isolate the poison request")
+    p.add_argument("--serve-breaker-window-s", type=float, default=None,
+                   help="circuit-breaker sliding window in seconds over "
+                        "per-version request outcomes")
+    p.add_argument("--serve-breaker-min-requests", type=int, default=None,
+                   help="minimum window volume before the breaker may "
+                        "trip")
+    p.add_argument("--serve-breaker-ratio", type=float, default=None,
+                   help="failure ratio within the window that trips the "
+                        "breaker and rolls the live version back "
+                        "(0 < ratio <= 1)")
+    p.add_argument("--serve-faults", default=None, metavar="SPEC",
+                   help="install a fault-injection schedule "
+                        "(serve/faults.py spec string); chaos testing "
+                        "only — default: all failpoints inert")
+    p.add_argument("--serve-trace", dest="serve_trace",
+                   action="store_true", default=None,
+                   help="per-request span tracing: GET /trace exports "
+                        "Chrome trace-event JSON, /predict responses "
+                        "carry X-Trace-Id, /metrics gains per-stage "
+                        "duration histograms")
+    p.add_argument("--serve-trace-sample", type=float, default=None,
+                   help="head-sampling fraction for OK traces (errored "
+                        "and over-SLO traces are always kept); default 1")
+    p.add_argument("--serve-trace-capacity", type=int, default=None,
+                   help="bounded trace ring size (default 256)")
+    p.add_argument("--serve-cache", dest="serve_cache",
+                   action="store_true", default=None,
+                   help="the prediction cache + single-flight front "
+                        "(serve/cache.py), invalidated on every "
+                        "live-route change")
+    p.add_argument("--serve-cache-capacity", type=int, default=None,
+                   help="prediction-cache size in entries (LRU; default "
+                        "4096)")
+    p.add_argument("--serve-cache-ttl-s", type=float, default=None,
+                   help="cache entries older than this (monotonic age) "
+                        "expire at lookup (default: no TTL)")
+    p.add_argument("--serve-dedup", dest="serve_dedup",
+                   action="store_true", default=None,
+                   help="collapse identical rows inside one coalesced "
+                        "drain into a single dispatch")
+    p.add_argument("--serve-fastlane", dest="serve_fastlane",
+                   action="store_true", default=None,
+                   help="single-request fast lane: a submit that finds "
+                        "the queue empty and a free in-flight slot "
+                        "dispatches on the caller's thread")
     return p
 
 

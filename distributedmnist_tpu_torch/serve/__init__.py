@@ -1,17 +1,29 @@
-"""The port's serving stack: engine (bucketed, pipelined dispatch/fetch),
-router (live, canary and shadow routes), registry (versions,
-parity-gated variants), batcher (coalescing, backpressure, deadlines,
-in-flight window), scheduler, metrics and the HTTP server
-(serve/server.py)."""
+"""The port's serving stack: engine (bucketed, pipelined dispatch/fetch and
+the fast lane's resident routes), router (live, canary and shadow
+routes), registry (versions, parity-gated variants, the cache's
+invalidation), batcher (coalescing, backpressure, deadlines, in-flight
+window, bisection, dedup, the fast lane), scheduler, metrics (with the
+Prometheus exposition), fault injection (faults), resilience (the circuit
+breaker and its rollback), tracing (trace), the prediction cache (cache)
+and the HTTP server (serve/server.py)."""
 
+from distributedmnist_tpu_torch.serve import faults, trace  # noqa: F401
 from distributedmnist_tpu_torch.serve.batcher import (  # noqa: F401
     DynamicBatcher, Rejected, resolve_max_inflight)
+from distributedmnist_tpu_torch.serve.cache import (  # noqa: F401
+    CacheFront, PredictionCache, build_cache_front, content_key)
 from distributedmnist_tpu_torch.serve.engine import (  # noqa: F401
-    InferenceEngine, make_buckets)
-from distributedmnist_tpu_torch.serve.metrics import ServeMetrics  # noqa: F401
+    FASTLANE_MAX_BUCKET, InferenceEngine, fast_row_bucket, make_buckets)
+from distributedmnist_tpu_torch.serve.faults import (  # noqa: F401
+    FaultInjector, InjectedFault)
+from distributedmnist_tpu_torch.serve.metrics import (  # noqa: F401
+    ServeMetrics, prometheus_exposition)
 from distributedmnist_tpu_torch.serve.registry import (  # noqa: F401
     PARITY_GATES, EngineFactory, ModelRegistry, ParityRefused, build_serving)
 from distributedmnist_tpu_torch.serve.resilience import (  # noqa: F401
-    DeadlineExceeded)
+    CircuitBreaker, DeadlineExceeded, HealthTracker, ResiliencePolicy,
+    build_resilience)
 from distributedmnist_tpu_torch.serve.router import (  # noqa: F401
     NoLiveModel, Router)
+from distributedmnist_tpu_torch.serve.trace import (  # noqa: F401
+    Tracer, attribute_stages)

@@ -15,6 +15,14 @@ parity-gated inference variant (--serve-infer-dtype).
   and print {"metric": "serve_summary", ...}. The launch count of each
   hand-written kernel goes to stderr at exit (`serve: launches {...}`).
 
+Both modes wire the root serve.py's request path: the resilience policy
+(bisection, --no-bisect; the circuit breaker, --serve-breaker-*), a
+fault-injection schedule (--serve-faults), the tracer (--serve-trace,
+--serve-trace-sample, --serve-trace-capacity), the prediction cache in
+front of the batcher (--serve-cache, --serve-cache-capacity,
+--serve-cache-ttl-s), intra-batch dedup (--serve-dedup) and the fast
+lane (--serve-fastlane).
+
 Runs on the card; pass --device cpu to run on the CPU.
 
     python -m distributedmnist_tpu_torch.train --preset lenet-adam \\
@@ -112,35 +120,98 @@ def main(argv=None) -> int:
         p.error("--selftest must be >= 1")
     if args.serve_max_versions is not None and args.serve_max_versions < 2:
         p.error("--serve-max-versions must be >= 2")
+    if (args.serve_breaker_window_s is not None
+            and args.serve_breaker_window_s <= 0):
+        p.error("--serve-breaker-window-s must be > 0")
+    if (args.serve_breaker_min_requests is not None
+            and args.serve_breaker_min_requests < 1):
+        p.error("--serve-breaker-min-requests must be >= 1")
+    if (args.serve_breaker_ratio is not None
+            and not 0 < args.serve_breaker_ratio <= 1):
+        p.error("--serve-breaker-ratio must be in (0, 1]")
+    if (args.serve_trace_sample is not None
+            and not 0.0 <= args.serve_trace_sample <= 1.0):
+        p.error("--serve-trace-sample must be in [0, 1]")
+    if (args.serve_trace_capacity is not None
+            and args.serve_trace_capacity < 1):
+        p.error("--serve-trace-capacity must be >= 1")
+    if (args.serve_cache_capacity is not None
+            and args.serve_cache_capacity < 1):
+        p.error("--serve-cache-capacity must be >= 1")
+    if args.serve_cache_ttl_s is not None and args.serve_cache_ttl_s <= 0:
+        p.error("--serve-cache-ttl-s must be > 0")
+    if args.serve_faults is not None:
+        # a malformed schedule is a usage error now: it must never boot
+        # a server that silently injects nothing
+        from distributedmnist_tpu_torch.serve.faults import parse_spec
+        try:
+            parse_spec(args.serve_faults)
+        except ValueError as e:
+            p.error(f"--serve-faults: {e}")
     cfg = config_lib.from_args(args)
 
     from distributedmnist_tpu_torch.serve import (DynamicBatcher,
                                                   ServeMetrics,
-                                                  build_serving)
+                                                  build_cache_front,
+                                                  build_resilience,
+                                                  build_serving, faults)
+    from distributedmnist_tpu_torch.serve import trace as trace_lib
 
     metrics = ServeMetrics()
     registry, router, factory = build_serving(cfg, metrics=metrics)
+    resilience = build_resilience(cfg, registry=registry, metrics=metrics)
+    if cfg.serve_faults:
+        faults.install(faults.FaultInjector.from_spec(cfg.serve_faults,
+                                                      seed=cfg.seed))
+        log.warning("FAULT INJECTION ACTIVE (--serve-faults %r, seed %d): "
+                    "this process is a chaos target", cfg.serve_faults,
+                    cfg.seed)
+    if cfg.serve_trace:
+        trace_lib.install(trace_lib.Tracer(
+            capacity=cfg.serve_trace_capacity,
+            sample=cfg.serve_trace_sample, slo_ms=cfg.serve_slo_ms,
+            seed=cfg.seed))
+        log.info("request tracing on (capacity %d, sample %.2f, slo %s "
+                 "ms): GET /trace, X-Trace-Id on /predict",
+                 cfg.serve_trace_capacity, cfg.serve_trace_sample,
+                 cfg.serve_slo_ms)
     batcher = DynamicBatcher(router, max_batch=cfg.serve_max_batch,
                              max_wait_us=cfg.serve_max_wait_us,
                              queue_depth=cfg.serve_queue_depth,
                              max_inflight=cfg.serve_max_inflight,
                              slo_ms=cfg.serve_slo_ms,
                              adaptive=cfg.serve_adaptive,
+                             resilience=resilience,
+                             dedup=cfg.serve_dedup,
+                             fastlane=cfg.serve_fastlane,
                              metrics=metrics).start()
-    log.info("dispatch pipeline depth: %d; buckets %s; device %s",
-             batcher.max_inflight, list(factory.buckets), factory.device)
+    # the submit target: the cache front when --serve-cache (the
+    # registry then invalidates it on every live-route change)
+    front, cache = build_cache_front(cfg, batcher, router, registry,
+                                     metrics=metrics)
+    log.info("dispatch pipeline depth: %d; buckets %s; device %s; fast "
+             "lane %s; cache %s; dedup %s", batcher.max_inflight,
+             list(factory.buckets), factory.device,
+             "on" if cfg.serve_fastlane else "off",
+             "on" if cache is not None else "off",
+             "on" if cfg.serve_dedup else "off")
     try:
         if args.port is None:
             warm(registry, cfg)
-            summary = selftest(batcher, metrics, args.selftest or 256,
+            summary = selftest(front, metrics, args.selftest or 256,
                                factory.max_batch)
             summary["device"] = str(factory.device)
             summary["live_infer_dtype"] = router.live_infer_dtype()
             summary["versions"] = registry.describe()["versions"]
         else:
-            summary = http_serve(args, cfg, batcher, metrics, registry)
+            summary = http_serve(args, cfg, batcher, metrics, registry,
+                                 front=front, cache=cache)
+        if cache is not None:
+            summary["cache"] = cache.stats()
     finally:
         batcher.stop()
+        faults.uninstall()
+        trace_lib.uninstall()
     print(json.dumps(summary), flush=True)
     return 0
 
@@ -166,7 +237,8 @@ def warm(registry, cfg):
     return mv
 
 
-def http_serve(args, cfg, batcher, metrics, registry) -> dict:
+def http_serve(args, cfg, batcher, metrics, registry, front=None,
+               cache=None) -> dict:
     """Serve HTTP until SIGTERM/SIGINT; SIGHUP rolls the model. Returns
     the serve_summary record; the kernels' launch counts go to stderr."""
     from distributedmnist_tpu_torch.ops import fused
@@ -178,7 +250,8 @@ def http_serve(args, cfg, batcher, metrics, registry) -> dict:
                         port=args.port,
                         request_timeout=args.request_timeout,
                         retry_after_cap_s=cfg.serve_retry_after_cap_s,
-                        infer_dtype_choice=cfg.serve_infer_dtype)
+                        infer_dtype_choice=cfg.serve_infer_dtype,
+                        front=front, cache=cache)
     signal.signal(signal.SIGTERM, lambda signum, frame: server.shutdown())
     signal.signal(signal.SIGINT, lambda signum, frame: server.shutdown())
     signal.signal(signal.SIGHUP, lambda signum, frame: server.reload())

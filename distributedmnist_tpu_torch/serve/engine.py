@@ -22,6 +22,27 @@ the process: the float32 engine is the reference every parity gate
 measures against, and the flags are process-wide, so switching them per
 dispatch would race between the dispatch thread and an admin thread
 warming a variant.
+
+The fast lane's dispatch_fast() stages a lone request without the pooled
+pad, on the submitting thread, by one of two resident routes:
+
+- **exact fit** (n == covering bucket, a 1-row request on a ladder that
+  starts at 1): the request's own rows are copied to the device from
+  pageable memory, with no pool checkout and no pad;
+- **row-staged** (a 1-row request into a smallest rung b > 1, up to
+  FASTLANE_MAX_BUCKET): the row goes into row 0 of a warm device buffer
+  of b rows, whose other rows are never read for the answer (every
+  serving forward is row-independent). The buffer is single-flight: a
+  non-blocking lock acquire, and None when it is busy.
+
+Each fast dispatch has its own output buffer and CUDA event, so up to
+max_inflight fast requests can be in flight beside the pooled pipeline.
+warmup() prices the row route against the covering bucket's pooled
+dispatch and turns it off where it is slower (`_warm_fastlane`).
+
+Failpoints `engine.dispatch` and `engine.fetch` (serve/faults.py) and the
+span `engine.staging` (serve/trace.py) are woven in; each is one None
+check with no injector or tracer installed.
 """
 
 from __future__ import annotations
@@ -30,13 +51,15 @@ import dataclasses
 import logging
 import statistics
 import time
-from typing import Any, Optional
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
 
 from distributedmnist_tpu_torch.analysis.locks import make_lock
 from distributedmnist_tpu_torch.ops import kernel_lib
+from distributedmnist_tpu_torch.serve import trace
+from distributedmnist_tpu_torch.serve.faults import failpoint
 from distributedmnist_tpu_torch.utils import round_up
 from distributedmnist_tpu_torch.utils.device import (pin_float32_numerics,
                                                      resolve_device)
@@ -46,6 +69,18 @@ log = logging.getLogger("distributedmnist_tpu_torch")
 IMAGE_SHAPE = (28, 28, 1)
 IMAGE_SIZE = 28 * 28
 NUM_CLASSES = 10
+
+# The row-staged fast route serves only smallest rungs at or below this:
+# past it the one-row saving is a rounding error of a large dispatch.
+FASTLANE_MAX_BUCKET = 32
+
+
+def fast_row_bucket(buckets) -> Optional[int]:
+    """The one rung the row-staged route can serve: a 1-row request
+    always covers into the SMALLEST rung, and when that rung is 1 the
+    exact-fit route already skips staging, so there is no row route."""
+    b = sorted(set(buckets))[0]
+    return b if 1 < b <= FASTLANE_MAX_BUCKET else None
 
 
 @dataclasses.dataclass
@@ -68,6 +103,10 @@ class InferenceHandle:
     done: Any = None              # torch.cuda.Event on the card, else None
     version: Optional[str] = None
     infer_dtype: Optional[str] = None
+    # A fast-lane handle: no staging pair; its own output buffer `out`
+    # (from the fast-lane pool, None once fetched) carries the one-shot
+    resident: bool = False
+    out: Optional[torch.Tensor] = None
 
 
 def make_buckets(max_batch: int, n_chips: int = 1,
@@ -89,7 +128,8 @@ class InferenceEngine:
 
     def __init__(self, model: str, params: dict, device="cuda",
                  max_batch: int = 512, version: Optional[str] = None,
-                 infer_dtype: str = "float32"):
+                 infer_dtype: str = "float32",
+                 buckets: Optional[Sequence[int]] = None):
         from distributedmnist_tpu_torch import models
 
         self.device = resolve_device(device)
@@ -97,7 +137,8 @@ class InferenceEngine:
         self.version = version
         self.infer_dtype = infer_dtype
         self.max_batch = max_batch
-        self.buckets = make_buckets(max_batch)
+        self.buckets = (tuple(sorted(set(buckets))) if buckets
+                        else make_buckets(max_batch))
         self._pin = self.device.type == "cuda"
         if self._pin:
             pin_float32_numerics()
@@ -133,6 +174,21 @@ class InferenceEngine:
         # infer seconds, timed by warmup) — the batch former's price list.
         self._bucket_cost: dict[int, float] = {}
         self._bucket_cost_p95: dict[int, float] = {}
+        # The fast lane: output buffers of its own (one per fast request
+        # in flight, recycled at fetch), and the row-staged route's
+        # resident device buffer, its pinned one-row host buffer and the
+        # event that says the last row copy has left that host buffer.
+        # The route serves only once warmup has priced it no slower than
+        # the pooled dispatch of its rung.
+        self._fast_out_pool: dict[int, list[torch.Tensor]] = {
+            b: [] for b in self.buckets}
+        self._fast_row_b = fast_row_bucket(self.buckets)
+        self._fast_row_buf: Optional[torch.Tensor] = None
+        self._fast_row_host: Optional[torch.Tensor] = None
+        self._fast_row_copied = None
+        self._fast_row_ok = False
+        self._fast_row_cost: Optional[float] = None
+        self._fast_row_lock = make_lock("engine.fastlane")
 
     # -- bucketing ---------------------------------------------------------
 
@@ -184,6 +240,18 @@ class InferenceEngine:
 
     # -- inference ---------------------------------------------------------
 
+    def _launch(self, x_dev: torch.Tensor, out: torch.Tensor):
+        """Launch the forward on `x_dev` and the copy of its logits into
+        the host buffer `out`; returns the event that marks the copy done
+        (None on the CPU, where both ran already)."""
+        logits = self._forward(x_dev)
+        out.copy_(logits, non_blocking=True)
+        if not self._pin:
+            return None
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        return done
+
     def dispatch(self, x) -> InferenceHandle:
         """Pad `x` — one uint8 image array or a list of them (coalesced
         requests, staged directly) — into a pooled staging buffer, copy
@@ -194,39 +262,141 @@ class InferenceEngine:
                  else [self._as_images(x)])
         n = sum(p.shape[0] for p in parts)
         b = self.bucket_for(n)
-        staging = self._staging_take(b)
-        dispatched = False
+        # before the staging take: an injected error strands no buffer
+        failpoint("engine.dispatch", version=self.version, rows=n,
+                  bucket=b)
+        sp = trace.begin_span("engine.staging", rows=n, bucket=b,
+                              version=self.version)
         try:
-            off = 0
-            for p in parts:
-                staging.x_np[off:off + p.shape[0]] = p
-                off += p.shape[0]
-            if n < b:
-                staging.x_np[n:] = 0
-            done = None
-            with torch.inference_mode():
-                x_dev = staging.x.to(self.device, non_blocking=True)
-                logits = self._forward(x_dev)
-                staging.out.copy_(logits, non_blocking=True)
-                if self._pin:
-                    done = torch.cuda.Event()
-                    done.record(torch.cuda.current_stream(self.device))
-            dispatched = True
+            staging = self._staging_take(b)
+            dispatched = False
+            try:
+                off = 0
+                for p in parts:
+                    staging.x_np[off:off + p.shape[0]] = p
+                    off += p.shape[0]
+                if n < b:
+                    staging.x_np[n:] = 0
+                with torch.inference_mode():
+                    x_dev = staging.x.to(self.device, non_blocking=True)
+                    done = self._launch(x_dev, staging.out)
+                dispatched = True
+            finally:
+                if not dispatched:
+                    self._staging_put(b, staging)
         finally:
-            if not dispatched:
-                self._staging_put(b, staging)
+            trace.end_span(sp)
         return InferenceHandle(n=n, bucket=b, staging=staging, done=done,
                                version=self.version,
                                infer_dtype=self.infer_dtype)
 
+    def _fast_out_take(self, bucket: int) -> torch.Tensor:
+        with self._staging_lock:
+            pool = self._fast_out_pool[bucket]
+            if pool:
+                return pool.pop()
+        return torch.empty((bucket, NUM_CLASSES), dtype=torch.float32,
+                           pin_memory=self._pin)
+
+    def _fast_out_put(self, bucket: int, out: torch.Tensor) -> None:
+        with self._staging_lock:
+            self._fast_out_pool[bucket].append(out)
+
+    def _stage_exact(self, x: np.ndarray) -> torch.Tensor:
+        """Exact-fit route: the request's own rows, copied to the device
+        from pageable memory. That copy returns once it has run, after
+        the work queued before it on the stream; a lane request waits for
+        that work at its fetch anyway (one stream). Staging through a
+        pinned tensor of torch's caching host allocator, and the pooled
+        dispatch, time within a few percent of this copy at b = 1 on an
+        H100 (chip_smoke.py times all three), so the route takes the
+        simplest one. The array is copied first: an HTTP body is a
+        read-only buffer."""
+        return torch.from_numpy(np.array(x)).to(self.device)
+
+    def _stage_row(self, x: np.ndarray) -> torch.Tensor:
+        """Row-staged route (the caller holds the fast-row lock): copy
+        the one row into row 0 of the resident device buffer and return
+        the buffer. The pinned host row is rewritten only once the last
+        row copy out of it has run."""
+        if self._fast_row_copied is not None:
+            self._fast_row_copied.synchronize()
+        self._fast_row_host.numpy()[:] = x
+        self._fast_row_buf[0:1].copy_(self._fast_row_host,
+                                      non_blocking=True)
+        if self._pin:
+            self._fast_row_copied = torch.cuda.Event()
+            self._fast_row_copied.record(
+                torch.cuda.current_stream(self.device))
+        return self._fast_row_buf
+
+    def dispatch_fast(self, x) -> Optional[InferenceHandle]:
+        """The fast lane's dispatch: stage `x` by a resident route and
+        launch, or return None so that the caller takes the ordinary
+        dispatch() — when no route fits (n below its bucket and no warm
+        row route) or the row buffer is busy. A route that fits and then
+        fails raises; it never falls back quietly. Thread-safe: each call
+        has its own output buffer and event."""
+        x = self._as_images(x)
+        n = x.shape[0]
+        b = self.bucket_for(n)
+        row_staged = (n == 1 and b == self._fast_row_b
+                      and self._fast_row_ok
+                      and self._fast_row_buf is not None)
+        if n != b and not row_staged:
+            return None
+        failpoint("engine.dispatch", version=self.version, rows=n,
+                  bucket=b)
+        sp = trace.begin_span("engine.staging", rows=n, bucket=b,
+                              version=self.version, resident=True)
+        try:
+            out = self._fast_out_take(b)
+            dispatched = False
+            try:
+                with torch.inference_mode():
+                    if n == b:
+                        done = self._launch(self._stage_exact(x), out)
+                    else:
+                        if not self._fast_row_lock.acquire(blocking=False):
+                            return None   # busy: the pooled path serves
+                        try:
+                            done = self._launch(self._stage_row(x), out)
+                        finally:
+                            self._fast_row_lock.release()
+                dispatched = True
+            finally:
+                if not dispatched:
+                    self._fast_out_put(b, out)
+        finally:
+            trace.end_span(sp)
+        return InferenceHandle(n=n, bucket=b, staging=None, done=done,
+                               version=self.version,
+                               infer_dtype=self.infer_dtype,
+                               resident=True, out=out)
+
     def fetch(self, handle: InferenceHandle) -> np.ndarray:
         """Wait for the batch (the device->host copy of its logits) and
-        return its real rows. Recycles the staging pair whether the wait
-        succeeds or raises; one-shot."""
+        return its real rows. Recycles the handle's buffers whether the
+        wait succeeds or raises; one-shot."""
+        if handle.resident:
+            out = handle.out
+            if out is None:
+                raise RuntimeError("handle already fetched")
+            try:
+                failpoint("engine.fetch", version=handle.version,
+                          rows=handle.n)
+                if handle.done is not None:
+                    handle.done.synchronize()
+                return out.numpy()[:handle.n].copy()
+            finally:
+                handle.out = None
+                self._fast_out_put(handle.bucket, out)
         staging = handle.staging
         if staging is None:
             raise RuntimeError("handle already fetched")
         try:
+            failpoint("engine.fetch", version=handle.version,
+                      rows=handle.n)
             if handle.done is not None:
                 handle.done.synchronize()
             return staging.out.numpy()[:handle.n].copy()
@@ -258,6 +428,7 @@ class InferenceEngine:
             samples.sort()
             costs_p95[b] = samples[min(len(samples) - 1,
                                        int(0.95 * len(samples)))]
+        self._warm_fastlane(costs)
         # one reference swap: a concurrent reader sees a whole table
         self._bucket_cost = costs
         self._bucket_cost_p95 = costs_p95
@@ -268,6 +439,51 @@ class InferenceEngine:
                  {b: round(c * 1e3, 3)
                   for b, c in sorted(self._bucket_cost.items())})
         return builds
+
+    def _warm_fastlane(self, costs: dict) -> None:
+        """Allocate the row route's resident buffers, run it, and price
+        it: it serves only when its median single-row cost is no worse
+        than the covering bucket's pooled dispatch (`costs`, this
+        warmup's). A no-op for ladders whose smallest rung is 1."""
+        b = self._fast_row_b
+        if b is None:
+            return
+        with self._fast_row_lock:
+            if self._fast_row_buf is None:
+                self._fast_row_buf = torch.zeros(
+                    (b, *IMAGE_SHAPE), dtype=torch.uint8,
+                    device=self.device)
+                self._fast_row_host = torch.empty(
+                    (1, *IMAGE_SHAPE), dtype=torch.uint8,
+                    pin_memory=self._pin)
+            row = np.zeros((1, *IMAGE_SHAPE), np.uint8)
+            out = self._fast_out_take(b)
+            samples = []
+            try:
+                for i in range(4):
+                    t0 = time.perf_counter()
+                    with torch.inference_mode():
+                        done = self._launch(self._stage_row(row), out)
+                    if done is not None:
+                        done.synchronize()
+                    if i:                 # the first call is not timed
+                        samples.append(time.perf_counter() - t0)
+            finally:
+                self._fast_out_put(b, out)
+            self._fast_row_cost = statistics.median(samples)
+            self._fast_row_ok = (self._fast_row_cost
+                                 <= costs.get(b, float("inf")))
+        if not self._fast_row_ok:
+            log.info("fast lane: row-staged b%d route off on this host "
+                     "(%.3f ms against pooled %.3f ms); exact fit and the "
+                     "queue bypass still serve", b,
+                     self._fast_row_cost * 1e3,
+                     costs.get(b, float("nan")) * 1e3)
+
+    def fast_row_cost(self) -> Optional[float]:
+        """Median seconds of the row-staged route at warmup (None when
+        the ladder has no row route or before warmup)."""
+        return self._fast_row_cost
 
     def bucket_costs(self) -> dict[int, float]:
         """Median seconds per dispatch of each bucket (empty before

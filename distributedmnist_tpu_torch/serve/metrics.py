@@ -1,10 +1,16 @@
-"""Serving observability core: per-request latency percentiles, batch
+"""Serving observability: per-request latency percentiles, batch
 occupancy per bucket, queue depth, the staging/fetch pipeline split,
-requests/sec, the per-version populations (live and canary apart), the
-shadow comparisons and the deadline sheds — the ServeMetrics snapshot
-the selftest summary, the HTTP server's /metrics and its heartbeat lines
-carry (the core of the JAX package's serve/metrics.py, with its key
-names; its Prometheus exposition is not ported yet, ROADMAP §1 item 6).
+requests/sec, the per-version and per-dtype populations, the shadow
+comparisons, the resilience counters (deadline sheds, bisection, breaker
+trips and rollbacks), the prediction cache's served populations, dedup
+and the fast lane's split — the ServeMetrics snapshot the selftest
+summary, the HTTP server's /metrics and its heartbeat lines carry (the
+port of the JAX package's serve/metrics.py, with its key names) — and
+prometheus_exposition, the same snapshot as Prometheus text.
+
+The JAX snapshot's blocks of layers the port has not got yet
+(`by_replica`, `fleet`, `by_tenant`, `by_model`, `cascade`, `autoscale`)
+and their Prometheus families come with those layers.
 
 Occupancy is rows served per bucket slot executed: low occupancy says
 the coalescing wait is too short or the traffic too bursty for the
@@ -71,6 +77,27 @@ class ServeMetrics:
             self._shadow_dropped = 0
             self._deadline_shed_requests = 0
             self._deadline_shed_rows = 0
+            # bisection: splits, isolated culprits, rescued cohort-mates;
+            # the breaker's trips and the rollbacks they caused
+            self._bisect_splits = 0
+            self._poison_isolated_requests = 0
+            self._poison_isolated_rows = 0
+            self._bisect_rescued_requests = 0
+            self._bisect_rescued_rows = 0
+            self._breaker_trips = 0
+            self._breaker_trips_by_version: dict[str, int] = {}
+            self._rollbacks = 0
+            self._last_rollback = None       # {"from", "to", "at"}
+            # requests the cache front served without the pipeline
+            # (hits and collapsed followers), dedup riders, and the fast
+            # lane's split; each also feeds the global populations
+            self._cache_hit_requests = 0
+            self._cache_hit_rows = 0
+            self._cache_collapsed_requests = 0
+            self._dedup_requests = 0
+            self._dedup_rows = 0
+            self._fastpath_dispatches = 0
+            self._fastpath_rows = 0
 
     # -- recording hooks (called by the batcher) ---------------------------
 
@@ -91,6 +118,46 @@ class ServeMetrics:
                 v["requests"] += 1
                 v["rows"] += rows
                 v["lat"].append(seconds)
+
+    def record_cache_hit(self, seconds: float, rows: int = 1,
+                         version: str = None, infer_dtype: str = None,
+                         collapsed: bool = False) -> None:
+        """One request served by the cache front: a hit, or a
+        single-flight follower resolved from its leader's bytes
+        (collapsed=True). It records the populations a computed response
+        records (global, per-version, per-dtype rows)."""
+        with self._lock:
+            self._lat_s.append(seconds)
+            self._requests += 1
+            self._rows += rows
+            if collapsed:
+                self._cache_collapsed_requests += 1
+            else:
+                self._cache_hit_requests += 1
+            self._cache_hit_rows += rows
+            if version is not None:
+                v = self._version_stats(version)
+                v["requests"] += 1
+                v["rows"] += rows
+                v["lat"].append(seconds)
+            if infer_dtype is not None:
+                s = self._by_dtype.setdefault(infer_dtype,
+                                              {"batches": 0, "rows": 0})
+                s["rows"] += rows
+
+    def record_fastpath(self, rows: int = 1) -> None:
+        """One request served through the fast lane (its latency, batch
+        and version land through the usual hooks; this is the lane
+        split)."""
+        with self._lock:
+            self._fastpath_dispatches += 1
+            self._fastpath_rows += rows
+
+    def record_dedup(self, requests: int, rows: int) -> None:
+        """Intra-batch dedup riders: `rows` the device did not run."""
+        with self._lock:
+            self._dedup_requests += requests
+            self._dedup_rows += rows
 
     def record_dispatch(self, staging_seconds: float,
                         inflight: int = 1) -> None:
@@ -172,13 +239,47 @@ class ServeMetrics:
             self._deadline_shed_requests += 1
             self._deadline_shed_rows += rows
 
+    def record_bisect_split(self) -> None:
+        """One failed segment split in two for retry."""
+        with self._lock:
+            self._bisect_splits += 1
+
+    def record_poison_isolated(self, rows: int = 1) -> None:
+        """One culprit isolated to its singleton dispatch, failed alone."""
+        with self._lock:
+            self._poison_isolated_requests += 1
+            self._poison_isolated_rows += rows
+
+    def record_bisect_rescued(self, requests: int, rows: int) -> None:
+        """One sub-segment of a bisected batch dispatched clean."""
+        with self._lock:
+            self._bisect_rescued_requests += requests
+            self._bisect_rescued_rows += rows
+
     def record_dispatch_error(self, requests: int) -> None:
+        """A whole segment failed at dispatch without isolation."""
         with self._lock:
             self._dispatch_error_requests += requests
 
     def record_fetch_error(self, requests: int) -> None:
         with self._lock:
             self._fetch_error_requests += requests
+
+    def record_breaker_trip(self, version: str) -> None:
+        """One circuit-breaker trip, attributed to its version."""
+        with self._lock:
+            self._breaker_trips += 1
+            if version is not None:
+                self._breaker_trips_by_version[version] = (
+                    self._breaker_trips_by_version.get(version, 0) + 1)
+
+    def record_rollback(self, from_version: str, to_version: str) -> None:
+        """The breaker's trip demoted `from_version` and promoted
+        `to_version`. "at" is wall clock, for display only."""
+        with self._lock:
+            self._rollbacks += 1
+            self._last_rollback = {"from": from_version, "to": to_version,
+                                   "at": round(time.time(), 3)}
 
     # -- reporting ---------------------------------------------------------
 
@@ -217,6 +318,25 @@ class ServeMetrics:
                 "shadow_dropped": self._shadow_dropped,
                 "deadline_shed_requests": self._deadline_shed_requests,
                 "deadline_shed_rows": self._deadline_shed_rows,
+                "bisect_splits": self._bisect_splits,
+                "poison_isolated_requests":
+                    self._poison_isolated_requests,
+                "poison_isolated_rows": self._poison_isolated_rows,
+                "bisect_rescued_requests": self._bisect_rescued_requests,
+                "bisect_rescued_rows": self._bisect_rescued_rows,
+                "breaker_trips": self._breaker_trips,
+                "breaker_trips_by_version":
+                    dict(self._breaker_trips_by_version),
+                "rollbacks": self._rollbacks,
+                "last_rollback": self._last_rollback,
+                "cache_hit_requests": self._cache_hit_requests,
+                "cache_hit_rows": self._cache_hit_rows,
+                "cache_collapsed_requests":
+                    self._cache_collapsed_requests,
+                "dedup_requests": self._dedup_requests,
+                "dedup_rows": self._dedup_rows,
+                "fastpath_dispatches": self._fastpath_dispatches,
+                "fastpath_rows": self._fastpath_rows,
             }
         return {
             "window_s": round(elapsed, 3),
@@ -269,13 +389,38 @@ class ServeMetrics:
             "shadow_errors": c["shadow_errors"],
             "shadow_dropped": c["shadow_dropped"],
             "by_dtype": {d: s for d, s in sorted(by_dtype.items())},
-            # the JAX snapshot's block, with the counters the port has
-            # (bisection and the breaker are ROADMAP §1 item 6)
+            "cache_served": {
+                "hit_requests": c["cache_hit_requests"],
+                "hit_rows": c["cache_hit_rows"],
+                "collapsed_requests": c["cache_collapsed_requests"],
+            },
+            "dedup": {"requests": c["dedup_requests"],
+                      "rows": c["dedup_rows"]},
+            # lane_fraction near 1 at low load and near 0 under sustained
+            # traffic is the designed shape
+            "fastpath": {
+                "dispatches": c["fastpath_dispatches"],
+                "rows": c["fastpath_rows"],
+                "lane_fraction": (
+                    round(c["fastpath_dispatches"] / c["requests"], 4)
+                    if c["requests"] else None),
+            },
             "resilience": {
                 "deadline_shed_requests": c["deadline_shed_requests"],
                 "deadline_shed_rows": c["deadline_shed_rows"],
+                "bisect_splits": c["bisect_splits"],
+                "poison_isolated_requests":
+                    c["poison_isolated_requests"],
+                "poison_isolated_rows": c["poison_isolated_rows"],
+                "bisect_rescued_requests": c["bisect_rescued_requests"],
+                "bisect_rescued_rows": c["bisect_rescued_rows"],
                 "dispatch_error_requests": c["dispatch_error_requests"],
                 "fetch_error_requests": c["fetch_error_requests"],
+                "breaker_trips": c["breaker_trips"],
+                "breaker_trips_by_version":
+                    c["breaker_trips_by_version"],
+                "rollbacks": c["rollbacks"],
+                "last_rollback": c["last_rollback"],
             },
         }
 
@@ -286,3 +431,267 @@ class ServeMetrics:
 
     def heartbeat_line(self) -> str:
         return MetricsLogger.summary_line(self.record())
+
+
+# -- Prometheus text exposition ---------------------------------------------
+
+# The p-keys utils.percentiles emits, as Prometheus quantile labels.
+_PROM_QUANTILES = {"p50": "0.5", "p95": "0.95", "p99": "0.99"}
+
+# One-line # HELP text per family, the JAX package's; a name absent here
+# falls back to a generated line, so no family ships without HELP.
+_PROM_HELP = {
+    "dmnist_serve_requests_total":
+        "Requests served (computed fan-outs plus cache hits).",
+    "dmnist_serve_rows_total": "Image rows served.",
+    "dmnist_serve_batches_total": "Engine batches fetched.",
+    "dmnist_serve_rejected_requests_total":
+        "Requests shed at the queue watermark (503).",
+    "dmnist_serve_rejected_rows_total":
+        "Rows shed at the queue watermark.",
+    "dmnist_serve_dispatched_rows_total":
+        "Bucket slots executed on the device (incl. padding).",
+    "dmnist_serve_padded_rows_total":
+        "Executed bucket slots that were padding, not real rows.",
+    "dmnist_serve_requests_per_second":
+        "Request rate over the current metrics window.",
+    "dmnist_serve_rows_per_second":
+        "Row rate over the current metrics window.",
+    "dmnist_serve_padding_waste_ratio":
+        "Fraction of executed slots burned on padding.",
+    "dmnist_serve_inflight_max":
+        "Max dispatched-but-unfetched pipeline depth observed.",
+    "dmnist_serve_queue_depth_max":
+        "Max pending-row queue depth observed at batch record time.",
+    "dmnist_serve_latency_ms":
+        "End-to-end request latency quantiles, milliseconds.",
+    "dmnist_serve_staging_ms":
+        "Host staging (pad + device_put + enqueue) quantiles, ms.",
+    "dmnist_serve_fetch_ms":
+        "Blocking device-to-host fetch quantiles, milliseconds.",
+    "dmnist_serve_bucket_dispatches_total":
+        "Batches dispatched per compile bucket.",
+    "dmnist_serve_version_requests_total":
+        "Requests served per model version (canary separability).",
+    "dmnist_serve_dtype_batches_total":
+        "Batches computed per serving precision.",
+    "dmnist_serve_shadow_errors_total":
+        "Shadow-candidate dispatch/fetch failures (swallowed).",
+    "dmnist_serve_deadline_shed_requests_total":
+        "Requests shed before dispatch on an expired deadline (504).",
+    "dmnist_serve_bisect_splits_total":
+        "Failed segments split in half for poison isolation.",
+    "dmnist_serve_poison_isolated_requests_total":
+        "Culprit requests isolated to a singleton dispatch.",
+    "dmnist_serve_bisect_rescued_requests_total":
+        "Cohort-mates that re-dispatched clean after a split.",
+    "dmnist_serve_dispatch_error_requests_total":
+        "Requests failed at dispatch without isolation.",
+    "dmnist_serve_fetch_error_requests_total":
+        "Requests failed by a batch fetch error.",
+    "dmnist_serve_breaker_trips_total": "Circuit-breaker trips.",
+    "dmnist_serve_breaker_version_trips_total":
+        "Circuit-breaker trips attributed per model version.",
+    "dmnist_serve_rollbacks_total":
+        "Completed automatic rollbacks to a healthy resident.",
+    "dmnist_serve_stage_duration_ms":
+        "Per-stage request durations derived from trace spans, ms.",
+    "dmnist_serve_pending_rows": "Rows pending in the batcher queue.",
+    "dmnist_serve_inflight_batches":
+        "Dispatch segments popped but not yet fully resolved.",
+    "dmnist_serve_cache_hits_total":
+        "Prediction-cache lookups served from a cached response.",
+    "dmnist_serve_cache_hit_rows_total":
+        "Rows served straight from the prediction cache.",
+    "dmnist_serve_cache_misses_total":
+        "Prediction-cache lookups that missed.",
+    "dmnist_serve_cache_collapsed_total":
+        "Identical concurrent misses collapsed onto one in-flight "
+        "computation (single-flight followers).",
+    "dmnist_serve_cache_inserts_total":
+        "Computed responses inserted into the prediction cache.",
+    "dmnist_serve_cache_evictions_total":
+        "LRU evictions past the prediction-cache capacity.",
+    "dmnist_serve_cache_invalidations_total":
+        "Whole-cache invalidations (promote/rollback/dtype swap).",
+    "dmnist_serve_cache_stale_drops_total":
+        "Inserts or reads refused because the computing version no "
+        "longer matched the live route.",
+    "dmnist_serve_cache_hit_ratio":
+        "Hits over lookups since process start (None until traffic).",
+    "dmnist_serve_cache_entries": "Live prediction-cache entries.",
+    "dmnist_serve_cache_inflight_keys":
+        "Single-flight computations currently in flight.",
+    "dmnist_serve_dedup_requests_total":
+        "Intra-batch dedup riders resolved from a representative's "
+        "dispatch.",
+    "dmnist_serve_dedup_rows_total":
+        "Device rows the intra-batch dedup did not dispatch.",
+    "dmnist_serve_fastpath_dispatches_total":
+        "Requests served through the single-request bypass lane "
+        "(dispatched on the caller's thread, no coalesce wait).",
+    "dmnist_serve_fastpath_rows_total":
+        "Rows served through the bypass lane.",
+    "dmnist_serve_fastpath_lane_fraction":
+        "Fraction of served requests that took the bypass lane.",
+    "dmnist_serve_cache_expired_total":
+        "Cache entries that aged past the TTL (expired hits count "
+        "as misses).",
+}
+
+
+def _prom_help(name: str) -> str:
+    return _PROM_HELP.get(
+        name, name.removeprefix("dmnist_serve_").replace("_", " ") + ".")
+
+
+def _prom_escape(value: str) -> str:
+    return (str(value).replace("\\", r"\\").replace('"', r'\"')
+            .replace("\n", r"\n"))
+
+
+def _prom_line(name: str, labels: dict, value) -> str:
+    if labels:
+        body = ",".join(f'{k}="{_prom_escape(v)}"'
+                        for k, v in sorted(labels.items()))
+        return f"{name}{{{body}}} {value}"
+    return f"{name} {value}"
+
+
+def prometheus_exposition(snapshot: dict, trace_stages: dict = None,
+                          gauges: dict = None, cache: dict = None) -> str:
+    """A ServeMetrics snapshot() as Prometheus text (`GET
+    /metrics?format=prometheus`, or a text/plain Accept): counters,
+    gauges and summaries with `# HELP` and `# TYPE` lines, the JAX
+    package's family names. `trace_stages` (Tracer.snapshot()["stages"])
+    adds the per-stage duration histograms, `gauges` point-in-time
+    pipeline gauges, `cache` (PredictionCache.stats()) the cache's
+    counters. None-valued samples are skipped, never emitted as 0."""
+    out: list[str] = []
+
+    def emit(name: str, mtype: str, samples) -> None:
+        rows = [(labels, v) for labels, v in samples if v is not None]
+        if not rows:
+            return
+        out.append(f"# HELP {name} {_prom_help(name)}")
+        out.append(f"# TYPE {name} {mtype}")
+        for labels, v in rows:
+            out.append(_prom_line(name, labels, v))
+
+    def summary(name: str, pct: dict, count=None) -> None:
+        rows = [({"quantile": q}, pct.get(p))
+                for p, q in _PROM_QUANTILES.items()]
+        if all(v is None for _, v in rows):
+            return
+        emit(name, "summary", rows)
+        if count is not None:
+            out.append(_prom_line(name + "_count", {}, count))
+
+    s = snapshot
+    res = s.get("resilience", {})
+    for name, mtype, key in (
+            ("dmnist_serve_requests_total", "counter", "requests"),
+            ("dmnist_serve_rows_total", "counter", "rows"),
+            ("dmnist_serve_batches_total", "counter", "batches"),
+            ("dmnist_serve_rejected_requests_total", "counter",
+             "rejected_requests"),
+            ("dmnist_serve_rejected_rows_total", "counter",
+             "rejected_rows"),
+            ("dmnist_serve_dispatched_rows_total", "counter",
+             "dispatched_rows"),
+            ("dmnist_serve_padded_rows_total", "counter", "padded_rows"),
+            ("dmnist_serve_requests_per_second", "gauge",
+             "requests_per_sec"),
+            ("dmnist_serve_rows_per_second", "gauge", "rows_per_sec"),
+            ("dmnist_serve_padding_waste_ratio", "gauge",
+             "padding_waste_ratio"),
+            ("dmnist_serve_inflight_max", "gauge", "inflight_max"),
+            ("dmnist_serve_queue_depth_max", "gauge", "queue_depth_max")):
+        emit(name, mtype, [({}, s.get(key))])
+    summary("dmnist_serve_latency_ms", s.get("latency_ms", {}),
+            count=s.get("requests"))
+    summary("dmnist_serve_staging_ms", s.get("staging_ms", {}))
+    summary("dmnist_serve_fetch_ms", s.get("fetch_ms", {}))
+    emit("dmnist_serve_bucket_dispatches_total", "counter",
+         [({"bucket": b}, n)
+          for b, n in s.get("bucket_dispatches", {}).items()])
+    emit("dmnist_serve_version_requests_total", "counter",
+         [({"version": v}, vs.get("requests"))
+          for v, vs in s.get("by_version", {}).items()])
+    emit("dmnist_serve_dtype_batches_total", "counter",
+         [({"dtype": d}, ds.get("batches"))
+          for d, ds in s.get("by_dtype", {}).items()])
+    emit("dmnist_serve_shadow_errors_total", "counter",
+         [({}, s.get("shadow_errors"))])
+    for name, key in (
+            ("dmnist_serve_deadline_shed_requests_total",
+             "deadline_shed_requests"),
+            ("dmnist_serve_bisect_splits_total", "bisect_splits"),
+            ("dmnist_serve_poison_isolated_requests_total",
+             "poison_isolated_requests"),
+            ("dmnist_serve_bisect_rescued_requests_total",
+             "bisect_rescued_requests"),
+            ("dmnist_serve_dispatch_error_requests_total",
+             "dispatch_error_requests"),
+            ("dmnist_serve_fetch_error_requests_total",
+             "fetch_error_requests"),
+            ("dmnist_serve_breaker_trips_total", "breaker_trips")):
+        emit(name, "counter", [({}, res.get(key))])
+    emit("dmnist_serve_breaker_version_trips_total", "counter",
+         [({"version": v}, n) for v, n in
+          res.get("breaker_trips_by_version", {}).items()])
+    emit("dmnist_serve_rollbacks_total", "counter",
+         [({}, res.get("rollbacks"))])
+    dd = s.get("dedup", {})
+    emit("dmnist_serve_dedup_requests_total", "counter",
+         [({}, dd.get("requests"))])
+    emit("dmnist_serve_dedup_rows_total", "counter", [({}, dd.get("rows"))])
+    fp = s.get("fastpath", {})
+    emit("dmnist_serve_fastpath_dispatches_total", "counter",
+         [({}, fp.get("dispatches"))])
+    emit("dmnist_serve_fastpath_rows_total", "counter",
+         [({}, fp.get("rows"))])
+    emit("dmnist_serve_fastpath_lane_fraction", "gauge",
+         [({}, fp.get("lane_fraction"))])
+    if cache:
+        for name, mtype, key in (
+                ("dmnist_serve_cache_hits_total", "counter", "hits"),
+                ("dmnist_serve_cache_hit_rows_total", "counter",
+                 "hit_rows"),
+                ("dmnist_serve_cache_misses_total", "counter", "misses"),
+                ("dmnist_serve_cache_collapsed_total", "counter",
+                 "collapsed"),
+                ("dmnist_serve_cache_inserts_total", "counter",
+                 "inserts"),
+                ("dmnist_serve_cache_evictions_total", "counter",
+                 "evictions"),
+                ("dmnist_serve_cache_invalidations_total", "counter",
+                 "invalidations"),
+                ("dmnist_serve_cache_stale_drops_total", "counter",
+                 "stale_drops"),
+                ("dmnist_serve_cache_expired_total", "counter",
+                 "expired"),
+                ("dmnist_serve_cache_entries", "gauge", "entries"),
+                ("dmnist_serve_cache_inflight_keys", "gauge",
+                 "inflight_keys"),
+                ("dmnist_serve_cache_hit_ratio", "gauge", "hit_ratio")):
+            emit(name, mtype, [({}, cache.get(key))])
+    for name, value in (gauges or {}).items():
+        emit(f"dmnist_serve_{name}", "gauge", [({}, value)])
+    # per-stage histograms from the trace spans, cumulative buckets per
+    # the Prometheus histogram contract
+    if trace_stages:
+        name = "dmnist_serve_stage_duration_ms"
+        out.append(f"# HELP {name} {_prom_help(name)}")
+        out.append(f"# TYPE {name} histogram")
+        for stage, h in sorted(trace_stages.items()):
+            cum = 0
+            for le, count in h["buckets"].items():
+                cum += count
+                out.append(_prom_line(name + "_bucket",
+                                      {"stage": stage, "le": le}, cum))
+            out.append(_prom_line(name + "_sum", {"stage": stage},
+                                  h["sum_ms"]))
+            out.append(_prom_line(name + "_count", {"stage": stage},
+                                  h["count"]))
+    return "\n".join(out) + "\n"

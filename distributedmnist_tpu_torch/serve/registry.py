@@ -19,9 +19,14 @@ fraction of traffic for real, or shadow a fraction of live traffic
 (compared and dropped); versions holding any route are never evicted,
 and add() refuses a newcomer up front when every resident version holds
 one. All versions share one EngineFactory — model, device, bucket
-ladder — so a swap never changes the shapes the kernels run at. Not
-ported yet: replicas, the prediction cache and the cascade (ROADMAP §1
-item 6).
+ladder — so a swap never changes the shapes the kernels run at.
+
+set_cache() installs the prediction cache (serve/cache.py), which every
+live-route change invalidates under the state lock, atomically with the
+swap: promote, rollback, dtype activation and a re-gate's demotion. The
+failpoints `registry.restore`, `registry.warmup` and `registry.variant`
+(serve/faults.py) drive the failed-version bookkeeping on demand. Not
+ported yet: replicas and the cascade (ROADMAP §1 item 6).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from distributedmnist_tpu_torch import checkpoint
 from distributedmnist_tpu_torch.analysis.locks import make_lock, make_rlock
 from distributedmnist_tpu_torch.serve.engine import (InferenceEngine,
                                                      make_buckets)
+from distributedmnist_tpu_torch.serve.faults import failpoint
 from distributedmnist_tpu_torch.serve.quantize import (  # noqa: F401
     PARITY_ROWS, PARITY_SEED, variant_supported)
 from distributedmnist_tpu_torch.serve.router import Router
@@ -187,6 +193,23 @@ class ModelRegistry:
         # rollbacks, failed rollbacks and variant demotions, oldest first
         # (bounded)
         self._events: deque = deque(maxlen=64)
+        # the prediction cache every live-route change invalidates
+        self._cache = None
+
+    def set_cache(self, cache) -> None:
+        """Install the prediction cache to invalidate on every live-route
+        change (any object with `invalidate(reason=)`; None removes
+        it)."""
+        self._cache = cache
+
+    def _set_live(self, engine, version: str) -> None:
+        """The one live-route swap, with the cache's invalidation: cached
+        bytes are keyed by the live route, so the flush reclaims entries
+        the new route can no longer reach and bumps the epoch that drops
+        in-flight inserts which raced the swap."""
+        self.router.set_live(engine, version)
+        if self._cache is not None:
+            self._cache.invalidate(reason=f"live -> {version}")
 
     def _warm(self, engine: InferenceEngine, what: str) -> int:
         """Warm `engine`, then prove it warm: a second warmup must
@@ -236,6 +259,7 @@ class ModelRegistry:
                 self._versions[version] = mv
             try:
                 t0 = time.perf_counter()
+                failpoint("registry.warmup", version=version)
                 engine = self.factory.make_engine(params, version)
                 mv.warmup_builds = self._warm(engine, f"version {version!r}")
                 mv.engine = engine
@@ -299,6 +323,8 @@ class ModelRegistry:
             # the listing and the restore must not come in under this
             # step's version name.
             try:
+                failpoint("registry.restore", directory=directory,
+                          step=step)
                 params, step = checkpoint.restore_latest_params(
                     directory, self.factory.abstract_params(), step=step)
             except Exception as e:
@@ -391,6 +417,8 @@ class ModelRegistry:
                 return self._regate(mv, existing, gate_agree, gate_rel)
             try:
                 t0 = time.perf_counter()
+                failpoint("registry.variant", version=version,
+                          dtype=infer_dtype)
                 engine = self.factory.make_engine(
                     mv.engine.params, version, infer_dtype=infer_dtype)
                 vi.warmup_builds = self._warm(
@@ -438,8 +466,8 @@ class ModelRegistry:
                          f"{mv.version!r}: {vi.parity['why']}")
         if (self.router.live_version() == mv.version
                 and self.router.live_infer_dtype() == dt):
-            self.router.set_live(mv.engine, mv.version)
             with self._state:
+                self._set_live(mv.engine, mv.version)
                 # "at" is wall clock, for display only
                 self._events.append({
                     "event": "variant_demoted", "version": mv.version,
@@ -537,7 +565,7 @@ class ModelRegistry:
                         "variant may take traffic")
                 engine = vi.engine
             prev = self.router.live_version()
-            self.router.set_live(engine, version)
+            self._set_live(engine, version)
             mv.state = "live"
             if prev is not None and prev != version:
                 old = self._versions.get(prev)
@@ -576,7 +604,7 @@ class ModelRegistry:
                           reason)
                 return None
             target = max(candidates, key=lambda mv: mv.loaded_mono)
-            self.router.set_live(target.engine, target.version)
+            self._set_live(target.engine, target.version)
             target.state = "live"
             old = self._versions.get(from_version)
             if old is not None:

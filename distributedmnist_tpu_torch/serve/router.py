@@ -25,8 +25,15 @@ resolves which engine serves each batch at dispatch time:
 The two draws of each dispatch (route, then shadow) come from a seeded
 random.Random under the routes lock, in the JAX router's order, so
 sampling is reproducible. Every engine the router takes shares its
-bucket ladder and max_batch. Not ported: the pinned infer_dtype route
-(the cascade's, ROADMAP §1 item 6).
+bucket ladder and max_batch.
+
+dispatch_fast() is the fast lane's routed dispatch: the live engine's
+resident route, or None when canary/shadow roles are set (those
+populations are defined over coalesced dispatches) or the engine declines.
+The shadow duplicate crosses the `router.shadow` failpoint and span.
+Handles carry the version (the breaker and metrics read it) and a
+replica tag (None until the fleet lands). Not ported: the pinned
+infer_dtype route (the cascade's, ROADMAP §1 item 6).
 """
 
 from __future__ import annotations
@@ -42,7 +49,9 @@ import numpy as np
 
 from distributedmnist_tpu_torch.analysis.locks import (make_fifo, make_lock,
                                                        make_thread)
+from distributedmnist_tpu_torch.serve import trace
 from distributedmnist_tpu_torch.serve.engine import InferenceEngine
+from distributedmnist_tpu_torch.serve.faults import failpoint
 
 log = logging.getLogger("distributedmnist_tpu_torch")
 
@@ -75,6 +84,8 @@ class RoutedHandle:
     shadow_engine: Any = None
     shadow_version: Optional[str] = None
     infer_dtype: Optional[str] = None
+    # the fleet replica that computed the batch (None: one replica)
+    replica: Optional[str] = None
 
 
 class Router:
@@ -167,6 +178,16 @@ class Router:
             live = self._live
         return getattr(live.engine, "infer_dtype", None) if live else None
 
+    def live_route(self) -> tuple:
+        """(live version, live infer_dtype) under ONE lock crossing: the
+        prediction cache's key basis (two separate reads could straddle
+        a promote and key a pair that was never live together)."""
+        with self._lock:
+            live = self._live
+        if live is None:
+            return (None, None)
+        return (live.version, getattr(live.engine, "infer_dtype", None))
+
     def routes(self) -> dict:
         """The routing table (GET /models, promote's answer)."""
         with self._lock:
@@ -226,19 +247,49 @@ class Router:
                 if self.metrics is not None:
                     self.metrics.record_shadow_drop()
                 return rh
+            sp = trace.begin_span("router.shadow", version=shadow.version)
             try:
+                # an injected shadow fault is swallowed and counted like
+                # a real broken candidate
+                failpoint("router.shadow", version=shadow.version)
                 rh.shadow_handle = shadow.engine.dispatch(x)
                 rh.shadow_engine = shadow.engine
                 rh.shadow_version = shadow.version
-            except Exception:
+            except Exception as se:
                 # a broken candidate never takes live traffic down
                 log.exception("shadow dispatch to %s failed",
                               shadow.version)
+                trace.end_span(sp, error=type(se).__name__)
                 with self._shadow_pending_lock:
                     self._shadow_pending -= 1
                 if self.metrics is not None:
                     self.metrics.record_shadow_error()
+            finally:
+                trace.end_span(sp)
         return rh
+
+    def dispatch_fast(self, x) -> Optional[RoutedHandle]:
+        """The fast lane's routed dispatch: the live engine's resident
+        route, or None when the full dispatch() semantics are needed (a
+        canary or shadow role is set, or the engine declines). NoLiveModel
+        still raises: warming is a 503, not a fallback."""
+        with self._lock:
+            live, canary, shadow = self._live, self._canary, self._shadow
+        if live is None:
+            raise NoLiveModel(
+                "no warmed model version is live (server warming?)")
+        if canary is not None or shadow is not None:
+            return None
+        fast = getattr(live.engine, "dispatch_fast", None)
+        if not callable(fast):
+            return None
+        h = fast(x)
+        if h is None:
+            return None
+        return RoutedHandle(handle=h, engine=live.engine,
+                            version=live.version, n=h.n, bucket=h.bucket,
+                            infer_dtype=getattr(live.engine, "infer_dtype",
+                                                None))
 
     def fetch(self, rh: RoutedHandle) -> np.ndarray:
         try:

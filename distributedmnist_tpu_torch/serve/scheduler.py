@@ -14,6 +14,7 @@ threads of its own).
   window of comfortably-under-SLO requests, never above the configured
   max_wait; plus an arrival-rate EWMA that caps the wait at the time the
   current rate needs to fill max_batch rows.
+- **fastlane_eligible** — the fast lane's admission rule.
 """
 
 from __future__ import annotations
@@ -119,6 +120,16 @@ def plan_segments(sizes: Sequence[int], buckets: Sequence[int],
     return [b - a for a, b in zip(cuts, cuts[1:])]
 
 
+def fastlane_eligible(enabled: bool, pending_rows: int) -> bool:
+    """The fast lane's admission rule: a submit may skip the coalescing
+    path only when the lane is on AND the queue is EMPTY (a non-empty
+    queue is traffic worth coalescing with, and jumping it would reorder
+    FIFO service). The other half of the decision, a free in-flight slot,
+    is a semaphore try-acquire the batcher makes under the same queue
+    lock."""
+    return enabled and pending_rows == 0
+
+
 class AdaptiveController:
     """AIMD effective-wait controller + arrival-rate EWMA (thread-safe).
 
@@ -153,14 +164,20 @@ class AdaptiveController:
         self._win_max = 0.0
         self._violations = 0
         self._increases = 0
+        self._fastpath = 0                # fast-lane dispatches seen
 
-    def on_arrival(self, rows: int = 1,
-                   now: Optional[float] = None) -> None:
+    def on_arrival(self, rows: int = 1, now: Optional[float] = None,
+                   coalesced: bool = True) -> None:
         """One accepted request of `rows` rows; feeds the arrival-rate
-        EWMA (irregular-interval exponential decay, tau=rate_tau_s)."""
+        EWMA (irregular-interval exponential decay, tau=rate_tau_s).
+        `coalesced=False` marks a fast-lane request: counted, but kept
+        out of the EWMA, which prices how fast the QUEUE fills."""
         if now is None:
             now = time.monotonic()
         with self._lock:
+            if not coalesced:
+                self._fastpath += 1
+                return
             if self._t_last is None:
                 self._t_last = now
                 return
@@ -211,4 +228,5 @@ class AdaptiveController:
                 "arrival_rate_rows_per_sec": round(self._rate, 1),
                 "violations": self._violations,
                 "increases": self._increases,
+                "fastpath_dispatches": self._fastpath,
             }

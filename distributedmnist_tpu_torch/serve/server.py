@@ -23,7 +23,18 @@ the root serve.py's ServerState, shed_retry_after_s and _http_serve):
     POST /models/promote   {"version", "mode"?: live|canary|shadow,
                            "fraction"?, "infer_dtype"? (live only)}
     GET  /metrics          the ServeMetrics record plus the queue gauges,
-                           the adaptive controller and compiles_total
+                           the adaptive controller, the cache's counters,
+                           the breaker's windows (`resilience_policy`),
+                           the tracer's counters and histograms, and
+                           compiles_total; ?format=prometheus (or a
+                           text/plain Accept) answers the same as
+                           Prometheus text
+    GET  /trace            (--serve-trace) the retained request traces as
+                           Chrome trace-event JSON; 409 without a tracer.
+                           With one, every /predict response carries
+                           X-Trace-Id, and a request sent with
+                           `X-Server-Timing: 1` gets a Server-Timing
+                           stage breakdown
 
 SIGHUP loads the latest checkpoint of --checkpoint-dir and puts it live
 at the configured --serve-infer-dtype, as at boot; SIGTERM/SIGINT
@@ -33,13 +44,15 @@ first version on a thread (a failure leaves the server up and /healthz
 503 "failed") and writes a serve_stats heartbeat line every
 --metrics-every seconds.
 
+/predict submits through the prediction cache's front when one is given
+(--serve-cache): a hit comes back resolved, version-tagged and metered.
+
 Routes whose layer the JAX server refuses on this configuration answer
-as it does: X-Accuracy-Class and X-Tenant (400), GET /trace, /tenants
-and POST /tenants/... (409), POST /replicas/... on one replica (409).
-Routes that need a layer the port has not got answer 501 naming it:
-?format=prometheus and POST /cluster/epoch (ROADMAP §1 item 6). Signal
-handlers are installed by the caller (serve/__main__.py), so tests can
-run a server in-process.
+as it does: X-Accuracy-Class and X-Tenant (400), GET /tenants and POST
+/tenants/... (409), POST /replicas/... on one replica (409). POST
+/cluster/epoch needs the gateway, which the port has not got: 501 naming
+it (ROADMAP §1 item 6). Signal handlers are installed by the caller
+(serve/__main__.py), so tests can run a server in-process.
 """
 
 from __future__ import annotations
@@ -59,7 +72,9 @@ import numpy as np
 
 from distributedmnist_tpu_torch.analysis.locks import make_lock, make_thread
 from distributedmnist_tpu_torch.ops import kernel_lib
+from distributedmnist_tpu_torch.serve import trace as trace_lib
 from distributedmnist_tpu_torch.serve.batcher import Rejected
+from distributedmnist_tpu_torch.serve.metrics import prometheus_exposition
 from distributedmnist_tpu_torch.serve.quantize import INFER_DTYPES
 from distributedmnist_tpu_torch.serve.resilience import DeadlineExceeded
 from distributedmnist_tpu_torch.serve.router import NoLiveModel
@@ -176,8 +191,13 @@ class HTTPServer:
     def __init__(self, batcher, metrics, registry, state: ServerState,
                  port: int = 0, request_timeout: float = 60.0,
                  retry_after_cap_s: float = 30.0,
-                 infer_dtype_choice: str = "float32"):
+                 infer_dtype_choice: str = "float32", front=None,
+                 cache=None):
         self.batcher = batcher
+        # the submit target: the cache front, or the batcher itself; the
+        # queue gauges always read the batcher
+        self.front = front if front is not None else batcher
+        self.cache = cache
         self.metrics = metrics
         self.registry = registry
         self.state = state
@@ -191,6 +211,19 @@ class HTTPServer:
         self.httpd = ThreadingHTTPServer(("127.0.0.1", port),
                                          _handler_class(self))
         self.port = self.httpd.server_address[1]
+
+    def prometheus_text(self) -> str:
+        """GET /metrics?format=prometheus: the metrics snapshot, the
+        trace stage histograms, the queue gauges and the cache's
+        counters as Prometheus text."""
+        tracer = trace_lib.active()
+        return prometheus_exposition(
+            self.metrics.snapshot(),
+            trace_stages=(tracer.snapshot()["stages"]
+                          if tracer is not None else None),
+            gauges={"pending_rows": self.batcher.pending_rows(),
+                    "inflight_batches": self.batcher.inflight_batches()},
+            cache=self.cache.stats() if self.cache is not None else None)
 
     def retry_after(self) -> dict:
         return {"Retry-After": str(
@@ -228,9 +261,12 @@ class HTTPServer:
         finally:
             stop.set()
             self.httpd.server_close()
-        return {"metric": "serve_summary", "port": self.port,
-                "live_version": self.registry.live_version(),
-                **self.metrics.snapshot()}
+        summary = {"metric": "serve_summary", "port": self.port,
+                   "live_version": self.registry.live_version(),
+                   **self.metrics.snapshot()}
+        if self.cache is not None:
+            summary["cache"] = self.cache.stats()
+        return summary
 
     def shutdown(self) -> None:
         """SIGTERM/SIGINT: healthz turns 503 while in-flight work ends;
@@ -265,8 +301,10 @@ class HTTPServer:
 
     def metrics_payload(self) -> dict:
         """GET /metrics: the metrics record plus the pipeline's gauges,
-        the adaptive controller's state and compiles_total; the JAX
-        server's blocks of layers that are off here are None."""
+        the adaptive controller's state, the cache's counters, the
+        breaker's windows, the tracer's snapshot and compiles_total; a
+        block is None when its layer is off, and the fleet's and
+        tenancy's are None until those layers land."""
         b = self.batcher
         payload = self.metrics.record()
         payload["queue"] = {
@@ -277,15 +315,22 @@ class HTTPServer:
         }
         payload["adaptive"] = (b.controller.snapshot()
                                if b.controller is not None else None)
-        for key in ("cache", "resilience_policy", "fleet", "trace",
-                    "tenancy"):
-            payload[key] = None
+        payload["cache"] = (self.cache.stats()
+                            if self.cache is not None else None)
+        payload["resilience_policy"] = (b.resilience.snapshot()
+                                        if b.resilience is not None
+                                        else None)
+        payload["fleet"] = None
+        tracer = trace_lib.active()
+        payload["trace"] = (tracer.snapshot() if tracer is not None
+                            else None)
+        payload["tenancy"] = None
         payload["compiles_total"] = compiles_total(self.registry.factory)
         return payload
 
 
 def _handler_class(server: HTTPServer):
-    registry, batcher = server.registry, server.batcher
+    registry, batcher, front = server.registry, server.batcher, server.front
     max_body = server.max_batch * IMAGE_BYTES
 
     class Handler(BaseHTTPRequestHandler):
@@ -306,6 +351,15 @@ def _handler_class(server: HTTPServer):
             self.send_header("Content-Length", str(len(body)))
             for k, v in (extra or {}).items():
                 self.send_header(k, v)
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _send_text(self, code: int, text: str) -> None:
+            body = text.encode()
+            self.send_response(code)
+            self.send_header("Content-Type",
+                             "text/plain; version=0.0.4; charset=utf-8")
+            self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)
 
@@ -344,16 +398,18 @@ def _handler_class(server: HTTPServer):
                 code, payload = server.state.healthz(registry, batcher)
                 self._send(code, payload)
             elif self.path == "/trace" or self.path.startswith("/trace?"):
-                self._send(409, {
-                    "error": "tracing is not enabled: the port has no "
-                             f"request tracer yet ({UNPORTED})"})
+                tracer = trace_lib.active()
+                if tracer is None:
+                    self._send(409, {
+                        "error": "tracing is not enabled; restart with "
+                                 "--serve-trace"})
+                else:
+                    # loads in chrome://tracing and Perfetto
+                    self._send(200, tracer.export_chrome())
             elif (self.path == "/metrics"
                   or self.path.startswith("/metrics?")):
                 if self._wants_prometheus():
-                    self._send(501, {
-                        "error": "the Prometheus exposition is not "
-                                 f"ported yet ({UNPORTED}); GET /metrics "
-                                 "serves JSON"})
+                    self._send_text(200, server.prometheus_text())
                 else:
                     self._send(200, server.metrics_payload())
             elif self.path == "/models":
@@ -573,8 +629,31 @@ def _handler_class(server: HTTPServer):
                 return
             raw = self.rfile.read(length)
             x = np.frombuffer(raw, np.uint8).reshape(-1, IMAGE_BYTES)
+            fut = None
+
+            def trace_headers() -> dict:
+                """X-Trace-Id on every response whose request entered
+                the pipeline, plus a Server-Timing stage breakdown when
+                the request asked for it (`X-Server-Timing: 1`): the
+                batcher finishes a trace before it resolves the
+                future, so the breakdown is there to read."""
+                tid = getattr(fut, "trace_id", None)
+                if tid is None:
+                    return {}
+                hdrs = {"X-Trace-Id": tid}
+                opt = (self.headers.get("X-Server-Timing") or "")
+                if opt.strip().lower() in ("1", "true", "yes", "on"):
+                    tracer = trace_lib.active()
+                    st = (tracer.server_timing(tid)
+                          if tracer is not None else None)
+                    if st:
+                        hdrs["Server-Timing"] = st
+                return hdrs
+
             try:
-                fut = batcher.submit(x, deadline_s=deadline_s)
+                # through the cache front when there is one: a hit comes
+                # back resolved, a collapsed miss shares its leader's
+                fut = front.submit(x, deadline_s=deadline_s)
                 # bounded: a wedged pipeline sheds its waiters instead of
                 # holding handler threads forever
                 logits = fut.result(timeout=(
@@ -586,28 +665,34 @@ def _handler_class(server: HTTPServer):
                 return
             except NoLiveModel:
                 self._send(503, {"error": "no warmed model is live yet"},
-                           extra=server.retry_after())
+                           extra={**server.retry_after(),
+                                  **trace_headers()})
                 return
             except DeadlineExceeded as e:
                 self._send(504, {"error": str(e)},
-                           extra=server.retry_after())
+                           extra={**server.retry_after(),
+                                  **trace_headers()})
                 return
             except concurrent.futures.TimeoutError:
                 if (deadline_s is not None
                         and time.monotonic() >= deadline_s):
                     self._send(504, {"error": "deadline expired while "
                                               "awaiting inference"},
-                               extra=server.retry_after())
+                               extra={**server.retry_after(),
+                                      **trace_headers()})
                 else:
                     self._send(504, {
                         "error": "inference timed out after "
-                                 f"{server.request_timeout:g}s"})
+                                 f"{server.request_timeout:g}s"},
+                        extra=trace_headers())
                 return
             except Exception as e:
-                self._send(500, {"error": f"{type(e).__name__}: {e}"})
+                self._send(500, {"error": f"{type(e).__name__}: {e}"},
+                           extra=trace_headers())
                 return
             self._send(200, {"classes": logits.argmax(-1).tolist(),
                              "n": int(x.shape[0]),
-                             "version": getattr(fut, "version", None)})
+                             "version": getattr(fut, "version", None)},
+                       extra=trace_headers())
 
     return Handler

@@ -6,9 +6,13 @@ one JSON line with the root bench's record keys (taken from the JAX
 package's committed records), in a fresh interpreter with no jax: the
 throughput, time-to-accuracy, serve, sweep and smoke modes, bfloat16
 throughput, and --data-dir on IDX files through the supervised worker;
-plus the guards: no card without --device cpu raises, an unported flag
-exits 2, a misplaced flag exits 2, and a supervised bench whose every
-attempt fails exits 1 with no CPU re-run.
+the serve mode's request-path legs (--lowlat, --zipf, --zipf-cache-off,
+--chaos, --chaos --serve-cache, --trace), each leg's keys those of the
+root bench's records (and of its code, for keys newer than its last
+committed record) and its bars computed alike; plus the guards: no card
+without --device cpu raises, an unported flag exits 2 naming its
+ROADMAP item, a misplaced flag exits 2, and a supervised bench whose
+every attempt fails exits 1 with no CPU re-run.
 
 Tolerances: losses rtol=1e-4 (Adam's update in another rounding order,
 as tests/test_torch_train.py holds lenet-adam's trajectory); schedules
@@ -41,9 +45,13 @@ from distributedmnist_tpu_torch.data import packing as tpacking
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the serve legs of the root bench that the port has not ported yet
 # (ROADMAP.md section 1 item 6); every other key of its record is carried
-UNPORTED_SERVE_KEYS = {"compile_surface", "zipf", "lowlat", "trace_replay",
-                       "swap", "chaos", "trace", "dtype_sweep", "cascade",
-                       "multimodel", "replicas"}
+UNPORTED_SERVE_KEYS = {"compile_surface", "trace_replay", "swap",
+                       "dtype_sweep", "cascade", "multimodel", "replicas"}
+# the root bench's records of each request-path leg
+LEG_RECORDS = {"lowlat": "BENCH_serve_r09.json",
+               "zipf": "BENCH_serve_r08.json",
+               "chaos": "BENCH_serve_r13.json",
+               "trace": "BENCH_serve_r07.json"}
 RECORD_KEYS = {"metric", "value", "unit", "vs_baseline", "detail"}
 
 
@@ -223,6 +231,99 @@ def test_serve_record():
     assert d["host"]["fused_kernels"] == "plain"
 
 
+def _leg_keys_are_the_root_benchs(leg: str, ours: dict) -> None:
+    """The leg's keys: every key of the root bench's committed record of
+    it, and keys newer than that record only where the root bench's code
+    writes them."""
+    with open(os.path.join(REPO, LEG_RECORDS[leg])) as f:
+        ref = set(json.load(f)["detail"][leg])
+    with open(os.path.join(REPO, "bench.py")) as f:
+        src = f.read()
+    assert ref <= set(ours), (leg, ref - set(ours))
+    for k in set(ours) - ref:
+        assert f'"{k}"' in src, (leg, k)
+
+
+SERVE_ARGS = ("serve", "--device", "cpu", "--model", "mlp",
+              "--serve-duration", "0.2", "--serve-qps", "50",
+              "--serve-clients", "2", "--serve-max-batch", "16")
+
+
+def test_serve_lowlat_zipf_trace_chaos_record():
+    """--lowlat --zipf --trace --chaos in one run: each leg with the root
+    bench's keys; the fast lane took every lone request and is attributed
+    (>= 0.95, the root bench's bar, held on the CPU), the megakernel
+    variant ran through the lane, the cache's bytes equal the computed
+    ones, the chaos ledger is exact with one trip and one rollback, and
+    nothing was built after warmup."""
+    rec, modules, err = _run(*SERVE_ARGS, "--lowlat", "--zipf", "--trace",
+                             "--chaos", timeout=600)
+    assert modules == []
+    d = rec["detail"]
+    assert set(d) == (_jax_detail_keys("BENCH_serve_r13.json")
+                      - UNPORTED_SERVE_KEYS)
+    for leg in LEG_RECORDS:
+        _leg_keys_are_the_root_benchs(leg, d[leg])
+    low = d["lowlat"]
+    assert low["fastpath_lane_fraction"] == 1.0
+    assert low["batched"]["fastpath"]["dispatches"] == 0
+    assert low["megakernel"]["fastpath"]["dispatches"] > 0
+    assert low["megakernel_parity"]["passed"] is True
+    assert low["attribution"]["ok"] and low["recompiles"] == 0
+    assert low["variant_warmup_compile_events"] >= 1
+    z = d["zipf"]
+    assert z["cache_enabled"] and z["parity_ok"] and z["parity_probes"] == 8
+    assert z["hit_ratio"] >= 0.5 and z["device_dispatch_lower"]
+    tr = d["trace"]
+    assert tr["open_spans_at_drain"] == 0 and tr["requests_traced"] > 0
+    assert tr["chaos"]["bisect_split_ok"] is True
+    assert tr["chaos"]["failover_rescue_ok"] is None
+    ch = d["chaos"]
+    assert ch["poison_isolated_exact"] and ch["other_failures"] == 0
+    assert ch["breaker_trips"] == 1 and ch["rollbacks"] == 1
+    assert ch["rollback_engaged"]
+    assert ch["live_version_after"] == "v-chaos-fallback"
+    assert ch["recompiles_during_chaos"] == 0
+    assert d["recompiles_after_warmup"] == 0
+    assert "cache" not in ch
+
+
+def test_serve_zipf_cache_off_and_chaos_through_the_cache():
+    """--zipf --zipf-cache-off runs only the control; --chaos
+    --serve-cache runs the drill through the cache front, its ledger
+    exact on a leader basis."""
+    rec, _, _ = _run(*SERVE_ARGS, "--zipf", "--zipf-cache-off", "--chaos",
+                     "--serve-cache", "--serve-cache-capacity", "64",
+                     timeout=600)
+    d = rec["detail"]
+    z = d["zipf"]
+    with open(os.path.join(REPO, LEG_RECORDS["zipf"])) as f:
+        assert set(z) < set(json.load(f)["detail"]["zipf"])
+    assert set(z) == {"distinct_keys", "zipf_s", "seed", "clients",
+                      "max_rows_per_request", "duration_s", "cache_enabled",
+                      "cache_capacity", "cache_off", "cache_on"}
+    assert z["cache_enabled"] is False and z["cache_on"] is None
+    assert z["cache_capacity"] is None and z["cache_off"]["requests"] > 0
+    ch = d["chaos"]
+    assert set(ch["cache"]) == {
+        "enabled", "capacity", "stats", "cache_hits_ok",
+        "poison_client_failures", "poison_follower_echoes",
+        "poison_leaders", "ledger_exact"}
+    assert ch["cache"]["capacity"] == 64 and ch["cache"]["ledger_exact"]
+    assert ch["cache"]["stats"]["invalidations"] >= 1   # the rollback
+    assert ch["breaker_trips"] == 1 and d["lowlat"] is None
+
+
+def test_chaos_fault_spec_equals_the_root_benchs():
+    from distributedmnist_tpu.serve.faults import parse_spec
+
+    root = _root_bench()
+    for live, kill in (("v1", None), ("step-5", "r1")):
+        assert tbench.chaos_fault_spec(live, kill) == \
+            root.chaos_fault_spec(live, kill)
+        parse_spec(tbench.chaos_fault_spec(live, kill))
+
+
 # -- guards -----------------------------------------------------------------------
 
 
@@ -238,9 +339,9 @@ def test_bench_raises_without_a_card(argv):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["serve", "--zipf"], "item 6"),
-    (["serve", "--lowlat"], "item 6"),
-    (["serve", "--chaos"], "item 6"),
+    (["serve", "--dtype-sweep"], "item 6"),
+    (["serve", "--cascade"], "item 6"),
+    (["serve", "--multimodel"], "item 6"),
     (["serve", "--trace-replay", "square:qps=10"], "item 6"),
     (["serve", "--gateway", "2"], "item 6"),
     (["serve", "--serve-replicas", "2"], "item 6"),
@@ -259,7 +360,11 @@ def test_unported_flag_exits_2(argv, item, capsys):
     ["serve", "--bench-steps", "4"],
     ["time-to-accuracy", "--repeats", "2"],
     ["throughput", "--trials", "2"],
-    ["serve", "--serve-duration", "0"]])
+    ["serve", "--serve-duration", "0"],
+    ["throughput", "--lowlat"],
+    ["serve", "--zipf-cache-off"],
+    ["serve", "--serve-cache"],
+    ["serve", "--zipf", "--serve-cache-capacity", "0"]])
 def test_misplaced_flags_exit_2(argv):
     with pytest.raises(SystemExit) as exc:
         tbench.main(argv + ["--inline"])

@@ -18,8 +18,11 @@ dense_relu at a tensor-parallel rank's column shard (N = 64 and 32), the
 MLP and LeNet-5 at model_parallel 2 as 2 ranks sharing the card against
 1 rank (losses rtol 1e-4, as 2 data-parallel ranks are held), config 1
 in bfloat16 through the bf16 kernel, and the streaming pipeline against
-the device-resident one (losses within 1e-6). Every test is marked `gpu`
-and skips without a card.
+the device-resident one (losses within 1e-6). Then the fast lane: each
+serving engine's exact-fit route, directly and through a batcher with
+the lane on, bit for bit the pooled dispatch at bucket 1, and the
+row-staged route on a dirty resident buffer bit for bit the pooled
+dispatch. Every test is marked `gpu` and skips without a card.
 
 This file imports no jax (the card's machine has none), and
 tests/conftest.py does, so on the card run it without the conftest:
@@ -676,3 +679,57 @@ def test_tensor_parallel_over_nccl_on_four_cards(tmp_path):
             mh_smoke.smoke_data())
         np.testing.assert_allclose(recs[0][i]["losses"], one["losses"],
                                    rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model,infer_dtype", (
+    ("mlp", "float32"), ("mlp", "bfloat16"), ("mlp", "int8"),
+    ("mlp", "megakernel"), ("lenet", "float32"), ("lenet", "bfloat16"),
+    ("lenet", "int8")))
+def test_fast_lane_on_card_equals_the_pooled_dispatch(model, infer_dtype):
+    """The fast lane's exact-fit route on the card, one row at a time
+    and through a batcher with the lane on, bit for bit the pooled
+    dispatch's at bucket 1 (the same forward, the same kernels)."""
+    _need_card()
+    from distributedmnist_tpu_torch.serve import (DynamicBatcher,
+                                                  InferenceEngine)
+
+    eng = InferenceEngine(model, models.init_params(model, 0),
+                          device="cuda", max_batch=8,
+                          infer_dtype=infer_dtype)
+    eng.warmup(cost_samples=1)
+    x = mnist.synthetic_mnist(seed=3, train_n=16, test_n=8)["test_x"]
+    b = DynamicBatcher(eng, fastlane=True, max_inflight=4).start()
+    try:
+        for i in range(8):
+            want = eng.infer(x[i:i + 1])
+            h = eng.dispatch_fast(x[i:i + 1])
+            assert h.resident and h.bucket == 1
+            assert eng.fetch(h).tobytes() == want.tobytes()
+            f = b.submit(x[i:i + 1])
+            assert f.done() and f.result().tobytes() == want.tobytes()
+    finally:
+        b.stop()
+
+
+@pytest.mark.gpu
+def test_row_staged_route_on_card_with_a_dirty_buffer():
+    """The row-staged route on a ladder from 8: rows 1..7 of the resident
+    buffer hold random bytes, and row 0's logits are still the pooled
+    dispatch's, bit for bit (every serving forward is row-independent)."""
+    _need_card()
+    from distributedmnist_tpu_torch.serve import InferenceEngine
+
+    eng = InferenceEngine("mlp", models.init_params("mlp", 0),
+                          device="cuda", max_batch=32, buckets=(8, 16, 32))
+    eng.warmup(cost_samples=3)
+    assert eng.fast_row_cost() is not None
+    eng._fast_row_ok = True            # held whichever way the price fell
+    x = mnist.synthetic_mnist(seed=4, train_n=16, test_n=8)["test_x"]
+    for i in range(8):
+        eng._fast_row_buf[1:] = torch.randint(
+            0, 256, eng._fast_row_buf[1:].shape, dtype=torch.uint8,
+            device="cuda")
+        h = eng.dispatch_fast(x[i:i + 1])
+        assert h is not None and h.bucket == 8
+        assert eng.fetch(h).tobytes() == eng.infer(x[i:i + 1]).tobytes()

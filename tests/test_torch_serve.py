@@ -551,9 +551,10 @@ def test_adaptive_controller_matches_jax():
             ctl.on_arrival(1 + i % 7, now=i * 2e-3)
             ctl.on_latency(1e-2 if i % 9 == 0 else 1e-3)
         assert ours.effective_wait_s() == ref.effective_wait_s()
-    snap = ref.snapshot()
-    snap.pop("fastpath_dispatches")
-    assert ours.snapshot() == snap
+    for ctl in (ours, ref):         # a fast-lane arrival: counted, not
+        ctl.on_arrival(3, now=0.5, coalesced=False)   # in the EWMA
+    assert ours.effective_wait_s() == ref.effective_wait_s()
+    assert ours.snapshot() == ref.snapshot()
 
 
 def test_numerics_and_percentiles_match_jax():

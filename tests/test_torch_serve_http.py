@@ -16,13 +16,20 @@ and the serving pieces it needs, against the JAX package, on the CPU.
   root serve.py and the port's server on the same step-N MLP weights and
   sends both the same request script (equal codes, classes and version;
   /healthz and /metrics key sets equal apart from the listed keys of
-  unported layers).
+  unported layers), and again with the request path's layers on in both
+  (--serve-cache --serve-dedup --serve-fastlane --serve-trace and a
+  fault spec): then /trace and the Prometheus route answer 200 in both,
+  and only the fleet's and tenancy's /metrics blocks stay None.
+- The in-process server with those layers on: the Prometheus exposition
+  by query and by Accept header, /trace, X-Trace-Id and Server-Timing,
+  cache hits version-tagged and metered.
 """
 
 import importlib.util
 import json
 import math
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -51,7 +58,10 @@ from distributedmnist_tpu_torch.ops import fused as tfused
 from distributedmnist_tpu_torch.ops import kernel_lib
 from distributedmnist_tpu_torch.serve import (DeadlineExceeded,
                                               DynamicBatcher, ServeMetrics,
+                                              build_cache_front,
+                                              build_resilience,
                                               build_serving)
+from distributedmnist_tpu_torch.serve import trace as ttrace
 from distributedmnist_tpu_torch.serve import __main__ as serve_cli
 from distributedmnist_tpu_torch.serve import registry as tregistry
 from distributedmnist_tpu_torch.serve import router as trouter
@@ -66,9 +76,6 @@ UNPORTED_METRICS_KEYS = {
     "by_replica": "item 6: the fleet",
     "by_tenant": "item 6: tenancy",
     "by_model": "item 6: tenancy",
-    "cache_served": "item 6: the prediction cache",
-    "dedup": "item 6: intra-batch dedup",
-    "fastpath": "item 6: the fast lane",
     "cascade": "item 6: the cascade",
     "autoscale": "item 6: autoscaling",
 }
@@ -612,13 +619,26 @@ class _InProcess:
         self.metrics = ServeMetrics()
         self.registry, self.router, self.factory = build_serving(
             self.cfg, metrics=self.metrics)
-        self.batcher = DynamicBatcher(self.router, max_batch=8,
-                                      metrics=self.metrics).start()
+        # wired as the serve CLI wires it
+        if self.cfg.serve_trace:
+            ttrace.install(ttrace.Tracer(
+                capacity=self.cfg.serve_trace_capacity,
+                sample=self.cfg.serve_trace_sample, seed=self.cfg.seed))
+        self.batcher = DynamicBatcher(
+            self.router, max_batch=8, metrics=self.metrics,
+            resilience=build_resilience(self.cfg, registry=self.registry,
+                                        metrics=self.metrics),
+            dedup=self.cfg.serve_dedup,
+            fastlane=self.cfg.serve_fastlane).start()
+        self.front, self.cache = build_cache_front(
+            self.cfg, self.batcher, self.router, self.registry,
+            metrics=self.metrics)
         self.state = tserver.ServerState()
         self.server = tserver.HTTPServer(
             self.batcher, self.metrics, self.registry, self.state,
             request_timeout=30,
-            infer_dtype_choice=self.cfg.serve_infer_dtype)
+            infer_dtype_choice=self.cfg.serve_infer_dtype,
+            front=self.front, cache=self.cache)
         self.base = f"http://127.0.0.1:{self.server.port}"
         warm = warm or (lambda: serve_cli.warm(self.registry, self.cfg))
         self.summary = None
@@ -647,6 +667,8 @@ class _InProcess:
         self.server.shutdown()
         self.thread.join(30)
         self.batcher.stop()
+        if self.cfg.serve_trace:
+            ttrace.uninstall()
         assert not self.thread.is_alive()
 
 
@@ -662,7 +684,6 @@ def inproc():
     ("GET", "/trace", 409), ("GET", "/tenants", 409),
     ("POST", "/tenants/gold/quota", 409), ("POST", "/tenants/gold", 404),
     ("POST", "/replicas/r0/drain", 409), ("POST", "/replicas/r0", 404),
-    ("GET", "/metrics?format=prometheus", 501),
     ("POST", "/cluster/epoch", 501), ("GET", "/nope", 404),
     ("POST", "/nope", 404)])
 def test_server_routes_of_unported_layers(inproc, method, path, code):
@@ -697,10 +718,70 @@ def test_server_bad_content_length_is_400(inproc, path, length):
     assert "Content-Length" in body["error"]
 
 
-def test_server_prometheus_by_accept_header_is_501(inproc):
-    code, body, _ = _request(f"{inproc.base}/metrics",
-                             headers={"Accept": "text/plain"})
-    assert code == 501 and "Prometheus" in body["error"]
+def _text(url, headers=None):
+    req = urllib.request.Request(url, headers=headers or {})
+    with urllib.request.urlopen(req, timeout=30) as r:
+        return r.status, r.read().decode(), dict(r.headers)
+
+
+@pytest.mark.parametrize("how", ["query", "accept"])
+def test_server_prometheus_exposition(inproc, how):
+    """?format=prometheus, or a text/plain Accept without JSON: 200 with
+    the exposition, every family with # HELP and # TYPE; a JSON Accept
+    keeps the JSON."""
+    inproc.predict(_images(2))
+    url, hdrs = ((f"{inproc.base}/metrics?format=prometheus", None)
+                 if how == "query" else
+                 (f"{inproc.base}/metrics", {"Accept": "text/plain"}))
+    code, text, h = _text(url, hdrs)
+    assert code == 200 and h["Content-Type"].startswith("text/plain")
+    helps = set(re.findall(r"^# HELP (\S+) ", text, re.M))
+    types = set(re.findall(r"^# TYPE (\S+) ", text, re.M))
+    assert helps == types and "dmnist_serve_requests_total" in helps
+    assert "dmnist_serve_pending_rows" in helps
+    code, body, _ = _request(f"{inproc.base}/metrics", headers={
+        "Accept": "text/plain, application/json"})
+    assert code == 200 and body["metric"] == "serve_stats"
+
+
+@pytest.fixture
+def inproc_layers():
+    """The in-process server with the request path's layers on: the
+    cache, dedup, the fast lane and the tracer."""
+    srv = _InProcess(serve_cache=True, serve_dedup=True,
+                     serve_fastlane=True, serve_trace=True)
+    srv.wait_healthy()
+    yield srv
+    srv.close()
+
+
+def test_server_request_path_layers(inproc_layers):
+    """X-Trace-Id on every /predict, Server-Timing when asked, GET /trace
+    as Chrome trace events, a repeat served from the cache (version-
+    tagged, metered), and the exposition's cache, fast-lane and stage
+    families."""
+    srv = inproc_layers
+    x = _images(1, seed=11)
+    code, body, hdrs = srv.predict(x)
+    assert code == 200 and "X-Trace-Id" in hdrs
+    assert "Server-Timing" not in hdrs
+    code, again, hdrs = srv.predict(x, headers={"X-Server-Timing": "1"})
+    assert code == 200 and again == body
+    assert re.fullmatch(r"(\w+(\.\w+)?;dur=\d+\.\d{3}, )*"
+                        r"residue;dur=\d+\.\d{3}", hdrs["Server-Timing"])
+    code, trace, _ = _request(f"{srv.base}/trace")
+    assert code == 200 and trace["displayTimeUnit"] == "ms"
+    assert {e["name"] for e in trace["traceEvents"]} >= {"cache.hit",
+                                                         "fastpath"}
+    _, m, _ = _request(f"{srv.base}/metrics")
+    assert m["cache"]["hits"] == 1 and m["cache_served"]["hit_requests"] == 1
+    assert m["fastpath"]["dispatches"] == 1
+    assert m["by_version"][body["version"]]["requests"] == 2
+    _, text, _ = _text(f"{srv.base}/metrics?format=prometheus")
+    for fam in ("dmnist_serve_cache_hits_total",
+                "dmnist_serve_fastpath_dispatches_total",
+                "dmnist_serve_stage_duration_ms"):
+        assert f"# HELP {fam} " in text and f"# TYPE {fam} " in text
 
 
 def test_server_deadline_shed_is_504_with_retry_after(inproc):
@@ -719,15 +800,21 @@ def test_server_deadline_shed_is_504_with_retry_after(inproc):
     assert code == 200 and body["n"] == 2
 
 
-def test_server_metrics_payload_shape(inproc):
+def test_server_metrics_payload_shape(inproc_layers):
+    inproc = inproc_layers
     code, body, _ = inproc.predict(_images(3))
     assert code == 200
     _, m, _ = _request(f"{inproc.base}/metrics")
     assert m["metric"] == "serve_stats" and m["requests"] >= 1
     assert m["queue"]["max_inflight"] == inproc.batcher.max_inflight
     assert m["adaptive"]["aimd_wait_us"] > 0
-    for k in ("cache", "resilience_policy", "fleet", "trace", "tenancy"):
+    # the blocks of layers the port has not got yet
+    for k in ("fleet", "tenancy"):
         assert m[k] is None, k
+    assert m["cache"]["misses"] >= 1 and m["cache"]["capacity"] == 4096
+    assert m["resilience_policy"]["bisect"] is True
+    assert m["resilience_policy"]["breaker"]["min_requests"] == 20
+    assert m["trace"]["requests_finished"] >= 1
     assert m["compiles_total"] == (kernel_lib.load_events()
                                    + inproc.factory.engine_builds) >= 1
 
@@ -906,6 +993,14 @@ def test_server_boot_with_a_failing_variant_kernel_is_failed(monkeypatch,
     (["--port", "0", "--request-timeout", "0"], "request-timeout"),
     (["--port", "0", "--serve-retry-after-cap-s", "0.5"],
      "retry-after-cap"),
+    (["--serve-faults", "engine.fetch:p=2"], "--serve-faults"),
+    (["--serve-cache-capacity", "0"], "serve-cache-capacity"),
+    (["--serve-cache-ttl-s", "0"], "serve-cache-ttl-s"),
+    (["--serve-trace-sample", "1.5"], "serve-trace-sample"),
+    (["--serve-trace-capacity", "0"], "serve-trace-capacity"),
+    (["--serve-breaker-ratio", "0"], "serve-breaker-ratio"),
+    (["--serve-breaker-window-s", "0"], "serve-breaker-window-s"),
+    (["--serve-breaker-min-requests", "0"], "serve-breaker-min-requests"),
 ])
 def test_server_cli_usage_errors(capsys, argv, msg):
     with pytest.raises(SystemExit) as ei:
@@ -1200,12 +1295,12 @@ def _run_script(base, script):
     return out
 
 
-def test_conformance_with_jax_serve_on_the_same_weights(tmp_path):
-    """Root serve.py and the port's server boot the same MLP step-5
+def _conformance(tmp_path, layers=()):
+    """Boot root serve.py and the port's server on the same MLP step-5
     weights (a JAX checkpoint, and the same params through interop in a
-    port checkpoint) and answer the same request script: equal status
-    codes, classes and version; /healthz and /metrics key sets equal but
-    for the keys of layers the port has not got."""
+    port checkpoint), with the same extra flags, and send both the same
+    request script: (answers, healthz, metrics, GET /trace, a Prometheus
+    scrape) per server."""
     from conftest import worker_env
 
     jck, tck = tmp_path / "jck", tmp_path / "tck"
@@ -1217,7 +1312,8 @@ def test_conformance_with_jax_serve_on_the_same_weights(tmp_path):
 
     jenv, _ = worker_env()
     common = ["--model", "mlp", "--device", "cpu", "--serve-max-batch",
-              str(MAX_BATCH), "--port", "0", "--metrics-every", "60"]
+              str(MAX_BATCH), "--port", "0", "--metrics-every", "60",
+              *layers]
     servers = {
         "jax": ServerProcess([sys.executable,
                               os.path.join(REPO, "serve.py"), *common,
@@ -1228,12 +1324,18 @@ def test_conformance_with_jax_serve_on_the_same_weights(tmp_path):
                                "--checkpoint-dir", str(tck)],
                               env=_port_env(), cwd=REPO),
     }
-    answers, health, metrics = {}, {}, {}
+    answers, health, metrics, traces, prom = {}, {}, {}, {}, {}
     try:
         for name, srv in servers.items():
             health[name] = _wait_healthy(srv.base, timeout=180)
             answers[name] = _run_script(srv.base, _script(MAX_BATCH))
             metrics[name] = _request(f"{srv.base}/metrics")[1]
+            traces[name] = _request(f"{srv.base}/trace")[:2]
+            try:
+                prom[name] = _text(
+                    f"{srv.base}/metrics?format=prometheus")[:2]
+            except urllib.error.HTTPError as e:
+                prom[name] = (e.code, None)
     finally:
         rcs = {name: srv.stop().rc for name, srv in servers.items()}
     assert rcs == {"jax": 0, "port": 0}
@@ -1259,12 +1361,59 @@ def test_conformance_with_jax_serve_on_the_same_weights(tmp_path):
     jkeys, tkeys = set(metrics["jax"]), set(metrics["port"])
     assert jkeys - tkeys == set(UNPORTED_METRICS_KEYS)
     assert tkeys - jkeys == set()
-    for k in ("cache", "fleet", "trace", "tenancy"):
-        assert metrics["port"][k] is metrics["jax"][k] is None, k
-    # the JAX server's breaker is on by default; the port's is ROADMAP §1
-    # item 6, so its policy block is None, as JAX's with the layer off
-    assert metrics["port"]["resilience_policy"] is None
-    assert "breaker" in metrics["jax"]["resilience_policy"]
     assert set(metrics["port"]["queue"]) == set(metrics["jax"]["queue"])
     assert set(metrics["port"]["resilience"]) \
-        <= set(metrics["jax"]["resilience"])
+        == set(metrics["jax"]["resilience"])
+    # the breaker is on by default in both servers
+    assert metrics["port"]["resilience_policy"].keys() \
+        == metrics["jax"]["resilience_policy"].keys()
+    assert metrics["port"]["resilience_policy"]["breaker"].keys() \
+        == metrics["jax"]["resilience_policy"]["breaker"].keys()
+    for k in ("fleet", "tenancy"):
+        assert metrics["port"][k] is metrics["jax"][k] is None, k
+    return answers, metrics, traces, prom
+
+
+def test_conformance_with_jax_serve_on_the_same_weights(tmp_path):
+    """Root serve.py and the port's server boot the same MLP step-5
+    weights and answer the same request script: equal status codes,
+    classes and version; /healthz and /metrics key sets equal but for
+    the keys of layers the port has not got. With the request path's
+    layers off, both answer /trace 409 and their cache and trace blocks
+    are None."""
+    _, metrics, traces, prom = _conformance(tmp_path)
+    for k in ("cache", "trace"):
+        assert metrics["port"][k] is metrics["jax"][k] is None, k
+    assert traces["port"][0] == traces["jax"][0] == 409
+    assert prom["port"][0] == prom["jax"][0] == 200
+
+
+def test_conformance_with_jax_serve_request_path_layers(tmp_path):
+    """The same script with --serve-cache --serve-dedup --serve-fastlane
+    --serve-trace and a fault schedule on both servers (a latency-only
+    rule on the engine's fetch, so the answers stay comparable): equal
+    codes, classes and versions; /trace and the Prometheus route 200 in
+    both; only the fleet's and tenancy's blocks None; the cache and
+    trace blocks and the exposition's families alike."""
+    spec = "engine.fetch:latency_ms=1"
+    answers, metrics, traces, prom = _conformance(
+        tmp_path, ["--serve-cache", "--serve-dedup", "--serve-fastlane",
+                   "--serve-trace", "--serve-faults", spec])
+    mp, mj = metrics["port"], metrics["jax"]
+    assert mp["cache"].keys() == mj["cache"].keys()
+    for k in ("hits", "misses", "inserts", "invalidations"):
+        assert mp["cache"][k] == mj["cache"][k], k
+    assert mp["trace"].keys() == mj["trace"].keys()
+    assert mp["fastpath"]["dispatches"] == mj["fastpath"]["dispatches"] > 0
+    assert traces["port"][0] == traces["jax"][0] == 200
+    assert {e["name"] for e in traces["port"][1]["traceEvents"]} \
+        <= {e["name"] for e in traces["jax"][1]["traceEvents"]} | {
+            "process_name", "thread_name"}
+    assert prom["port"][0] == prom["jax"][0] == 200
+    fams = [set(re.findall(r"^# TYPE (\S+) ", p[1], re.M))
+            for p in (prom["port"], prom["jax"])]
+    assert fams[0] <= fams[1] and "dmnist_serve_cache_hits_total" \
+        in fams[0]
+    for name in ("predict 3 rows", "predict after"):
+        assert "X-Trace-Id" in answers["port"][name][2]
+        assert "X-Trace-Id" in answers["jax"][name][2]
