@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's MLP serving path, its training paths (one
 card, data-parallel and tensor-parallel ranks sharing it, bfloat16, the
-streaming pipeline), its LeNet-5 serving path, its HTTP server and its
-bench on one CUDA card.
+streaming pipeline), its LeNet-5 serving path, its HTTP server, its
+request path, its replica fleet and cascade, and its bench on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -127,10 +128,34 @@ bench on one CUDA card.
    the lane (1-row /predict p50/p99 each, a cache hit, X-Trace-Id and
    Server-Timing, GET /trace, a timed Prometheus scrape, /metrics' cache,
    resilience_policy and trace blocks).
-12. Prints a `kernels` JSON line (launches on each path, error, times,
-   bound; dense_relu's entry lists the new shapes; each entry's
-   `fastlane` its b = 1 case and fast-route launches) and, last,
-   {"ok": true, "device": {...}}.
+12. The fleet and the cascade (after phase 11), each path on launch
+   counts of its own: a two-replica MLP fleet in process (both replicas
+   on the card, each on a CUDA stream of its own; the fitted weights at
+   float32, bfloat16, int8 and megakernel fanned out to both), 256 mixed
+   requests of 1-32 rows per precision through the batcher, every batch
+   bit for bit a single router's dispatch of the same rows on its
+   replica and the dispatches balanced within the root bench's 1.25; a
+   kill burst on r1 (replica.fetch, then replica.dispatch) absorbed by
+   failover with every request answered, and a latency fault on r0
+   raced by the hedge, both bit for bit too, with nothing built after
+   warmup; the MLP's cascade in process (exact the float32 route's
+   bytes, fast the cheap route's, balanced their composition at the
+   parity bar); over HTTP a `--serve-replicas 2 --serve-hedge` server
+   (drain r1 200, drain r0 409, rejoin 200, /healthz's replicas,
+   /metrics' fleet block and the replica families) and a LeNet-5
+   `--serve-cascade` server on config 2's 10-epoch checkpoint (exact
+   the float32 route's classes, fast the int8 route's, balanced at the
+   parity bar); and the bench's `serve --serve-replicas 2 --serve-hedge
+   --chaos` (the replica kill absorbed, availability 1.0 of the
+   non-injected requests, failovers and hedges counted) and `serve
+   --dtype-sweep --cascade` on LeNet-5 (the frontier), with the root
+   bench's keys.
+13. Prints a `kernels` JSON line (launches on each path, with the
+   `fleet` and `cascade` paths also as columns of their own, error,
+   times, bound; dense_relu's entry lists the new shapes, dense_relu's
+   and quant_dense's LeNet's serving shapes; each entry's `fastlane` its
+   b = 1 case and fast-route launches) and, last, {"ok": true,
+   "device": {...}}.
 
 Any failure raises and exits nonzero before the last line. Without a
 card, or without the rest of the repository beside this file, it exits
@@ -331,6 +356,49 @@ REQUEST_LEG_KEYS = {
         "qps", "requests_traced", "sample", "slo_ms", "span_census",
         "traces_retained"},
 }
+# The fleet-and-cascade phase: a two-replica MLP fleet in process (the
+# rows of each mixed-size request, up to 32, and the requests of each
+# burst), the root bench's dispatch-balance bar, a replica-kill burst on
+# r1 that failover must absorb, a latency fault on r0 that the hedge must
+# race, and the bench's fleet and frontier runs (the LeNet run boots from
+# config 2's last checkpoint).
+FLEET_MAX_BATCH = 64
+FLEET_MAX_ROWS = 32
+FLEET_REQUESTS = 256
+FLEET_FAULT_REQUESTS = 128
+FLEET_BALANCE_BAR = 1.25
+FLEET_SLOW_MS = 20
+FLEET_BENCH_RUNS = (
+    ("serve", "--model", "mlp", "--serve-duration", "1",
+     "--serve-replicas", "2", "--serve-hedge", "--chaos", "--inline"),
+    ("serve", "--model", "lenet", "--serve-duration", "1",
+     "--dtype-sweep", "--cascade", "--checkpoint-dir", "{ckpt}",
+     "--inline"),
+)
+CASCADE_ROWS = 512
+# the root bench's r07 record's `replicas` keys and r10's `cascade` keys
+FLEET_RECORD_KEYS = {
+    "replicas": {"count", "disjoint_devices", "final", "fleet_leg",
+                 "per_replica_chips", "per_replica_inflight",
+                 "provenance"},
+    "fleet_leg": {"balance_ok", "dispatch_balance_ratio",
+                  "fleet_latency_ms", "fleet_rows_per_sec",
+                  "per_replica_dispatches", "replicas",
+                  "scaling_efficiency", "single_latency_ms",
+                  "single_replica_rows_per_sec"},
+    "cascade": {"agreement_ok", "agreement_rows", "agreement_vs_f32",
+                "calibration", "cascade_efficiency_vs_fast", "cheap_dtype",
+                "clients", "coalesce_wait_us", "duration_s",
+                "efficiency_ok", "final_threshold", "goodput_bar",
+                "goodput_bar_reachable", "goodput_ok", "goodput_vs_f32",
+                "host_compute_ceiling", "host_full_bucket_cost_ms", "legs",
+                "seed", "sizes", "stressed_threshold",
+                "variant_warmup_compile_events"},
+    "dtype_sweep": {"best_dtype", "best_speedup", "clients",
+                    "coalesce_wait_us", "duration_s", "legs", "seed",
+                    "sizes", "speedup_vs_float32",
+                    "variant_warmup_compile_events"},
+}
 # The root bench's record keys (its THROUGHPUT_r05.json, TTA_r05.json,
 # BENCH_serve_r13.json, SWEEP_r05.json and SMOKE_r05.json records, the
 # serve legs not ported yet left out; the smoke metric is named "smoke")
@@ -359,7 +427,8 @@ BENCH_KEYS = {
         "live_version_final", "warmup_compile_events",
         "recompiles_after_warmup", "bucket_cost_ms", "slo_ms", "adaptive",
         "closed_loop", "qps_sweep", "ragged", "inflight_comparison",
-        "zipf", "lowlat", "chaos", "trace"},
+        "zipf", "lowlat", "chaos", "trace", "dtype_sweep", "cascade",
+        "replicas"},
 }
 
 
@@ -2256,6 +2325,538 @@ def drive_request_http(params: dict, card: str) -> tuple[dict, dict]:
     return phases, launches
 
 
+def _fault_spec(point: str, **fields) -> str:
+    """A one-rule fault schedule (serve/faults.py's spec grammar)."""
+    return point + ":" + ",".join(f"{k}={v}" for k, v in fields.items())
+
+
+def _fleet_burst(fleet, reqs, seen: list) -> list:
+    """Serve `reqs` through a batcher over `fleet`, appending each batch
+    the fleet fetched to `seen` as (replica, the parts, the logits);
+    returns the answers in request order."""
+    from distributedmnist_tpu_torch.serve import DynamicBatcher
+
+    fetch = fleet.fetch
+
+    def recording_fetch(fh):
+        out = fetch(fh)
+        seen.append((fh.replica, fh.x, out))
+        return out
+
+    fleet.fetch = recording_fetch
+    b = DynamicBatcher(fleet, max_wait_us=2000,
+                       queue_depth=SELFTEST_QUEUE_DEPTH,
+                       metrics=fleet.metrics).start()
+    try:
+        futs = [b.submit(x) for x in reqs]
+        return [f.result(timeout=120) for f in futs]
+    finally:
+        b.stop()
+        del fleet.fetch
+
+
+def drive_fleet(params: dict) -> tuple[dict, list, object]:
+    """A two-replica MLP fleet in process on the card (build_serving with
+    serve_replicas 2: both replicas on this card, each engine on its
+    replica's own stream), the fitted weights warmed and gated at
+    float32, bfloat16, int8 and megakernel on both replicas. Each
+    precision serves FLEET_REQUESTS mixed requests through the batcher,
+    its dispatches balanced within the root bench's bar; then a kill
+    burst on r1 at fetch and at dispatch, which failover must absorb,
+    and a latency fault on r0 with the hedge on, which must fire; no
+    engine or kernel library is built after warmup. Returns (figures,
+    the bursts to check against single routers once the launch counts
+    are read, the fleet's engine factory)."""
+    import numpy as np
+
+    from distributedmnist_tpu_torch.config import Config
+    from distributedmnist_tpu_torch.ops import kernel_lib
+    from distributedmnist_tpu_torch.serve import ServeMetrics, build_serving
+    from distributedmnist_tpu_torch.serve import faults
+
+    t0 = time.perf_counter()
+    metrics = ServeMetrics()
+    registry, fleet, factory = build_serving(Config(
+        model="mlp", device="cuda", serve_max_batch=FLEET_MAX_BATCH,
+        serve_replicas=2), metrics=metrics)
+    registry.add(params, version="fit")
+    registry.promote("fit")
+    for dt in ("bfloat16", "int8", "megakernel"):
+        registry.add_variant("fit", dt)        # a refusal fails the run
+    engines = registry.get("fit").engines
+    streams = [e.stream for e in engines]
+    if (None in streams or streams[0].cuda_stream == streams[1].cuda_stream
+            or len(set(factory.replica_devices)) != 1):
+        raise RuntimeError(f"fleet placement: devices "
+                           f"{factory.replica_devices}, streams {streams}")
+    figures = {"warm_s": time.perf_counter() - t0}
+
+    def builds():
+        return kernel_lib.load_events() + factory.engine_builds
+
+    steady = builds()
+    rng = np.random.default_rng(SEED + 11)
+    reqs = [rng.integers(0, 256, (int(n), 28, 28, 1), dtype=np.uint8)
+            for n in rng.integers(1, FLEET_MAX_ROWS + 1, FLEET_REQUESTS)]
+    bursts = []
+    for dt in ("float32", "bfloat16", "int8", "megakernel"):
+        registry.promote("fit", infer_dtype=dt)
+        live = {rep.rid: rep.router._live.engine for rep in fleet.replicas}
+        seen: list = []
+        t1 = time.perf_counter()
+        outs = _fleet_burst(fleet, reqs, seen)
+        took = time.perf_counter() - t1
+        counts = {rid: sum(1 for r, _, _ in seen if r == rid)
+                  for rid in live}
+        lo, hi = min(counts.values()), max(counts.values())
+        ratio = hi / lo if lo else None
+        if ratio is None or ratio > FLEET_BALANCE_BAR:
+            raise RuntimeError(f"fleet {dt}: dispatches {counts} not "
+                               f"balanced within {FLEET_BALANCE_BAR}")
+        bursts.append((dt, live, seen, reqs, outs))
+        figures[dt] = {"batches": counts, "balance_ratio": ratio,
+                       "s": took,
+                       "rows_per_s": sum(x.shape[0] for x in reqs) / took}
+    # the kill burst: r1 dies at fetch for 4 of its batches, then at
+    # dispatch for 4 more; every request must still be answered
+    live = {rep.rid: rep.router._live.engine for rep in fleet.replicas}
+    kill = ";".join([
+        _fault_spec("replica.fetch", p=1, replica="r1", count=4),
+        _fault_spec("replica.dispatch", p=1, replica="r1", after=8,
+                    count=4)])
+    inj = faults.install(faults.FaultInjector.from_spec(kill, seed=SEED))
+    seen = []
+    try:
+        outs = _fleet_burst(fleet, reqs[:FLEET_FAULT_REQUESTS], seen)
+    finally:
+        faults.uninstall()
+    snap = fleet.snapshot()
+    fires = [r["fires"] for r in inj.snapshot()["rules"]]
+    if snap["failovers"]["fetch"] < 1 or snap["failovers"]["dispatch"] < 1:
+        raise RuntimeError(f"the kill burst was not absorbed by failover: "
+                           f"{snap['failovers']}, fires {fires}")
+    bursts.append(("kill", live, seen, reqs[:FLEET_FAULT_REQUESTS], outs))
+    figures["kill"] = {"fires": fires, "failovers": snap["failovers"],
+                       "failures": {r["id"]: r["failures"]
+                                    for r in snap["replicas"]}}
+    # a slow replica: r0's fetches take FLEET_SLOW_MS more; the batches
+    # queued behind them pass the hedge threshold and race a duplicate
+    fleet.hedge = True
+    slow = _fault_spec("replica.fetch", p=1, replica="r0",
+                       latency_ms=FLEET_SLOW_MS)
+    faults.install(faults.FaultInjector.from_spec(slow, seed=SEED))
+    seen = []
+    try:
+        outs = _fleet_burst(fleet, reqs[:FLEET_FAULT_REQUESTS], seen)
+    finally:
+        faults.uninstall()
+        fleet.hedge = False
+    hedges = fleet.snapshot()["hedges"]
+    if hedges["fired"] < 1:
+        raise RuntimeError(f"no hedge fired against a {FLEET_SLOW_MS} ms "
+                           f"slow replica: {fleet.snapshot()}")
+    bursts.append(("hedge", live, seen, reqs[:FLEET_FAULT_REQUESTS], outs))
+    figures["hedge"] = hedges
+    rebuilt = builds() - steady
+    if rebuilt:
+        raise RuntimeError(f"{rebuilt} engine or kernel-library builds "
+                           "after the fleet's warmup")
+    figures["builds_after_warmup"] = rebuilt
+    figures["metrics_fleet"] = metrics.snapshot()["fleet"]
+    figures["by_replica"] = metrics.snapshot()["by_replica"]
+    return figures, bursts, factory
+
+
+def check_fleet_bursts(factory, bursts) -> int:
+    """Every batch a burst recorded, bit for bit a single Router's
+    dispatch of the same rows on the engine of the replica that computed
+    it, and every answer its request's slice of its batch. Returns the
+    batches checked."""
+    checked = 0
+    for label, live, seen, reqs, outs in bursts:
+        singles = {}
+        for rid, eng in live.items():
+            r = factory.make_router()
+            r.set_live(eng, "fit")
+            singles[rid] = r
+        rows = {}
+        for rid, parts, out in seen:
+            if singles[rid].infer(parts).tobytes() != out.tobytes():
+                raise RuntimeError(f"fleet {label}: a batch of {rid} is "
+                                   "not the single router's dispatch")
+            off = 0
+            for p in parts:
+                rows[id(p)] = out[off:off + p.shape[0]]
+                off += p.shape[0]
+            checked += 1
+        for x, got in zip(reqs, outs):
+            if got.tobytes() != rows[id(x)].tobytes():
+                raise RuntimeError(f"fleet {label}: an answer is not its "
+                                   "batch's rows")
+    return checked
+
+
+def drive_cascade(params: dict) -> tuple[dict, list]:
+    """The MLP's cascade in process on the card: the fitted weights with
+    their int8 and megakernel variants gated, the cascade calibrated on
+    the cheapest ('auto'), then CASCADE_ROWS held-out rows through the
+    CascadeFront at exact, fast and balanced, at the calibrated threshold
+    and again at the median cheap-stage margin (about half the rows
+    escalating: the bench's stressed point). Returns (figures, what
+    check_cascade holds each pass's answers to)."""
+    import numpy as np
+
+    from distributedmnist_tpu_torch.serve.cascade import softmax_margin
+
+    from distributedmnist_tpu_torch.config import Config
+    from distributedmnist_tpu_torch.data import synthetic_mnist
+    from distributedmnist_tpu_torch.serve import (DynamicBatcher,
+                                                  ServeMetrics,
+                                                  build_serving)
+    from distributedmnist_tpu_torch.serve.cascade import CascadeFront
+    from distributedmnist_tpu_torch.serve.quantize import PARITY_SEED
+
+    metrics = ServeMetrics()
+    registry, router, _ = build_serving(Config(
+        model="mlp", device="cuda", serve_max_batch=CASCADE_ROWS),
+        metrics=metrics)
+    registry.add(params, version="fit")
+    registry.promote("fit")
+    for dt in ("int8", "megakernel"):
+        registry.add_variant("fit", dt)
+    state = registry.enable_cascade("fit")
+    x = synthetic_mnist(seed=PARITY_SEED + 1, train_n=16,
+                        test_n=CASCADE_ROWS)["test_x"]
+    b = DynamicBatcher(router, max_wait_us=500,
+                       queue_depth=SELFTEST_QUEUE_DEPTH,
+                       metrics=metrics).start()
+    front = CascadeFront(b, b, router, registry, metrics=metrics)
+    mv = registry.get("fit")
+    cheap = mv.variants[state.cheap_dtype].engine
+    passes = []
+    try:
+        threshold = state.threshold
+        for _ in range(2):
+            got = {c: front.submit(x, accuracy_class=c).result(timeout=120)
+                   for c in ("exact", "fast", "balanced")}
+            passes.append((mv.engine, cheap, threshold, x, got))
+            threshold = float(np.median(softmax_margin(got["fast"])))
+            registry.set_cascade_threshold("fit", threshold)
+    finally:
+        b.stop()
+    figures = {"cheap_dtype": state.cheap_dtype,
+               "threshold": state.threshold,
+               "stressed_threshold": passes[1][2],
+               "calibration": state.calibration,
+               "cascade": metrics.snapshot()["cascade"]}
+    return figures, passes
+
+
+def check_cascade(f32, cheap, threshold, x, got) -> dict:
+    """exact is the float32 engine's bytes, fast the cheap engine's,
+    balanced the two composed row by row (an escalated row is float32's
+    dispatch of the escalated rows), agreeing with exact at the parity
+    bar."""
+    import numpy as np
+
+    from distributedmnist_tpu_torch.serve import PARITY_GATES
+    from distributedmnist_tpu_torch.serve.cascade import softmax_margin
+
+    if got["exact"].tobytes() != f32.infer(x).tobytes():
+        raise RuntimeError("cascade exact is not the float32 route")
+    if got["fast"].tobytes() != cheap.infer(x).tobytes():
+        raise RuntimeError("cascade fast is not the cheap route")
+    esc = softmax_margin(got["fast"]) < threshold
+    if got["balanced"][~esc].tobytes() != got["fast"][~esc].tobytes():
+        raise RuntimeError("a confident balanced row is not the cheap one")
+    if esc.any() and (got["balanced"][esc].tobytes()
+                      != f32.infer(x[esc]).tobytes()):
+        raise RuntimeError("an escalated balanced row is not float32's")
+    agree = float(np.mean(got["balanced"].argmax(-1)
+                          == got["exact"].argmax(-1)))
+    bar = PARITY_GATES["int8"][0]
+    if agree < bar:
+        raise RuntimeError(f"balanced agrees with exact on {agree} < {bar}")
+    return {"escalated_rows": int(esc.sum()), "agreement": agree}
+
+
+def drive_fleet_cascade_http(params: dict, lenet_checkpoint_dir: str,
+                             card: str) -> tuple[dict, dict, dict]:
+    """The HTTP server on the card, one subprocess a server: the MLP with
+    --serve-replicas 2 --serve-hedge (drain r1 200, drain r0 409 as the
+    last active replica, rejoin 200, /healthz's replicas, /metrics' fleet
+    block and the replica families), and LeNet-5 with --serve-cascade on
+    config 2's 10-epoch checkpoint (exact the float32 route's classes,
+    fast the int8 route's, balanced agreeing with float32 at the parity
+    bar). Returns (figures, the fleet server's launches, the cascade
+    server's launches)."""
+    import shutil
+    import urllib.request
+
+    import numpy as np
+
+    from distributedmnist_tpu_torch.checkpoint import Checkpointer
+    from distributedmnist_tpu_torch.config import Config
+    from distributedmnist_tpu_torch.data import synthetic_mnist
+    from distributedmnist_tpu_torch.serve import PARITY_GATES, build_serving
+    from distributedmnist_tpu_torch.serve.quantize import PARITY_SEED
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    held = synthetic_mnist(seed=PARITY_SEED, train_n=16,
+                           test_n=CASCADE_ROWS)["test_x"]
+    rows = np.ascontiguousarray(held.reshape(CASCADE_ROWS, 784))
+    figures = {}
+    with tempfile.TemporaryDirectory() as ckpt:
+        ck = Checkpointer(ckpt)
+        ck.save(1, {"params": params, "optimizer": {}, "scheduler": {}})
+        ck.close()
+        srv = start_server(["--model", "mlp", "--checkpoint-dir", ckpt,
+                            "--serve-replicas", "2", "--serve-hedge"],
+                           env, here)
+        try:
+            health = healthy(srv)
+            if [r["id"] for r in health.get("replicas", [])] != ["r0",
+                                                                 "r1"]:
+                raise RuntimeError(f"/healthz replicas: {health}")
+            first = srv.ok("/predict", data=rows[:64].tobytes())
+            codes = {}
+            for name, path in (("drain r1", "/replicas/r1/drain"),
+                               ("drain r0", "/replicas/r0/drain"),
+                               ("predict drained", "/predict"),
+                               ("rejoin r1", "/replicas/r1/rejoin")):
+                data = (rows[:64].tobytes() if path == "/predict"
+                        else b"{}")
+                codes[name], body = srv.call(path, data=data)
+                if name == "predict drained" and (
+                        body.get("classes") != first["classes"]):
+                    raise RuntimeError("a drained fleet answered other "
+                                       "classes")
+            want = {"drain r1": 200, "drain r0": 409,
+                    "predict drained": 200, "rejoin r1": 200}
+            if codes != want:
+                raise RuntimeError(f"replica admin codes {codes}, want "
+                                   f"{want}")
+            metrics = srv.ok("/metrics")
+            with urllib.request.urlopen(
+                    srv.base + "/metrics?format=prometheus",
+                    timeout=60) as r:
+                prom = r.read().decode()
+            if (metrics.get("fleet") is None
+                    or metrics["fleet"]["n_replicas"] != 2
+                    or "dmnist_serve_replica_batches_total" not in prom):
+                raise RuntimeError(f"/metrics fleet: {metrics.get('fleet')}")
+            figures["fleet_server"] = {
+                "codes": codes, "healthz_replicas": health["replicas"],
+                "by_replica": metrics["by_replica"]}
+        finally:
+            _, fleet_launches = stop_server(srv)
+    with tempfile.TemporaryDirectory() as ckpt:
+        # config 2's 10 epochs (the later lifecycle step left out)
+        step = str(TRAIN_STEPS["lenet-adam"])
+        shutil.copytree(os.path.join(lenet_checkpoint_dir, step),
+                        os.path.join(ckpt, step))
+        ref_registry, _, _ = build_serving(Config(
+            model="lenet", device="cuda", serve_max_batch=CASCADE_ROWS,
+            checkpoint_dir=ckpt))
+        mv = ref_registry.load_latest()
+        cheap = ref_registry.add_variant(mv.version, "int8").engine
+        want = {"exact": mv.engine.infer(rows).argmax(-1).tolist(),
+                "fast": cheap.infer(rows).argmax(-1).tolist()}
+        srv = start_server(["--model", "lenet", "--checkpoint-dir", ckpt,
+                            "--serve-cascade"], env, here)
+        try:
+            health = srv.wait_for(
+                "a calibrated cascade",
+                lambda: (srv.healthy_payload() or {}).get("cascade"),
+                timeout=HTTP_READY_S)
+            got = {}
+            for cls in ("exact", "fast", "balanced"):
+                got[cls] = srv.ok("/predict", data=rows.tobytes(),
+                                  headers={"X-Accuracy-Class": cls})
+            code, _ = srv.call("/predict", data=rows[:1].tobytes(),
+                               headers={"X-Accuracy-Class": "bogus"})
+            cascade_metrics = srv.ok("/metrics")["cascade"]
+        finally:
+            _, cascade_launches = stop_server(srv)
+    bar = PARITY_GATES["int8"][0]
+    agree = float(np.mean(np.asarray(got["balanced"]["classes"])
+                          == np.asarray(want["exact"])))
+    bad = []
+    if health["cheap_dtype"] != "int8":
+        bad.append(f"cheap stage {health['cheap_dtype']}")
+    if got["exact"]["classes"] != want["exact"]:
+        bad.append("exact is not the float32 route's classes")
+    if got["fast"]["classes"] != want["fast"]:
+        bad.append("fast is not the int8 route's classes")
+    if agree < bar:
+        bad.append(f"balanced agreement {agree} < {bar}")
+    if code != 400:
+        bad.append(f"an unknown class answered {code}")
+    if bad:
+        raise RuntimeError(f"LeNet cascade server: {bad}")
+    figures["cascade_server"] = {
+        "threshold": health["threshold"],
+        "calibration": health["calibration"],
+        "balanced_agreement": agree, "metrics": cascade_metrics}
+    return figures, fleet_launches, cascade_launches
+
+
+def drive_fleet_cascade_bench(lenet_checkpoint_dir: str) -> tuple:
+    """The bench's fleet run (`serve --serve-replicas 2 --serve-hedge
+    --chaos`: the non-injected requests all answered, the replica kill
+    absorbed by failover, failovers and hedges counted) and its frontier
+    run (`serve --dtype-sweep --cascade` on LeNet-5's checkpoint), each
+    with the root bench's keys and values above 0. Returns (figures, the
+    fleet run's launches, the frontier run's launches)."""
+    import shutil
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    figures, launches = {}, []
+    with tempfile.TemporaryDirectory() as ckpt:
+        step = str(TRAIN_STEPS["lenet-adam"])
+        shutil.copytree(os.path.join(lenet_checkpoint_dir, step),
+                        os.path.join(ckpt, step))
+        for run in FLEET_BENCH_RUNS:
+            argv = [a.format(ckpt=ckpt) for a in run]
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "distributedmnist_tpu_torch.bench",
+                 *argv], cwd=here, env=env, capture_output=True,
+                text=True, timeout=BENCH_TIMEOUT_S)
+            took = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise RuntimeError(f"bench {' '.join(argv)} exited "
+                                   f"{proc.returncode}:\n"
+                                   f"{proc.stderr[-4000:]}")
+            lines = [ln for ln in proc.stdout.splitlines()
+                     if ln.startswith("{")]
+            rec = json.loads(lines[-1])
+            d = rec["detail"]
+            bad = []
+            if set(d) != BENCH_KEYS["serve_images_per_sec_per_chip"]:
+                bad.append("keys differ from the root bench's")
+            if not rec["value"] > 0 or d["recompiles_after_warmup"] != 0:
+                bad.append(f"value {rec['value']}, "
+                           f"{d['recompiles_after_warmup']} builds")
+            if d["replicas"] is not None:
+                rep, ch = d["replicas"], d["chaos"]
+                if (set(rep) != FLEET_RECORD_KEYS["replicas"]
+                        or set(rep["fleet_leg"])
+                        != FLEET_RECORD_KEYS["fleet_leg"]):
+                    bad.append("replicas keys differ from the root bench's")
+                if not rep["fleet_leg"]["fleet_rows_per_sec"] > 0:
+                    bad.append("the fleet leg served nothing")
+                if (ch["availability_excluding_injected"] != 1.0
+                        or not ch["replica_kill"]["rescued_exactly"]
+                        or not isinstance(ch["failovers"], int)
+                        or not isinstance(ch["hedges"], int)
+                        or ch["failovers"] < 1):
+                    bad.append("the replica kill was not absorbed")
+                figures["fleet"] = {
+                    "took_s": took, "value": rec["value"],
+                    "fleet_leg": rep["fleet_leg"],
+                    "chaos": {k: ch[k] for k in (
+                        "requests", "ok", "availability_excluding_injected",
+                        "failovers", "hedges", "p99_under_faults_ms",
+                        "recompiles_during_chaos")},
+                    "replica_kill": {k: ch["replica_kill"][k] for k in (
+                        "target", "fires", "rescued_exactly",
+                        "failovers")}}
+            else:
+                ca, sw = d["cascade"], d["dtype_sweep"]
+                if (set(ca) != FLEET_RECORD_KEYS["cascade"]
+                        or set(sw) != FLEET_RECORD_KEYS["dtype_sweep"]):
+                    raise RuntimeError(
+                        f"bench {' '.join(argv)}: cascade or dtype_sweep "
+                        f"keys differ from the root bench's: cascade "
+                        f"{str(ca)[:1500]}, dtype_sweep keys {sorted(sw)}")
+                # every point measured; the bars (agreement on the leg's
+                # random-pixel probes, goodput) are the root bench's,
+                # reported as it computes them
+                unmeasured = [
+                    f"{leg} {name}: {point}"
+                    for leg, points in (("dtype_sweep", sw["legs"]),
+                                        ("cascade", ca["legs"]))
+                    for name, point in points.items()
+                    if not point.get("img_s_chip", 0) > 0]
+                if unmeasured:
+                    bad.append(f"frontier points not measured: "
+                               f"{unmeasured}")
+                figures["frontier"] = {
+                    "took_s": took,
+                    "speedup_vs_float32": sw["speedup_vs_float32"],
+                    "dtype_img_s_chip": {dt: leg.get("img_s_chip")
+                                         for dt, leg in sw["legs"].items()},
+                    "cheap_dtype": ca["cheap_dtype"],
+                    "goodput_vs_f32": ca["goodput_vs_f32"],
+                    "agreement_vs_f32": ca["agreement_vs_f32"],
+                    "agreement_ok": ca["agreement_ok"],
+                    "escalation_fraction": {
+                        name: leg.get("escalation_fraction")
+                        for name, leg in ca["legs"].items()},
+                    "cascade_img_s_chip": {
+                        name: leg.get("img_s_chip")
+                        for name, leg in ca["legs"].items()},
+                    "host_compute_ceiling": ca["host_compute_ceiling"]}
+            if bad:
+                raise RuntimeError(f"bench {' '.join(argv)}: {bad}: "
+                                   f"{lines[-1][:3000]}")
+            counts = [json.loads(ln.split("launches ", 1)[1])
+                      for ln in proc.stderr.splitlines()
+                      if ln.startswith("bench: launches ")]
+            launches.append(counts[0])
+            print("bench " + lines[-1], flush=True)
+    return figures, launches[0], launches[1]
+
+
+def drive_fleet_and_cascade(params: dict, lenet_checkpoint_dir: str,
+                            card: str) -> tuple[dict, dict]:
+    """The fleet-and-cascade phase: each path on launch counts set to 0
+    just before it and read just after (the server and bench children
+    report their own), the comparisons with single routers and routes
+    made after the counts are read. Returns (figures, {"fleet": counts,
+    "cascade": counts})."""
+    from distributedmnist_tpu_torch.ops import fused
+
+    t0 = time.perf_counter()
+    fused.reset_launches()
+    fleet_figures, bursts, factory = drive_fleet(params)
+    fleet_counts = dict(fused.LAUNCHES)
+    fused.reset_launches()
+    cascade_figures, answers = drive_cascade(params)
+    cascade_counts = dict(fused.LAUNCHES)
+    fleet_figures["batches_checked"] = check_fleet_bursts(factory, bursts)
+    cascade_figures["checked"] = [check_cascade(*a) for a in answers]
+    if cascade_figures["checked"][1]["escalated_rows"] < 1:
+        raise RuntimeError("the stressed cascade escalated nothing")
+    http, fleet_srv, cascade_srv = drive_fleet_cascade_http(
+        params, lenet_checkpoint_dir, card)
+    bench, fleet_bench, cascade_bench = drive_fleet_cascade_bench(
+        lenet_checkpoint_dir)
+    launches = {
+        "fleet": {k: fleet_counts[k] + fleet_srv.get(k, 0)
+                  + fleet_bench.get(k, 0) for k in fleet_counts},
+        "cascade": {k: cascade_counts[k] + cascade_srv.get(k, 0)
+                    + cascade_bench.get(k, 0) for k in cascade_counts}}
+    missing = [f"{path} {k}" for path, n in launches.items()
+               for k, c in n.items() if c <= 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on their path: "
+                           f"{missing}")
+    figures = {"fleet": fleet_figures, "cascade": cascade_figures,
+               "http": http, "bench": bench,
+               "launches_in_process": {"fleet": fleet_counts,
+                                       "cascade": cascade_counts},
+               "phase_s": time.perf_counter() - t0}
+    print(f"fleet and cascade on {card}: " + json.dumps(figures),
+          flush=True)
+    return figures, launches
+
+
 def main() -> int:
     import torch
 
@@ -2389,6 +2990,10 @@ def main() -> int:
         request_phases["phase_s"] = time.perf_counter() - t0
         print("request_phases " + json.dumps(request_phases), flush=True)
 
+        _, fleet_launches = drive_fleet_and_cascade(params, lenet_ckpt,
+                                                    card)
+        launches.update(fleet_launches)
+
     line = []
     for name in ("dense_relu", "quant_dense", "mlp_megakernel"):
         timed = next(r for r in records if r["name"] == name
@@ -2400,6 +3005,8 @@ def main() -> int:
             "launches": sum(n[name] for n in launches.values()),
             "launches_by_path": {path: n[name]
                                  for path, n in launches.items()},
+            "fleet": launches["fleet"][name],
+            "cascade": launches["cascade"][name],
             "max_abs_err": max(r["max_abs_err"] for r in records
                                if r["name"] == name),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
@@ -2413,6 +3020,15 @@ def main() -> int:
             **{k: b1[k] for k in ("case", "ms", "plain_ms", "bound_ms",
                                   "bound_by", "library_ms",
                                   "max_abs_err")}}
+    # LeNet's dense shapes on its serving path, each beside its bound
+    for entry in line:
+        lenet = [{k: r[k] for k in ("case", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms",
+                                    "max_abs_err")}
+                 for r in records if r["name"] == entry["name"]
+                 and r["case"].startswith("lenet ")]
+        if lenet:
+            entry["lenet_shapes"] = lenet
     # the rest of training's new shapes, each case beside its bound
     line[0]["new_shapes"] = [
         {k: r[k] for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by",

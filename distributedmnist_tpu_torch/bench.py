@@ -38,7 +38,13 @@ its flag names, defaults and record keys:
   the cache), --trace (stage attribution of the over-SLO tail under a
   tracer) and --chaos (a seeded fault schedule against bisection, the
   breaker's rollback and the deadline shed; --serve-cache runs it
-  through the cache front).
+  through the cache front), --dtype-sweep (float32, bfloat16 and int8
+  closed-loop back to back behind the parity gate) and --cascade (the
+  cascade's goodput-vs-accuracy frontier: exact, fast, balanced and a
+  stressed threshold). With --serve-replicas N >= 2 the router's slot
+  holds a fleet (--serve-hedge hedges its tail): the fleet leg measures
+  one replica against all N, and --chaos adds a replica kill that
+  failover must absorb.
 
 Runs on the card; --device cpu runs on the CPU, and without a card the
 bench raises. --dtype bfloat16 trains in bfloat16 (throughput,
@@ -60,6 +66,8 @@ fails: a CPU number is never a result of the card's bench.
     python -m distributedmnist_tpu_torch.bench smoke --dtype bfloat16
     python -m distributedmnist_tpu_torch.bench serve --model lenet \\
         --checkpoint-dir ckpt --serve-infer-dtype int8
+    python -m distributedmnist_tpu_torch.bench serve --model mlp \\
+        --serve-replicas 2 --serve-hedge --chaos
 
 vs_baseline is null in every record: the root bench's targets
 (TARGET_IPS_PER_CHIP, TARGET_WALL_S) were set for a TPU, and no figure
@@ -99,22 +107,17 @@ MODES = ("throughput", "time-to-accuracy", "sweep", "smoke", "serve")
 # Flags and modes of the root bench whose machinery the port does not
 # have yet, each with the ROADMAP.md item that ports it. They exit 2.
 UNPORTED = {
-    "--serve-replicas": "section 1 item 6 (the fleet)",
-    "--serve-hedge": "section 1 item 6 (the fleet)",
-    "--cascade": "section 1 item 6 (the cascade)",
-    "--multimodel": "section 1 item 6 (tenancy)",
-    "--gateway": "section 1 item 6 (the gateway)",
-    "--trace-replay": "section 1 item 6 (workload replay)",
-    "--autoscale": "section 1 item 6 (autoscaling)",
-    "--dtype-sweep": "section 1 item 6 (the dtype-sweep leg)",
-    "--swap-during-load": "section 1 item 6 (the swap leg)",
-    "--baseline": "section 1 item 6 (bench artifacts and --baseline)",
-    "--artifact-dir": "section 1 item 6 (bench artifacts and --baseline)",
+    "--multimodel": "section 1 item 2 (tenancy)",
+    "--gateway": "section 1 item 4 (the gateway)",
+    "--trace-replay": "section 1 item 5 (workload replay)",
+    "--autoscale": "section 1 item 5 (autoscaling)",
+    "--swap-during-load": "section 1 item 3 (the swap leg)",
+    "--baseline": "section 1 item 3 (bench artifacts and --baseline)",
+    "--artifact-dir": "section 1 item 3 (bench artifacts and --baseline)",
 }
-_UNPORTED_SWITCHES = ("--dtype-sweep", "--cascade", "--autoscale",
-                      "--multimodel", "--swap-during-load", "--serve-hedge")
-_UNPORTED_VALUES = ("--trace-replay", "--serve-replicas", "--gateway",
-                    "--baseline", "--artifact-dir")
+_UNPORTED_SWITCHES = ("--autoscale", "--multimodel", "--swap-during-load")
+_UNPORTED_VALUES = ("--trace-replay", "--gateway", "--baseline",
+                    "--artifact-dir")
 
 
 def _mark(msg: str) -> None:
@@ -232,6 +235,37 @@ def _parser() -> argparse.ArgumentParser:
                         "breaker trip) driven open-loop; availability, "
                         "p99 under faults, bisection, rollback and "
                         "recompile counts")
+    p.add_argument("--serve-replicas", type=int, default=None,
+                   help="[serve] engine replicas behind the fleet "
+                        "dispatcher (serve/fleet.py); >= 2 adds the "
+                        "fleet closed-loop leg (per-replica balance + "
+                        "scaling efficiency vs one replica) and, with "
+                        "--chaos, a replica-kill storm proving failover "
+                        "rescues the killed replica's cohorts "
+                        "(default 1)")
+    p.add_argument("--serve-hedge", action="store_true", default=None,
+                   help="[serve] enable hedged tail dispatch in the "
+                        "fleet (duplicate overdue batches on a free "
+                        "healthy sibling)")
+    p.add_argument("--dtype-sweep", action="store_true", default=None,
+                   help="[serve] add the inference fast-path leg: warm "
+                        "+ parity-gate bf16 and int8 variants, then "
+                        "run f32/bf16/int8 closed-loop back-to-back in "
+                        "this process — one record with per-dtype "
+                        "img/s/chip, parity metrics, bucket cost "
+                        "tables and recompile counts (must stay 0)")
+    p.add_argument("--cascade", action="store_true", default=None,
+                   help="[serve] add the confidence-gated cascade leg: "
+                        "warm + parity-gate int8, calibrate the "
+                        "escalation threshold on the held-out batch "
+                        "(composed-accuracy gate), then run "
+                        "exact/fast/balanced (+ a stressed-threshold "
+                        "point) closed-loop back-to-back on one seeded "
+                        "stream — the goodput-vs-accuracy frontier with "
+                        "measured end-to-end agreement, escalation "
+                        "fractions, and recompile counts (must stay 0; "
+                        "bars: cascade goodput >= 1.5x f32 at "
+                        "agreement >= 0.995)")
     p.add_argument("--trace", action="store_true", default=None,
                    help="[serve] the tracing leg: open-loop traffic under "
                         "a tracer and a stage-attribution row for every "
@@ -276,7 +310,11 @@ def _parse(argv) -> argparse.Namespace:
                    "--zipf-cache-off": args.zipf_cache_off,
                    "--serve-cache": args.serve_cache,
                    "--serve-cache-capacity": args.serve_cache_capacity,
-                   "--chaos": args.chaos, "--trace": args.trace}
+                   "--chaos": args.chaos, "--trace": args.trace,
+                   "--serve-replicas": args.serve_replicas,
+                   "--serve-hedge": args.serve_hedge,
+                   "--dtype-sweep": args.dtype_sweep,
+                   "--cascade": args.cascade}
     if args.mode != "serve":
         given = [k for k, v in serve_flags.items() if v is not None]
         if given or args.serve_rows != 1:
@@ -326,6 +364,8 @@ def _parse(argv) -> argparse.Namespace:
             p.error("--serve-cache wires the cache front into the "
                     "--chaos drill (the hot-key cache leg is --zipf); "
                     "pass --chaos too")
+        if args.serve_replicas is not None and args.serve_replicas < 1:
+            p.error("--serve-replicas must be >= 1")
         if args.chaos:
             # the programmatic schedule fails here, at argparse, never
             # minutes into a run
@@ -1349,13 +1389,354 @@ def _serve_trace_leg(router, metrics, factory, make_batcher,
     }
 
 
+def _serve_fleet_leg(fleet, metrics, make_batcher, clients: int,
+                     duration: float, req) -> dict:
+    """The replica-scaling leg (the root bench's): the same fleet
+    closed-loop twice, first with every replica but r0 drained (the
+    replicas=1 baseline on the same warm engines, the drain/rejoin admin
+    path exercised under load), then whole: per-replica dispatch balance
+    (the pick must spread within 25%) and scaling efficiency (fleet
+    capacity over N x one replica's; below 1 for replicas sharing one
+    card, which the record's provenance shows)."""
+    ids = fleet.replica_ids()
+    for rid in ids[1:]:
+        fleet.drain(rid)
+    b = make_batcher(fleet.per_replica_inflight)
+    try:
+        _mark(f"fleet closed loop [1/{len(ids)} replicas]: {clients} "
+              f"clients x {duration:g}s")
+        single = _serve_closed_loop(b, metrics, [req], clients, duration)
+    finally:
+        b.stop()
+    for rid in ids[1:]:
+        fleet.rejoin(rid)
+    before = {r["id"]: r["dispatched_batches"]
+              for r in fleet.snapshot()["replicas"]}
+    b = make_batcher(fleet.max_inflight_total)
+    try:
+        _mark(f"fleet closed loop [{len(ids)} replicas]: {clients} "
+              f"clients x {duration:g}s")
+        full = _serve_closed_loop(b, metrics, [req], clients, duration)
+    finally:
+        b.stop()
+    counts = {r["id"]: r["dispatched_batches"] - before[r["id"]]
+              for r in fleet.snapshot()["replicas"]}
+    lo, hi = min(counts.values()), max(counts.values())
+    balance_ratio = round(hi / lo, 3) if lo else None
+    single_rate = single["rows_per_sec"]
+    efficiency = (round(full["rows_per_sec"]
+                        / (len(ids) * single_rate), 3)
+                  if single_rate else None)
+    leg = {
+        "replicas": len(ids),
+        "single_replica_rows_per_sec": single_rate,
+        "fleet_rows_per_sec": full["rows_per_sec"],
+        "scaling_efficiency": efficiency,
+        "per_replica_dispatches": counts,
+        "dispatch_balance_ratio": balance_ratio,
+        # the root bench's bar: per-replica dispatches within 25%
+        "balance_ok": (balance_ratio is not None
+                       and balance_ratio <= 1.25),
+        "single_latency_ms": single["latency_ms"],
+        "fleet_latency_ms": full["latency_ms"],
+    }
+    _mark(f"fleet: {single_rate:.0f} -> {full['rows_per_sec']:.0f} "
+          f"rows/s over {len(ids)} replicas (efficiency {efficiency}), "
+          f"dispatch balance {counts} (ratio {balance_ratio})")
+    return leg
+
+
+def _serve_dtype_sweep(registry, router, factory, metrics, make_batcher,
+                       compiles, pipelined: int, clients: int,
+                       duration: float) -> dict:
+    """The inference fast-path leg (the root bench's): warm and gate the
+    bfloat16 and int8 variants of the live version, then run float32,
+    bfloat16 and int8 closed-loop back to back in this process on one
+    seeded mixed-size stream (uniform sizes up to 32) with one
+    cost-derived coalescing wait: per-dtype images/s, parity verdicts,
+    cost tables and each phase's build count (0: every variant was
+    warmed and gated first). A refused variant is reported as skipped
+    with its reason, never measured."""
+    import numpy as np
+
+    from distributedmnist_tpu_torch.serve.scheduler import fit_dispatch_cost
+
+    version = registry.live_version()
+    restore_dtype = router.live_infer_dtype() or "float32"
+    max_size = min(32, factory.max_batch)
+    rng = np.random.default_rng(11)
+    sizes = [int(s) for s in rng.integers(1, max_size + 1, 256)]
+    reqs = [rng.integers(0, 256, (n, 28, 28, 1), dtype=np.uint8)
+            for n in sizes]
+    warmup_events = 0
+    skipped = {}
+    for dt in ("bfloat16", "int8"):
+        # by counter delta around the call: a variant already warmed
+        # builds nothing here, a refused one built before its gate ran
+        before_compiles = compiles.snapshot()
+        try:
+            registry.add_variant(version, dt)
+        except Exception as e:
+            skipped[dt] = f"{type(e).__name__}: {e}"
+            _mark(f"dtype sweep: {dt} variant REFUSED ({e})")
+        warmup_events += compiles.snapshot() - before_compiles
+    overhead_s, per_row_s = fit_dispatch_cost(router.bucket_costs())
+    wait_us = max(2000, int(
+        (overhead_s + per_row_s * factory.buckets[-1]) * 1e6))
+    n_chips = factory.total_chips
+    mv = registry.get(version)
+    legs = {}
+    for dt in ("float32", "bfloat16", "int8"):
+        if dt in skipped:
+            legs[dt] = {"skipped": skipped[dt]}
+            continue
+        registry.promote(version, infer_dtype=dt)
+        steady = compiles.snapshot()
+        b = make_batcher(pipelined, adaptive=False, wait_us=wait_us)
+        try:
+            _mark(f"dtype sweep closed loop [{dt}]: {clients} clients "
+                  f"x {duration:g}s, sizes U[1,{max_size}], wait "
+                  f"{wait_us}us")
+            closed = _serve_closed_loop(b, metrics, reqs, clients,
+                                        duration)
+        finally:
+            b.stop()
+        vi = mv.variants.get(dt)
+        legs[dt] = {
+            "img_s_chip": round(closed["rows_per_sec"] / n_chips, 1),
+            "requests_per_sec": closed["requests_per_sec"],
+            "latency_ms": closed["latency_ms"],
+            "mean_rows_per_batch": closed["mean_rows_per_batch"],
+            "by_dtype": closed["by_dtype"],
+            "recompiles_after_warmup": compiles.snapshot() - steady,
+            "bucket_cost_ms": {str(bk): round(c * 1e3, 3)
+                               for bk, c in sorted(
+                                   router.bucket_costs().items())},
+            "parity": vi.parity if vi is not None else None,
+        }
+        _mark(f"dtype sweep [{dt}]: {legs[dt]['img_s_chip']} img/s/chip "
+              f"(p99 {closed['latency_ms']['p99']} ms, "
+              f"{legs[dt]['recompiles_after_warmup']} recompiles)")
+    registry.promote(version, infer_dtype=restore_dtype)
+    f32 = legs.get("float32", {}).get("img_s_chip")
+    speedups = {dt: (round(leg["img_s_chip"] / f32, 3)
+                     if f32 and "img_s_chip" in leg else None)
+                for dt, leg in legs.items() if dt != "float32"}
+    measured = {dt: v for dt, v in speedups.items() if v is not None}
+    best = max(measured, key=measured.get) if measured else None
+    leg = {
+        "sizes": f"uniform[1..{max_size}]",
+        "seed": 11,
+        "coalesce_wait_us": wait_us,
+        "clients": clients,
+        "duration_s": duration,
+        "legs": legs,
+        "speedup_vs_float32": speedups,
+        "best_dtype": best,
+        "best_speedup": measured.get(best),
+        # the variants' warmup builds, for the run's recompile exclusion
+        "variant_warmup_compile_events": warmup_events,
+    }
+    _mark(f"dtype sweep: speedups vs f32 {speedups} (best {best})")
+    return leg
+
+
+def _serve_cascade_leg(registry, router, factory, metrics, make_batcher,
+                       compiles, pipelined: int, clients: int,
+                       duration: float) -> dict:
+    """The cascade leg (the root bench's): warm and gate int8, calibrate
+    the cascade on the held-out batch, then drive one seeded mixed-size
+    stream closed-loop through `exact` (the float32 baseline), `fast`
+    (the int8 ceiling), `balanced` (the cascade) and a stressed point
+    (the threshold overridden to the stream's median cheap-stage margin,
+    about half the rows escalating): the goodput-vs-accuracy frontier.
+    Each phase has its own batcher and build count (0: escalations ride
+    engines warmup built). The end-to-end argmax agreement with float32
+    is measured on the stream. A gate refusal is the leg's result
+    (skipped, with the reason)."""
+    import numpy as np
+
+    from distributedmnist_tpu_torch.serve.cascade import (CascadeFront,
+                                                          softmax_margin)
+    from distributedmnist_tpu_torch.serve.scheduler import fit_dispatch_cost
+
+    version = registry.live_version()
+    restore_dtype = router.live_infer_dtype() or "float32"
+    max_size = min(32, factory.max_batch)
+    rng = np.random.default_rng(13)
+    sizes = [int(s) for s in rng.integers(1, max_size + 1, 256)]
+    reqs = [rng.integers(0, 256, (n, 28, 28, 1), dtype=np.uint8)
+            for n in sizes]
+    before_compiles = compiles.snapshot()
+    try:
+        registry.add_variant(version, "int8")
+        state = registry.enable_cascade(version)
+    except Exception as e:
+        warmup = compiles.snapshot() - before_compiles
+        _mark(f"cascade leg: REFUSED ({e})")
+        return {"skipped": f"{type(e).__name__}: {e}",
+                "variant_warmup_compile_events": warmup}
+    warmup_events = compiles.snapshot() - before_compiles
+    calibrated = dict(state.calibration)
+    _mark(f"cascade leg: calibrated threshold "
+          f"{state.threshold:.6f} (cheap {state.cheap_dtype}, gate "
+          f"composed_agreement {calibrated.get('composed_agreement')}, "
+          f"escalation {calibrated.get('escalation_fraction')})")
+    # the frontier's ceiling on this host: the full-bucket cost ratio of
+    # float32 to the cheap stage, from the warmup tables
+    top = factory.buckets[-1]
+    registry.promote(version, infer_dtype=state.cheap_dtype)
+    cheap_costs = dict(router.bucket_costs())
+    registry.promote(version, infer_dtype="float32")
+    f32_costs = dict(router.bucket_costs())
+    compute_ceiling = (round(f32_costs[top] / cheap_costs[top], 3)
+                       if cheap_costs.get(top) and f32_costs.get(top)
+                       else None)
+    overhead_s, per_row_s = fit_dispatch_cost(f32_costs)
+    wait_us = max(2000, int(
+        (overhead_s + per_row_s * factory.buckets[-1]) * 1e6))
+    n_chips = factory.total_chips
+    _mark(f"cascade leg: host compute ceiling {compute_ceiling}x "
+          f"(f32 {round(f32_costs[top] * 1e3, 3)} ms vs "
+          f"{state.cheap_dtype} {round(cheap_costs[top] * 1e3, 3)} ms "
+          f"per {top}-row bucket)")
+
+    # measured agreement and the stressed threshold: every probe request
+    # through all three classes on one batcher
+    probe = reqs[:64]
+    agree = {"fast": 0, "balanced": 0}
+    total_rows = 0
+    margins: list = []
+    b = make_batcher(pipelined, adaptive=False, wait_us=wait_us)
+    front = CascadeFront(b, b, router, registry, metrics=metrics)
+    try:
+        for x in probe:
+            futs = {cls: front.submit(x, accuracy_class=cls)
+                    for cls in ("exact", "fast", "balanced")}
+            out = {cls: f.result(timeout=120) for cls, f in futs.items()}
+            ref = out["exact"].argmax(axis=1)
+            for cls in ("fast", "balanced"):
+                agree[cls] += int((out[cls].argmax(axis=1) == ref).sum())
+            margins.extend(
+                np.asarray(softmax_margin(out["fast"])).tolist())
+            total_rows += x.shape[0]
+        _drain_or_die(b, timeout=120)
+    finally:
+        b.stop()
+    agreement = {cls: round(n / total_rows, 5) for cls, n in agree.items()}
+    stressed_threshold = float(min(0.999999, max(
+        1e-9, float(np.median(np.asarray(margins))))))
+    _mark(f"cascade agreement vs f32 on {total_rows} rows: "
+          f"balanced {agreement['balanced']}, fast {agreement['fast']}; "
+          f"median cheap-stage margin {stressed_threshold:.6f}")
+
+    phases = [("exact", None), ("fast", None), ("balanced", None),
+              ("balanced_stressed", stressed_threshold)]
+    legs = {}
+    for name, override in phases:
+        cls = "balanced" if name == "balanced_stressed" else name
+        if override is not None:
+            try:
+                # the same composed gate judges it: a refusal is
+                # reported, never measured
+                registry.set_cascade_threshold(version, override)
+            except RuntimeError as e:
+                legs[name] = {"skipped": f"{type(e).__name__}: {e}"}
+                _mark(f"cascade [{name}]: override REFUSED ({e})")
+                continue
+        steady = compiles.snapshot()
+        b = make_batcher(pipelined, adaptive=False, wait_us=wait_us)
+        front = CascadeFront(b, b, router, registry, metrics=metrics,
+                             default_class=cls)
+        try:
+            _mark(f"cascade closed loop [{name}]: {clients} clients x "
+                  f"{duration:g}s, sizes U[1,{max_size}], wait "
+                  f"{wait_us}us")
+            closed = _serve_closed_loop(front, metrics, reqs, clients,
+                                        duration)
+        finally:
+            b.stop()
+        ca = closed.get("cascade", {})
+        legs[name] = {
+            "accuracy_class": cls,
+            "threshold": (override if override is not None
+                          else state.threshold),
+            "img_s_chip": round(closed["rows_per_sec"] / n_chips, 1),
+            "requests_per_sec": closed["requests_per_sec"],
+            "latency_ms": closed["latency_ms"],
+            "mean_rows_per_batch": closed["mean_rows_per_batch"],
+            "by_dtype": closed["by_dtype"],
+            "stage_rows": ca.get("stage_rows"),
+            "escalation_fraction": ca.get("escalation_fraction"),
+            "degraded_requests": ca.get("degraded_requests"),
+            "recompiles_after_warmup": compiles.snapshot() - steady,
+        }
+        _mark(f"cascade [{name}]: {legs[name]['img_s_chip']} img/s/chip "
+              f"(p99 {closed['latency_ms']['p99']} ms, escalation "
+              f"{legs[name]['escalation_fraction']}, "
+              f"{legs[name]['recompiles_after_warmup']} recompiles)")
+    # back to the calibrated threshold: the stressed override is an
+    # operating point of the bench, not state for a later leg
+    final_state = registry.enable_cascade(version)
+    registry.promote(version, infer_dtype=restore_dtype)
+
+    f32 = legs.get("exact", {}).get("img_s_chip")
+    goodput = {name: (round(leg["img_s_chip"] / f32, 3)
+                      if f32 and "img_s_chip" in leg else None)
+               for name, leg in legs.items() if name != "exact"}
+    cascade_goodput = goodput.get("balanced")
+    int8_goodput = goodput.get("fast")
+    efficiency = (round(cascade_goodput / int8_goodput, 3)
+                  if cascade_goodput and int8_goodput else None)
+    leg = {
+        "sizes": f"uniform[1..{max_size}]",
+        "seed": 13,
+        "coalesce_wait_us": wait_us,
+        "clients": clients,
+        "duration_s": duration,
+        "cheap_dtype": state.cheap_dtype,
+        "calibration": calibrated,
+        "stressed_threshold": stressed_threshold,
+        "agreement_vs_f32": agreement,
+        "agreement_rows": total_rows,
+        "legs": legs,
+        "goodput_vs_f32": goodput,
+        "host_full_bucket_cost_ms": {
+            "float32": round(f32_costs[top] * 1e3, 3),
+            state.cheap_dtype: round(cheap_costs[top] * 1e3, 3)},
+        "host_compute_ceiling": compute_ceiling,
+        # the root bench's bars: cascade goodput >= 1.5x float32 at
+        # >= 0.995 measured agreement, and >= 0.9x the int8 ceiling
+        "goodput_bar": 1.5,
+        "goodput_bar_reachable": (compute_ceiling is not None
+                                  and compute_ceiling >= 1.5),
+        "goodput_ok": (cascade_goodput is not None
+                       and cascade_goodput >= 1.5),
+        "cascade_efficiency_vs_fast": efficiency,
+        "efficiency_ok": efficiency is not None and efficiency >= 0.9,
+        "agreement_ok": agreement["balanced"] >= 0.995,
+        "final_threshold": final_state.threshold,
+        "variant_warmup_compile_events": warmup_events,
+    }
+    _mark(f"cascade frontier: goodput vs f32 {goodput} "
+          f"(agreement {agreement}, goodput_ok {leg['goodput_ok']}, "
+          f"efficiency vs fast {efficiency}, "
+          f"agreement_ok {leg['agreement_ok']})")
+    if not leg["goodput_bar_reachable"]:
+        _mark(f"cascade leg: the 1.5x goodput bar is out of reach on "
+              f"this host: the {state.cheap_dtype} compute ceiling is "
+              f"{compute_ceiling}x f32; goodput_ok reflects the host")
+    return leg
+
+
 def chaos_fault_spec(live_version: str, kill_target) -> str:
     """The chaos leg's fault schedule, the root bench's: request-sticky
     poison on ~1.5% of dispatches (bisection's food) and a fetch storm
     pinned to `live_version` after 40 clean batches (the forced breaker
     trip; the rollback un-matches the rule, count=200 is the backstop).
-    With `kill_target` (a fleet run) two replica-kill bursts ride along;
-    the port has no fleet yet, so its runs pass None."""
+    With `kill_target` (a fleet run) two replica-kill bursts on that
+    replica ride along: its fetches 3-6 and its dispatches 9-12 fail, and
+    failover must rescue every one."""
     spec = ("batch.dispatch:mode=request,p=0.015;"
             f"engine.fetch:p=1,count=200,after=40,version={live_version}")
     if kill_target is not None:
@@ -1413,7 +1794,9 @@ def _serve_chaos_leg(registry, router, factory, metrics, make_batcher,
     wait_us = max(int(3e6 / qps), 2000, int(
         (overhead_s + per_row_s * factory.buckets[-1]) * 1e6))
     chaos_duration = max(3.0 * duration, 6.0)
-    spec = chaos_fault_spec(live, None)
+    fleet = router if getattr(router, "n_replicas", 1) > 1 else None
+    kill_target = fleet.replica_ids()[-1] if fleet is not None else None
+    spec = chaos_fault_spec(live, kill_target)
     inj = faults.install(faults.FaultInjector.from_spec(spec, seed=23))
     _mark(f"chaos: schedule {spec!r} (seed 23), {chaos_duration:g}s open "
           f"loop at qps={qps:g}, wait {wait_us}us, fallback "
@@ -1543,9 +1926,9 @@ def _serve_chaos_leg(registry, router, factory, metrics, make_batcher,
         "live_version_after": registry.live_version(),
         "fallback_warmup_compile_events": fallback_builds,
         "recompiles_during_chaos": recompiles,
-        # the fleet's rescue counters: no fleet in the port yet
-        "failovers": None,
-        "hedges": None,
+        # the fleet's rescue counters (0 without --serve-replicas >= 2)
+        "failovers": snap["fleet"]["failovers_total"],
+        "hedges": snap["fleet"]["hedges"],
     }
     if cache is not None:
         stats = cache.stats()
@@ -1558,6 +1941,26 @@ def _serve_chaos_leg(registry, router, factory, metrics, make_batcher,
             "poison_follower_echoes": poison_echoes,
             "poison_leaders": n_poison_leaders,
             "ledger_exact": n_poison_leaders == len(poisoned) > 0,
+        }
+    if fleet is not None:
+        kill_fires = sum(
+            r["fires"] for r in inj.snapshot()["rules"]
+            if r["point"].startswith("replica."))
+        surfaced_by_point: dict = {}
+        for o in outcomes:
+            if o.startswith("injected:replica."):
+                surfaced_by_point[o] = surfaced_by_point.get(o, 0) + 1
+        leg["replica_kill"] = {
+            "target": kill_target,
+            "fires": kill_fires,
+            "surfaced_failures": n_replica,
+            "surfaced_by_point": surfaced_by_point,
+            # the storm fired and failover caught every burst: no
+            # replica fault reached a client
+            "rescued_exactly": kill_fires > 0 and n_replica == 0,
+            "failovers": dict(snap["fleet"]["failovers"]),
+            "replica_trips": snap["fleet"]["replica_trips"],
+            "fleet_after": fleet.snapshot(),
         }
     _mark(f"chaos: {n} requests — {n_ok} ok, {n_poison} poison culprits "
           f"(unique {len(poisoned)}, exact isolation "
@@ -1633,7 +2036,7 @@ def _host_provenance(factory, infer_dtype: str = "float32") -> dict:
         "device_kind": (torch.cuda.get_device_name(factory.device)
                         if on_card else "cpu"),
         "power_limit_w": _power_limit_w() if on_card else None,
-        "chip_count": 1,
+        "chip_count": factory.total_chips,
         "infer_dtype": infer_dtype,
         "fused_kernels": fused.resolve(factory.device),
         **_git_provenance(),
@@ -1657,11 +2060,20 @@ def _serve(args) -> int:
     cfg = Config(model=args.model, device=args.device,
                  checkpoint_dir=args.checkpoint_dir,
                  serve_max_batch=(args.serve_max_batch
-                                  or (128 if on_cpu else 512)))
+                                  or (128 if on_cpu else 512)),
+                 serve_replicas=args.serve_replicas or 1,
+                 serve_hedge=bool(args.serve_hedge))
     metrics = ServeMetrics()
-    registry, router, factory = build_serving(cfg)
+    registry, router, factory = build_serving(cfg, metrics=metrics)
     compiles = _BuildCounter(factory)
-    _mark(f"backend up: 1x {factory.platform}")
+    # the replica fleet (--serve-replicas >= 2): the fleet leg and the
+    # chaos replica kill hang off it, and images/s per chip divides by
+    # the fleet's distinct cards
+    fleet = router if getattr(router, "n_replicas", 1) > 1 else None
+    n_chips = factory.total_chips
+    _mark(f"backend up: {n_chips}x {factory.platform}"
+          + (f", {fleet.n_replicas} replicas" if fleet is not None
+             else ""))
     # `is None`, not `or`: an explicit 0 (no coalescing wait) is honoured
     max_wait_us = (cfg.serve_max_wait_us if args.serve_max_wait_us is None
                    else args.serve_max_wait_us)
@@ -1729,7 +2141,7 @@ def _serve(args) -> int:
               f"{duration:g}s")
         closed_serial = _serve_closed_loop(serial, metrics, [req], clients,
                                            duration)
-        serial_value = closed_serial["rows_per_sec"]
+        serial_value = closed_serial["rows_per_sec"] / n_chips
         _mark(f"closed loop [inflight=1]: {serial_value:.0f} img/s "
               f"(p99 {closed_serial['latency_ms']['p99']} ms)")
         _mark(f"open loop [inflight=1] qps={low_qps:g}")
@@ -1745,7 +2157,7 @@ def _serve(args) -> int:
               f"clients x {duration:g}s")
         closed = _serve_closed_loop(piped, metrics, [req], clients,
                                     duration)
-        value = closed["rows_per_sec"]
+        value = closed["rows_per_sec"] / n_chips
         speedup = value / max(serial_value, 1e-9)
         _mark(f"closed loop [inflight={piped.max_inflight}]: {value:.0f} "
               f"img/s (p99 {closed['latency_ms']['p99']} ms, "
@@ -1758,7 +2170,7 @@ def _serve(args) -> int:
                 "qps_target": qps,
                 "qps_submitted": round(submitted / duration, 1),
                 "requests_per_sec": snap["requests_per_sec"],
-                "img_s_chip": round(snap["rows_per_sec"], 1),
+                "img_s_chip": round(snap["rows_per_sec"] / n_chips, 1),
                 "latency_ms": snap["latency_ms"],
                 "mean_rows_per_batch": snap["mean_rows_per_batch"],
                 "batch_occupancy": snap["batch_occupancy"],
@@ -1776,9 +2188,28 @@ def _serve(args) -> int:
                                pipelined, clients, duration, low_qps,
                                max_wait_us)
 
+    # Phase 4 (fleet runs): the same warm fleet at one active replica and
+    # whole, through the admin drain/rejoin path
+    fleet_leg = None
+    if fleet is not None:
+        fleet_leg = _serve_fleet_leg(fleet, metrics, make_batcher,
+                                     clients, duration, req)
+
     # Optional legs, each on batchers of its own, after the headline
-    # phases: the fast lane, the hot-key cache, tracing, then chaos (so an
-    # injected storm cannot touch the clean numbers)
+    # phases: the dtype sweep, the cascade's frontier, the fast lane, the
+    # hot-key cache, tracing, then chaos (so an injected storm cannot
+    # touch the clean numbers). The variants' warmups are warmup, not
+    # steady-state builds.
+    dtype_sweep = None
+    if args.dtype_sweep:
+        dtype_sweep = _serve_dtype_sweep(registry, router, factory,
+                                         metrics, make_batcher, compiles,
+                                         pipelined, clients, duration)
+    cascade_leg = None
+    if args.cascade:
+        cascade_leg = _serve_cascade_leg(registry, router, factory,
+                                         metrics, make_batcher, compiles,
+                                         pipelined, clients, duration)
     lowlat_leg = None
     if args.lowlat:
         lowlat_leg = _serve_lowlat_leg(registry, router, factory, metrics,
@@ -1817,20 +2248,30 @@ def _serve(args) -> int:
         if chaos_tracer is not None:
             census = _span_census(chaos_tracer)
             n_bisect = census["spans"].get("bisect.split", 0)
+            n_rescue = (census["spans"].get("fleet.failover.fetch", 0)
+                        + census["spans"].get("fleet.failover.dispatch",
+                                              0))
+            n_rescue_parented = (
+                census["parented"].get("fleet.failover.fetch", 0)
+                + census["parented"].get("fleet.failover.dispatch", 0))
             trace_leg["chaos"] = {
                 "bisect_split_spans": n_bisect,
                 "bisect_dispatch_spans":
                     census["spans"].get("bisect.dispatch", 0),
-                "failover_rescue_spans": 0,
-                "failover_rescue_spans_parented": 0,
+                "failover_rescue_spans": n_rescue,
+                "failover_rescue_spans_parented": n_rescue_parented,
                 "deadline_shed_spans":
                     census["spans"].get("deadline.shed", 0),
                 "bisect_split_ok": n_bisect >= 1,
-                # no fleet, no rescue to show (the root bench's None for
-                # a single replica)
-                "failover_rescue_ok": None,
+                # a fleet run must show >= 1 rescue as a child span (the
+                # root bench's None on one replica)
+                "failover_rescue_ok": (
+                    n_rescue_parented >= 1 if fleet is not None
+                    else None),
             }
             _mark(f"chaos trace: {n_bisect} bisect.split spans, "
+                  f"{n_rescue} failover rescue spans "
+                  f"({n_rescue_parented} parented), "
                   f"{trace_leg['chaos']['deadline_shed_spans']} "
                   "deadline.shed spans")
 
@@ -1841,6 +2282,10 @@ def _serve(args) -> int:
         recompiles -= chaos["fallback_warmup_compile_events"]
     if lowlat_leg is not None:
         recompiles -= lowlat_leg["variant_warmup_compile_events"]
+    if dtype_sweep is not None:
+        recompiles -= dtype_sweep["variant_warmup_compile_events"]
+    if cascade_leg is not None:
+        recompiles -= cascade_leg["variant_warmup_compile_events"]
     if recompiles:
         _mark(f"WARNING: {recompiles} kernel-library loads or engine "
               "builds after warmup — steady state was to build nothing")
@@ -1856,7 +2301,7 @@ def _serve(args) -> int:
             "model": args.model,
             "dtype": args.dtype,
             "backend": factory.platform,
-            "n_chips": 1,
+            "n_chips": n_chips,
             "host": _host_provenance(factory, infer_dtype=headline_dtype),
             "buckets": list(factory.buckets),
             "max_batch": factory.max_batch,
@@ -1883,6 +2328,25 @@ def _serve(args) -> int:
             "lowlat": lowlat_leg,
             "chaos": chaos,
             "trace": trace_leg,
+            "dtype_sweep": dtype_sweep,
+            "cascade": cascade_leg,
+            # the fleet (None on one replica): where each replica runs
+            # (its own card, or a stream of its own on a shared one), the
+            # scaling leg and the fleet's state at the end
+            "replicas": ({
+                "count": fleet.n_replicas,
+                "per_replica_inflight": fleet.per_replica_inflight,
+                "per_replica_chips": factory.n_chips,
+                "disjoint_devices": (factory.total_chips
+                                     == factory.n_chips
+                                     * fleet.n_replicas),
+                "provenance": [
+                    {"id": rep.rid,
+                     "devices": [str(factory.replica_devices[i])]}
+                    for i, rep in enumerate(fleet.replicas)],
+                "fleet_leg": fleet_leg,
+                "final": fleet.snapshot(),
+            } if fleet is not None else None),
             # the overlap: pipelined capacity over the serial chain, and
             # the sub-capacity open-loop latency at both depths
             "inflight_comparison": {

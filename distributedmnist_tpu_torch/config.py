@@ -136,6 +136,17 @@ class Config:
     serve_breaker_min_requests: int = 20
     serve_breaker_ratio: float = 0.5
     serve_faults: Optional[str] = None
+    # The replica fleet (serve/fleet.py): serve_replicas > 1 puts N
+    # engine replicas (one card each when that many are visible, else N
+    # replicas on one card, each on a CUDA stream of its own) behind the
+    # health-tracked load-balancing dispatcher, with per-replica windows
+    # of serve_replica_inflight batches (None = the serve_max_inflight
+    # auto rule, per replica), failover redispatch of a batch whose
+    # replica dies, and (serve_hedge) a duplicate on a free healthy
+    # sibling for a batch already past the p95 cost estimate.
+    serve_replicas: int = 1
+    serve_replica_inflight: Optional[int] = None
+    serve_hedge: bool = False
     # Request tracing: GET /trace, X-Trace-Id, Server-Timing and the
     # per-stage histograms; serve_trace_sample head-samples which OK
     # traces are kept (errored and over-SLO ones always are),
@@ -153,6 +164,14 @@ class Config:
     # The single-request fast lane: an idle pipeline dispatches a lone
     # request on the caller's thread.
     serve_fastlane: bool = False
+    # The confidence-gated cascade (serve/cascade.py): the cheap
+    # parity-gated variant answers rows whose softmax margin clears a
+    # threshold calibrated on the held-out parity batch, the rest
+    # escalate to float32 through the coalescing path; it serves only
+    # after the composed-accuracy gate. serve_cascade_threshold
+    # overrides the calibrated threshold (the same gate judges it).
+    serve_cascade: bool = False
+    serve_cascade_threshold: Optional[float] = None
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -328,6 +347,22 @@ def add_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    help="install a fault-injection schedule "
                         "(serve/faults.py spec string); chaos testing "
                         "only — default: all failpoints inert")
+    p.add_argument("--serve-replicas", type=int, default=None,
+                   help="[serving] engine replicas behind the "
+                        "load-balancing fleet dispatcher (one card each "
+                        "when that many are visible, else replicas "
+                        "sharing one card on streams of their own); 1 = "
+                        "the single-engine path")
+    p.add_argument("--serve-replica-inflight", type=int, default=None,
+                   help="[serving] per-replica bounded in-flight window "
+                        "in batches (default: the serve-max-inflight "
+                        "auto rule, applied per replica)")
+    p.add_argument("--serve-hedge", dest="serve_hedge",
+                   action="store_true", default=None,
+                   help="[serving] hedge batches already past the p95 "
+                        "cost estimate with a duplicate dispatch on a "
+                        "free healthy sibling replica (first result "
+                        "wins)")
     p.add_argument("--serve-trace", dest="serve_trace",
                    action="store_true", default=None,
                    help="per-request span tracing: GET /trace exports "
@@ -359,6 +394,22 @@ def add_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    help="single-request fast lane: a submit that finds "
                         "the queue empty and a free in-flight slot "
                         "dispatches on the caller's thread")
+    p.add_argument("--serve-cascade", dest="serve_cascade",
+                   action="store_true", default=None,
+                   help="[serving] confidence-gated model cascade "
+                        "(serve/cascade.py): the cheap parity-gated "
+                        "variant answers rows whose softmax margin "
+                        "clears a calibrated confidence threshold; "
+                        "uncertain rows escalate to the f32 reference. "
+                        "Promotable only after the end-to-end composed-"
+                        "accuracy gate passes (PARITY.md). Per-request "
+                        "X-Accuracy-Class picks fast|balanced|exact")
+    p.add_argument("--serve-cascade-threshold", type=float, default=None,
+                   help="[serving] override the calibrated cascade "
+                        "confidence threshold (margin in [0, 1]; rows "
+                        "below it escalate). The composed-accuracy "
+                        "gate still judges the override — a failing "
+                        "value refuses the cascade loudly")
     return p
 
 

@@ -259,9 +259,12 @@ int launch(const float* x, const float* w1, const float* b1, const float* w2,
            const float* b2, float* out, int m, int k, int n2,
            cudaStream_t stream) {
   constexpr size_t smem = Layout<BM>::BYTES;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      mlp_megakernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  static split_k::DeviceOnce attributes;
+  const cudaError_t attr = attributes.get([] {
+    return cudaFuncSetAttribute(mlp_megakernel<BM>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(Layout<BM>::BYTES));
+  });
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int grid = CLUSTER * ((m + BM - 1) / BM);
   mlp_megakernel<BM><<<grid, THREADS, smem, stream>>>(

@@ -371,7 +371,8 @@ template <int BM, int BN>
 int launch_tiles(const void* x, const void* w, const void* scale,
                  const void* b, void* out, int m, int n, int k, int relu,
                  int split, cudaStream_t stream) {
-  static const cudaError_t attr = set_attributes<BM, BN>();
+  static split_k::DeviceOnce attributes;
+  const cudaError_t attr = attributes.get(set_attributes<BM, BN>);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int mtiles = (m + BM - 1) / BM;
   if (mtiles > 65535) return static_cast<int>(cudaErrorInvalidValue);

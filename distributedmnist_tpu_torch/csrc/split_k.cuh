@@ -2,15 +2,45 @@
 // quant_dense.cu) share: shared-memory tile loads (cp.async 16-byte
 // copies where a matrix's rows are 16-byte aligned, a masked element-wise
 // copy where they are not) and how a cluster deals out the elements it
-// reduces; its barriers.
+// reduces; its barriers; and the launch attributes each card needs once.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <mutex>
 #include <type_traits>
 
 namespace split_k {
+
+// A kernel's function attributes (its dynamic shared memory size, a
+// non-portable cluster size) belong to one device's context: a process
+// that launches on several cards (a serving fleet, a replica a card) must
+// set them on each. One DeviceOnce per attribute set, a static of its
+// launch site, runs `set` on the first launch on each device and keeps
+// that result for the device's later launches.
+class DeviceOnce {
+ public:
+  template <typename F>
+  cudaError_t get(F set) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    std::lock_guard<std::mutex> lock(mu_);
+    if (!done_[dev]) {
+      result_[dev] = set();
+      done_[dev] = true;
+    }
+    return result_[dev];
+  }
+
+ private:
+  static constexpr int kMaxDevices = 64;
+  std::mutex mu_;
+  bool done_[kMaxDevices] = {};
+  cudaError_t result_[kMaxDevices] = {};
+};
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));

@@ -51,6 +51,17 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _launch(t: torch.Tensor, source: str, fn: str, *args) -> None:
+    """kernel_lib.launch with `t`'s card current: a library sets its
+    kernels' attributes on the current card, and a serving fleet with a
+    replica a card launches on several cards from one process."""
+    if t.device.index in (None, torch.cuda.current_device()):
+        kernel_lib.launch(source, fn, *args)
+        return
+    with torch.cuda.device(t.device):
+        kernel_lib.launch(source, fn, *args)
+
+
 def _check(name: str, t: torch.Tensor, dtypes, ndim: int, device) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -89,8 +100,8 @@ def dense_relu_inference(x, w, b):
     n = w.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     fn = "dense_relu_f32" if x.dtype == torch.float32 else "dense_relu_bf16"
-    kernel_lib.launch("dense_relu.cu", fn, x.data_ptr(), w.data_ptr(),
-                      b.data_ptr(), out.data_ptr(), m, n, k, _stream(x))
+    _launch(x, "dense_relu.cu", fn, x.data_ptr(), w.data_ptr(),
+            b.data_ptr(), out.data_ptr(), m, n, k, _stream(x))
     LAUNCHES["dense_relu"] += 1
     return out
 
@@ -159,9 +170,9 @@ def quant_dense(x_q, w_q, scale, b, relu: bool = True):
             f"{tuple(w_q.shape)}, scale {tuple(scale.shape)}, b "
             f"{tuple(b.shape)}")
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    kernel_lib.launch("quant_dense.cu", "quant_dense_s8", x_q.data_ptr(),
-                      w_q.data_ptr(), scale.data_ptr(), b.data_ptr(),
-                      out.data_ptr(), m, n, k, int(relu), _stream(x_q))
+    _launch(x_q, "quant_dense.cu", "quant_dense_s8", x_q.data_ptr(),
+            w_q.data_ptr(), scale.data_ptr(), b.data_ptr(), out.data_ptr(),
+            m, n, k, int(relu), _stream(x_q))
     LAUNCHES["quant_dense"] += 1
     return out
 
@@ -192,9 +203,8 @@ def mlp_megakernel(x, w1, b1, w2, b2):
             f"b1 {tuple(b1.shape)}, w2 {tuple(w2.shape)}, b2 "
             f"{tuple(b2.shape)}")
     out = torch.empty((m, n2), dtype=torch.float32, device=dev)
-    kernel_lib.launch("mlp_megakernel.cu", "mlp_megakernel_f32",
-                      x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                      w2.data_ptr(), b2.data_ptr(), out.data_ptr(), m, k,
-                      hidden, n2, _stream(x))
+    _launch(x, "mlp_megakernel.cu", "mlp_megakernel_f32", x.data_ptr(),
+            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            out.data_ptr(), m, k, hidden, n2, _stream(x))
     LAUNCHES["mlp_megakernel"] += 1
     return out

@@ -20,8 +20,13 @@ Both modes wire the root serve.py's request path: the resilience policy
 fault-injection schedule (--serve-faults), the tracer (--serve-trace,
 --serve-trace-sample, --serve-trace-capacity), the prediction cache in
 front of the batcher (--serve-cache, --serve-cache-capacity,
---serve-cache-ttl-s), intra-batch dedup (--serve-dedup) and the fast
-lane (--serve-fastlane).
+--serve-cache-ttl-s), intra-batch dedup (--serve-dedup), the fast lane
+(--serve-fastlane), the replica fleet (--serve-replicas N,
+--serve-replica-inflight, --serve-hedge; serve/fleet.py) and the
+confidence cascade in front of the cache (--serve-cascade,
+--serve-cascade-threshold; serve/cascade.py), calibrated once the first
+version is live. The cascade needs one replica: on a fleet its gate is
+refused and every accuracy class serves the live route.
 
 Runs on the card; pass --device cpu to run on the CPU.
 
@@ -29,7 +34,8 @@ Runs on the card; pass --device cpu to run on the CPU.
         --synthetic --steps 1000 --checkpoint-dir ckpt
     python -m distributedmnist_tpu_torch.serve --model lenet \\
         --checkpoint-dir ckpt --selftest 256 --serve-infer-dtype int8
-    python -m distributedmnist_tpu_torch.serve --model mlp --port 8000
+    python -m distributedmnist_tpu_torch.serve --model mlp --port 8000 \\
+        --serve-replicas 2 --serve-hedge
 """
 
 from __future__ import annotations
@@ -140,6 +146,17 @@ def main(argv=None) -> int:
         p.error("--serve-cache-capacity must be >= 1")
     if args.serve_cache_ttl_s is not None and args.serve_cache_ttl_s <= 0:
         p.error("--serve-cache-ttl-s must be > 0")
+    if args.serve_replicas is not None and args.serve_replicas < 1:
+        p.error("--serve-replicas must be >= 1")
+    if (args.serve_replica_inflight is not None
+            and args.serve_replica_inflight < 1):
+        p.error("--serve-replica-inflight must be >= 1")
+    if args.serve_cascade_threshold is not None:
+        if not args.serve_cascade:
+            p.error("--serve-cascade-threshold requires --serve-cascade")
+        if not 0.0 <= args.serve_cascade_threshold <= 1.0:
+            # nan fails both comparisons and lands here too
+            p.error("--serve-cascade-threshold must be in [0, 1]")
     if args.serve_faults is not None:
         # a malformed schedule is a usage error now: it must never boot
         # a server that silently injects nothing
@@ -186,15 +203,25 @@ def main(argv=None) -> int:
                              fastlane=cfg.serve_fastlane,
                              metrics=metrics).start()
     # the submit target: the cache front when --serve-cache (the
-    # registry then invalidates it on every live-route change)
+    # registry then invalidates it on every live-route change), wrapped
+    # by the cascade front when --serve-cascade (until warm() has
+    # calibrated it, every class degrades to the live route, counted)
     front, cache = build_cache_front(cfg, batcher, router, registry,
                                      metrics=metrics)
-    log.info("dispatch pipeline depth: %d; buckets %s; device %s; fast "
-             "lane %s; cache %s; dedup %s", batcher.max_inflight,
-             list(factory.buckets), factory.device,
+    if cfg.serve_cascade:
+        from distributedmnist_tpu_torch.serve.cascade import CascadeFront
+
+        front = CascadeFront(front, batcher, router, registry,
+                             metrics=metrics, cache=cache)
+    log.info("dispatch pipeline depth: %d; buckets %s; device %s; "
+             "replicas %d%s; fast lane %s; cache %s; dedup %s; cascade "
+             "%s", batcher.max_inflight, list(factory.buckets),
+             factory.device, cfg.serve_replicas,
+             " (hedged)" if cfg.serve_hedge else "",
              "on" if cfg.serve_fastlane else "off",
              "on" if cache is not None else "off",
-             "on" if cfg.serve_dedup else "off")
+             "on" if cfg.serve_dedup else "off",
+             "on" if cfg.serve_cascade else "off")
     try:
         if args.port is None:
             warm(registry, cfg)
@@ -234,6 +261,21 @@ def warm(registry, cfg):
     pick = registry.go_live(mv.version, cfg.serve_infer_dtype)
     log.info("%s is live at %s (--serve-infer-dtype %s)", mv.version, pick,
              cfg.serve_infer_dtype)
+    if cfg.serve_cascade:
+        # the cheap variant, the calibrated threshold and the composed
+        # gate; a refusal leaves every class on the plain live route,
+        # loudly (the verdict is in GET /models)
+        try:
+            st = registry.enable_cascade(
+                mv.version, threshold=cfg.serve_cascade_threshold)
+            log.info("confidence cascade ACTIVE on %s: cheap stage %s, "
+                     "threshold %.4g (%s)", mv.version, st.cheap_dtype,
+                     st.threshold,
+                     st.calibration.get("source", "calibrated"))
+        except Exception:
+            log.exception("--serve-cascade refused on %s; every accuracy "
+                          "class serves the plain live route",
+                          mv.version)
     return mv
 
 
@@ -251,7 +293,9 @@ def http_serve(args, cfg, batcher, metrics, registry, front=None,
                         request_timeout=args.request_timeout,
                         retry_after_cap_s=cfg.serve_retry_after_cap_s,
                         infer_dtype_choice=cfg.serve_infer_dtype,
-                        front=front, cache=cache)
+                        front=front, cache=cache,
+                        cascade=cfg.serve_cascade,
+                        cascade_threshold=cfg.serve_cascade_threshold)
     signal.signal(signal.SIGTERM, lambda signum, frame: server.shutdown())
     signal.signal(signal.SIGINT, lambda signum, frame: server.shutdown())
     signal.signal(signal.SIGHUP, lambda signum, frame: server.reload())

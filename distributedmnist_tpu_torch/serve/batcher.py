@@ -33,6 +33,16 @@ input bytes) dispatch once; riders fan out from their representative's
 slice. The cross-drain sibling, the prediction cache, is serve/cache.py's
 CacheFront in front of this batcher.
 
+Routes: submit(x, route=dtype) pins the dispatch to one precision of the
+live version (the cascade's stage requests). A drain is route-uniform: a
+queue head pinned to another route than the drain's first request waits
+for the next cycle, so one batch runs one engine. Routed requests never
+take the fast lane.
+
+With a replica fleet as the engine (serve/fleet.py) the window left on
+auto opens to the fleet's aggregate, `max_inflight_total`, and every
+batch's metrics name the replica that computed it.
+
 The fast lane (`fastlane=True`): a submit that finds the queue empty and
 a free in-flight slot — one atomic choice under the queue lock
 (scheduler.fastlane_eligible plus a non-blocking slot acquire; the
@@ -101,6 +111,8 @@ class _Request:
     # and the identical requests of the same drain riding this one
     key: Optional[bytes] = None
     dups: list = field(default_factory=list)
+    # the infer_dtype the dispatch is pinned to (None = the live route)
+    route: Optional[str] = None
 
 
 class DynamicBatcher:
@@ -145,8 +157,15 @@ class DynamicBatcher:
             self.max_wait_s,
             slo_s=slo_ms / 1e3 if slo_ms is not None else None,
             max_batch=self.max_batch) if adaptive else None)
-        self.max_inflight = resolve_max_inflight(
-            max_inflight, getattr(engine, "platform", "cpu"))
+        # a fleet keeps its own per-replica windows and advertises their
+        # sum; on auto the batcher's window opens to it, so the queue
+        # keeps every replica fed. An explicit value still wins.
+        fleet_total = getattr(engine, "max_inflight_total", None)
+        if max_inflight is None and fleet_total is not None:
+            self.max_inflight = fleet_total
+        else:
+            self.max_inflight = resolve_max_inflight(
+                max_inflight, getattr(engine, "platform", "cpu"))
         self._q: deque[_Request] = deque()
         self._rows = 0                   # pending rows, watermark basis
         self._cond = make_condition("batcher.queue")
@@ -175,7 +194,8 @@ class DynamicBatcher:
         return next(self._rid)
 
     def submit(self, x, deadline_s: Optional[float] = None,
-               key: Optional[bytes] = None) -> Future:
+               key: Optional[bytes] = None,
+               route: Optional[str] = None) -> Future:
         """Enqueue up to max_batch rows; the Future resolves to their
         logits. Raises Rejected past the queue watermark, ValueError for
         a request no single dispatch could carry, and DeadlineExceeded
@@ -183,7 +203,8 @@ class DynamicBatcher:
         already: an expired request costs no queue or device work. A
         live deadline rides the request; _take_batch sheds it if it
         expires while queued. `key` is the input's sha256 when the
-        caller has it (the cache front), so the bytes hash once."""
+        caller has it (the cache front), so the bytes hash once. `route`
+        pins the dispatch to that infer_dtype (coalescing path only)."""
         x = self.engine._as_images(x)
         n = x.shape[0]
         if n > self.max_batch:
@@ -201,7 +222,7 @@ class DynamicBatcher:
             key = hashlib.sha256(x.tobytes()).digest()
         req = _Request(x=x, n=n, t_enqueue=now, rid=next(self._rid),
                        deadline=deadline_s,
-                       key=key if self.dedup else None)
+                       key=key if self.dedup else None, route=route)
         tr = trace.active()
         if tr is not None:
             # opened BEFORE the queue insert, so the dispatch thread's
@@ -223,7 +244,8 @@ class DynamicBatcher:
                 # the lane decision, atomic with admission: an empty
                 # queue AND a free window slot, which becomes this
                 # request's in-flight slot
-                if (fastlane_eligible(self.fastlane, self._rows)
+                if (route is None
+                        and fastlane_eligible(self.fastlane, self._rows)
                         and self._slots.acquire(blocking=False)):
                     fast = True
                     with self._inflight_lock:
@@ -362,7 +384,10 @@ class DynamicBatcher:
         batch = []
         taken = 0
         now = time.monotonic()
-        while self._q and taken + self._q[0].n <= self.max_batch:
+        # route-uniform: a head pinned elsewhere waits for the next drain
+        route = self._q[0].route
+        while (self._q and taken + self._q[0].n <= self.max_batch
+               and self._q[0].route == route):
             req = self._q.popleft()
             self._rows -= req.n
             if req.deadline is not None and now >= req.deadline:
@@ -375,13 +400,19 @@ class DynamicBatcher:
         if not batch:
             return None, shed
         t_plan = time.monotonic()
+        popped = batch
         all_rids = [r.rid for r in batch]
         if self.dedup:
             batch = self._dedup_batch(batch, t_plan)
         segments = self._plan(batch)
         tr = trace.active()
         if tr is not None:
-            tr.add_span("batch.coalesce", t_coalesce, now, rids=all_rids,
+            # the drain's one coalesce span starts no earlier than its
+            # latest request: one that arrived while the drain coalesced
+            # must not hold a span older than itself (its queue.wait
+            # covers its own wait)
+            t_join = max([t_coalesce] + [r.t_enqueue for r in popped])
+            tr.add_span("batch.coalesce", t_join, now, rids=all_rids,
                         rows=taken)
             tr.add_span("batch.plan", t_plan, time.monotonic(),
                         rids=all_rids, segments=len(segments))
@@ -480,7 +511,13 @@ class DynamicBatcher:
                               rows=sum(r.n for r in seg))
         try:
             failpoint("batch.dispatch", rids=[r.rid for r in seg])
-            return self.engine.dispatch([r.x for r in seg])
+            xs = [r.x for r in seg]
+            # segments are route-uniform, and bisection's retries come
+            # back through here with the same pin
+            route = seg[0].route
+            if route is None:
+                return self.engine.dispatch(xs)
+            return self.engine.dispatch(xs, infer_dtype=route)
         finally:
             trace.end_span(sp)
 
@@ -573,6 +610,7 @@ class DynamicBatcher:
                 self.metrics.record_batch(
                     rows=req.n, bucket=handle.bucket,
                     queue_depth=self.pending_rows(), version=version,
+                    replica=getattr(handle, "replica", None),
                     infer_dtype=getattr(handle, "infer_dtype", None))
                 self.metrics.record_latency(t_done - req.t_enqueue,
                                             rows=req.n, version=version)
@@ -797,9 +835,12 @@ class DynamicBatcher:
                 off += r.n
             if self.metrics is not None:
                 self.metrics.record_fetch(t_done - t0)
+                # the replica tag names the replica that COMPUTED the
+                # batch: after a failover, the sibling
                 self.metrics.record_batch(
                     rows=sum(r.n for r in batch), bucket=handle.bucket,
                     queue_depth=self.pending_rows(), version=version,
+                    replica=getattr(handle, "replica", None),
                     infer_dtype=getattr(handle, "infer_dtype", None))
                 for r in batch:
                     self.metrics.record_latency(t_done - r.t_enqueue,

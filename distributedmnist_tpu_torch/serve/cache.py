@@ -44,6 +44,13 @@ from distributedmnist_tpu_torch.serve.resilience import DeadlineExceeded
 log = logging.getLogger("distributedmnist_tpu_torch")
 
 
+def _pinned(route: Optional[str]) -> dict:
+    """The batcher submit's route argument, only when one is pinned: an
+    unrouted submit keeps the batcher's plain (x, deadline_s, key)
+    shape."""
+    return {"route": route} if route is not None else {}
+
+
 def content_key(version: Optional[str], infer_dtype: Optional[str],
                 x: np.ndarray) -> tuple:
     """The cache key: (live version, serving precision, row count,
@@ -286,7 +293,8 @@ class CacheFront:
                         lambda: None)())
 
     def submit(self, x, deadline_s: Optional[float] = None,
-               ) -> Future:
+               route: Optional[str] = None,
+               route_label: Optional[str] = None) -> Future:
         """Cache-or-collapse-or-dispatch. Returns a Future resolving to
         the request's (n, 10) logits:
 
@@ -300,8 +308,11 @@ class CacheFront:
           (the batcher owns its trace), with the result cached on
           completion unless the computing version no longer matches.
 
-        The JAX front's `route`, `route_label` and `tags` belong to
-        the cascade and tenancy, which the port has not got yet.
+        `route` pins the dispatch to a named infer_dtype (the cascade's
+        stage requests); `route_label` (the route by default) replaces
+        the live dtype in the key, so a pinned stage's bytes are keyed,
+        and only ever served, under the precision that computed them.
+        (The JAX front's `tags` belong to tenancy, ROADMAP §1 item 2.)
         """
         x = self.router._as_images(x)
         n = x.shape[0]
@@ -318,7 +329,12 @@ class CacheFront:
         if version is None:
             # warming / drained of versions: nothing to key on; the
             # pipeline's NoLiveModel 503 path is authoritative
-            return self.batcher.submit(x, deadline_s=deadline_s)
+            return self.batcher.submit(x, deadline_s=deadline_s,
+                                       **_pinned(route))
+        if route_label is None:
+            route_label = route
+        if route_label is not None:
+            infer_dtype = route_label
         key = content_key(version, infer_dtype, x)
         cache = self.cache
         tr = trace.active()
@@ -389,7 +405,7 @@ class CacheFront:
             return self._resolve_hit(hit, n, t0, deadline_s)
         if not leading:
             return follower.future
-        return self._lead(flight, x, deadline_s)
+        return self._lead(flight, x, deadline_s, route)
 
     def _resolve_hit(self, entry: _Entry, n: int, t0: float,
                      deadline_s: Optional[float]) -> Future:
@@ -422,13 +438,14 @@ class CacheFront:
         fut.set_result(np.array(entry.logits))
         return fut
 
-    def _lead(self, flight: _Flight, x, deadline_s) -> Future:
+    def _lead(self, flight: _Flight, x, deadline_s,
+              route: Optional[str] = None) -> Future:
         """Dispatch the leader through the batcher. The leader's OWN
         future is the batcher's (its trace, version tag and error
         semantics are untouched); the flight resolves from it."""
         try:
             bf = self.batcher.submit(x, deadline_s=deadline_s,
-                                     key=flight.key[3])
+                                     key=flight.key[3], **_pinned(route))
         except BaseException as e:
             # Rejected / DeadlineExceeded / stopped batcher: the flight
             # never got a computation — followers that slipped in

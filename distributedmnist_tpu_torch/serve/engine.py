@@ -40,6 +40,12 @@ max_inflight fast requests can be in flight beside the pooled pipeline.
 warmup() prices the row route against the covering bucket's pooled
 dispatch and turns it off where it is slower (`_warm_fastlane`).
 
+An engine built with a `stream` (each replica of a fleet on one card has
+its own) launches its copies and kernels on that stream and records its
+events there, so two replicas never queue behind each other; without
+one it uses the device's current stream. The stream first waits for the
+work that built the engine's parameters on the current stream.
+
 Failpoints `engine.dispatch` and `engine.fetch` (serve/faults.py) and the
 span `engine.staging` (serve/trace.py) are woven in; each is one None
 check with no injector or tracer installed.
@@ -47,6 +53,7 @@ check with no injector or tracer installed.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import statistics
@@ -129,7 +136,8 @@ class InferenceEngine:
     def __init__(self, model: str, params: dict, device="cuda",
                  max_batch: int = 512, version: Optional[str] = None,
                  infer_dtype: str = "float32",
-                 buckets: Optional[Sequence[int]] = None):
+                 buckets: Optional[Sequence[int]] = None,
+                 stream=None):
         from distributedmnist_tpu_torch import models
 
         self.device = resolve_device(device)
@@ -165,6 +173,11 @@ class InferenceEngine:
             def forward(x_u8):
                 return fast_forward(prep, x_u8)
         self._forward = forward
+        self.stream = stream
+        if stream is not None:
+            # the parameters (and their quantized forms) were written on
+            # the current stream: dispatches on this one must see them
+            stream.wait_stream(torch.cuda.current_stream(self.device))
         # Host staging pairs, one free-list per bucket: bounded by the
         # caller's dispatched-but-unfetched window, never by traffic.
         self._staging_pool: dict[int, list[_Staging]] = {
@@ -240,10 +253,18 @@ class InferenceEngine:
 
     # -- inference ---------------------------------------------------------
 
+    def _on_stream(self):
+        """The context every launch of this engine runs in: its own
+        stream (and card) when it has one, else nothing to enter."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
     def _launch(self, x_dev: torch.Tensor, out: torch.Tensor):
         """Launch the forward on `x_dev` and the copy of its logits into
-        the host buffer `out`; returns the event that marks the copy done
-        (None on the CPU, where both ran already)."""
+        the host buffer `out` (the caller is inside _on_stream); returns
+        the event that marks the copy done (None on the CPU, where both
+        ran already)."""
         logits = self._forward(x_dev)
         out.copy_(logits, non_blocking=True)
         if not self._pin:
@@ -277,7 +298,7 @@ class InferenceEngine:
                     off += p.shape[0]
                 if n < b:
                     staging.x_np[n:] = 0
-                with torch.inference_mode():
+                with torch.inference_mode(), self._on_stream():
                     x_dev = staging.x.to(self.device, non_blocking=True)
                     done = self._launch(x_dev, staging.out)
                 dispatched = True
@@ -353,7 +374,7 @@ class InferenceEngine:
             out = self._fast_out_take(b)
             dispatched = False
             try:
-                with torch.inference_mode():
+                with torch.inference_mode(), self._on_stream():
                     if n == b:
                         done = self._launch(self._stage_exact(x), out)
                     else:
@@ -450,9 +471,10 @@ class InferenceEngine:
             return
         with self._fast_row_lock:
             if self._fast_row_buf is None:
-                self._fast_row_buf = torch.zeros(
-                    (b, *IMAGE_SHAPE), dtype=torch.uint8,
-                    device=self.device)
+                with self._on_stream():   # zeroed where it is read
+                    self._fast_row_buf = torch.zeros(
+                        (b, *IMAGE_SHAPE), dtype=torch.uint8,
+                        device=self.device)
                 self._fast_row_host = torch.empty(
                     (1, *IMAGE_SHAPE), dtype=torch.uint8,
                     pin_memory=self._pin)
@@ -462,7 +484,7 @@ class InferenceEngine:
             try:
                 for i in range(4):
                     t0 = time.perf_counter()
-                    with torch.inference_mode():
+                    with torch.inference_mode(), self._on_stream():
                         done = self._launch(self._stage_row(row), out)
                     if done is not None:
                         done.synchronize()

@@ -11,9 +11,8 @@ Named failpoints are woven through the serving layers:
     registry.restore   ModelRegistry.load_latest's checkpoint restore
     registry.warmup    ModelRegistry.add's engine build + warmup
     registry.variant   ModelRegistry.add_variant's build + gate
-    replica.dispatch   the replica fleet's dispatch (kept in the known
-    replica.fetch      set so specs stay interchangeable with the JAX
-                       package's; the fleet is not ported yet)
+    replica.dispatch   ReplicaSet's per-replica dispatch (ctx replica)
+    replica.fetch      ReplicaSet's per-replica fetch (ctx replica)
 
 each a single call to failpoint(name, **ctx). With no injector installed
 that call is one module-global None check.

@@ -1,16 +1,18 @@
 """Serving observability: per-request latency percentiles, batch
 occupancy per bucket, queue depth, the staging/fetch pipeline split,
-requests/sec, the per-version and per-dtype populations, the shadow
-comparisons, the resilience counters (deadline sheds, bisection, breaker
-trips and rollbacks), the prediction cache's served populations, dedup
-and the fast lane's split — the ServeMetrics snapshot the selftest
-summary, the HTTP server's /metrics and its heartbeat lines carry (the
-port of the JAX package's serve/metrics.py, with its key names) — and
-prometheus_exposition, the same snapshot as Prometheus text.
+requests/sec, the per-version, per-replica and per-dtype populations,
+the shadow comparisons, the resilience counters (deadline sheds,
+bisection, breaker trips and rollbacks), the fleet's failovers, hedges
+and replica trips, the prediction cache's served populations, dedup, the
+fast lane's split and the cascade's classes, stages and escalations — the
+ServeMetrics snapshot the selftest summary, the HTTP server's /metrics and
+its heartbeat lines carry (the port of the JAX package's
+serve/metrics.py, with its key names) — and prometheus_exposition, the
+same snapshot as Prometheus text.
 
 The JAX snapshot's blocks of layers the port has not got yet
-(`by_replica`, `fleet`, `by_tenant`, `by_model`, `cascade`, `autoscale`)
-and their Prometheus families come with those layers.
+(`by_tenant`, `by_model`, `autoscale`) and their Prometheus families come
+with those layers (ROADMAP §1 items 2 and 5).
 
 Occupancy is rows served per bucket slot executed: low occupancy says
 the coalescing wait is too short or the traffic too bursty for the
@@ -67,7 +69,15 @@ class ServeMetrics:
             self._wait_sum_s = 0.0
             self._wait_n = 0
             self._by_version: dict[str, dict] = {}
+            # per-replica batch populations (the handle's replica tag),
+            # and the fleet's rescue counters
+            self._by_replica: dict[str, dict] = {}
             self._by_dtype: dict[str, dict] = {}
+            self._failovers: dict[str, int] = {}   # kind -> count
+            self._last_failover = None     # {"kind", "from", "to", "at"}
+            self._hedges = 0
+            self._hedge_wins = 0
+            self._replica_trips: dict[str, int] = {}   # rid -> trips
             self._dispatch_error_requests = 0
             self._fetch_error_requests = 0
             # "live->shadow" pair -> comparison totals; failed and
@@ -98,6 +108,13 @@ class ServeMetrics:
             self._dedup_rows = 0
             self._fastpath_dispatches = 0
             self._fastpath_rows = 0
+            # the cascade: requests per accuracy class, rows per stage,
+            # escalations, and requests that degraded to the live route
+            self._cascade_class: dict[str, int] = {}
+            self._cascade_stage_rows: dict[str, dict] = {}
+            self._cascade_escalated_requests = 0
+            self._cascade_escalated_rows = 0
+            self._cascade_degraded = 0
 
     # -- recording hooks (called by the batcher) ---------------------------
 
@@ -153,6 +170,36 @@ class ServeMetrics:
             self._fastpath_dispatches += 1
             self._fastpath_rows += rows
 
+    def record_cascade_class(self, accuracy_class: str) -> None:
+        """One request entered the cascade front under this class,
+        counted at submit, before any degrade or shed."""
+        with self._lock:
+            self._cascade_class[accuracy_class] = \
+                self._cascade_class.get(accuracy_class, 0) + 1
+
+    def record_cascade_stage(self, stage: str, rows: int) -> None:
+        """Rows a cascade stage answered: the cheap dtype counts every
+        stage-1 row, 'float32' only the escalated ones."""
+        with self._lock:
+            s = self._cascade_stage_rows.setdefault(
+                stage, {"rows": 0, "dispatches": 0})
+            s["rows"] += rows
+            s["dispatches"] += 1
+
+    def record_cascade_escalation(self, rows: int) -> None:
+        """A balanced request sent `rows` rows under the threshold on to
+        float32."""
+        with self._lock:
+            self._cascade_escalated_requests += 1
+            self._cascade_escalated_rows += rows
+
+    def record_cascade_degraded(self) -> None:
+        """A cascade-front request served by the plain live route (no
+        calibrated cascade on the live version): loud, never an
+        error."""
+        with self._lock:
+            self._cascade_degraded += 1
+
     def record_dedup(self, requests: int, rows: int) -> None:
         """Intra-batch dedup riders: `rows` the device did not run."""
         with self._lock:
@@ -175,7 +222,8 @@ class ServeMetrics:
             self._fetch_s.append(seconds)
 
     def record_batch(self, rows: int, bucket: int, queue_depth: int,
-                     version: str = None, infer_dtype: str = None) -> None:
+                     version: str = None, replica: str = None,
+                     infer_dtype: str = None) -> None:
         with self._lock:
             self._batches += 1
             occ = self._occupancy.setdefault(bucket, [0, 0])
@@ -187,6 +235,11 @@ class ServeMetrics:
             self._depth_max = max(self._depth_max, queue_depth)
             if version is not None:
                 self._version_stats(version)["batches"] += 1
+            if replica is not None:
+                s = self._by_replica.setdefault(replica,
+                                                {"batches": 0, "rows": 0})
+                s["batches"] += 1
+                s["rows"] += rows
             if infer_dtype is not None:
                 s = self._by_dtype.setdefault(infer_dtype,
                                               {"batches": 0, "rows": 0})
@@ -281,6 +334,33 @@ class ServeMetrics:
             self._last_rollback = {"from": from_version, "to": to_version,
                                    "at": round(time.time(), 3)}
 
+    # -- fleet hooks (called by serve/fleet.py) ----------------------------
+
+    def record_failover(self, kind: str, from_replica: str,
+                        to_replica: str) -> None:
+        """One batch rescued on a sibling after its replica died at
+        `kind` ('dispatch' or 'fetch'). "at" is wall clock, for display
+        only."""
+        with self._lock:
+            self._failovers[kind] = self._failovers.get(kind, 0) + 1
+            self._last_failover = {"kind": kind, "from": from_replica,
+                                   "to": to_replica,
+                                   "at": round(time.time(), 3)}
+
+    def record_hedge(self, win: bool) -> None:
+        """One hedged fetch resolved; win: the duplicate beat the overdue
+        primary."""
+        with self._lock:
+            self._hedges += 1
+            if win:
+                self._hedge_wins += 1
+
+    def record_replica_trip(self, replica: str) -> None:
+        """A replica's breaker tripped (excluded for its cooldown)."""
+        with self._lock:
+            self._replica_trips[replica] = (
+                self._replica_trips.get(replica, 0) + 1)
+
     # -- reporting ---------------------------------------------------------
 
     def snapshot(self) -> dict:
@@ -298,6 +378,9 @@ class ServeMetrics:
                     "batches": s["batches"], "lat": list(s["lat"])}
                 for v, s in self._by_version.items()}
             by_dtype = {d: dict(s) for d, s in self._by_dtype.items()}
+            by_replica = {r: dict(s) for r, s in self._by_replica.items()}
+            stage_rows = {st: dict(s)
+                          for st, s in self._cascade_stage_rows.items()}
             shadow_raw = {pair: dict(s) for pair, s in self._shadow.items()}
             c = {
                 "requests": self._requests, "rows": self._rows,
@@ -337,7 +420,21 @@ class ServeMetrics:
                 "dedup_rows": self._dedup_rows,
                 "fastpath_dispatches": self._fastpath_dispatches,
                 "fastpath_rows": self._fastpath_rows,
+                "failovers": dict(self._failovers),
+                "last_failover": self._last_failover,
+                "hedges": self._hedges,
+                "hedge_wins": self._hedge_wins,
+                "replica_trips": dict(self._replica_trips),
+                "cascade_class": dict(self._cascade_class),
+                "cascade_escalated_requests":
+                    self._cascade_escalated_requests,
+                "cascade_escalated_rows": self._cascade_escalated_rows,
+                "cascade_degraded": self._cascade_degraded,
             }
+        # escalated rows over cheap-stage rows (None before any cascade
+        # traffic)
+        cheap_stage_rows = sum(s["rows"] for st, s in stage_rows.items()
+                               if st != "float32")
         return {
             "window_s": round(elapsed, 3),
             "requests": c["requests"],
@@ -388,6 +485,7 @@ class ServeMetrics:
                 for pair, s in sorted(shadow_raw.items())},
             "shadow_errors": c["shadow_errors"],
             "shadow_dropped": c["shadow_dropped"],
+            "by_replica": {r: s for r, s in sorted(by_replica.items())},
             "by_dtype": {d: s for d, s in sorted(by_dtype.items())},
             "cache_served": {
                 "hit_requests": c["cache_hit_requests"],
@@ -404,6 +502,27 @@ class ServeMetrics:
                 "lane_fraction": (
                     round(c["fastpath_dispatches"] / c["requests"], 4)
                     if c["requests"] else None),
+            },
+            "cascade": {
+                "by_class": {k: v for k, v in
+                             sorted(c["cascade_class"].items())},
+                "stage_rows": {st: s for st, s in
+                               sorted(stage_rows.items())},
+                "escalated_requests": c["cascade_escalated_requests"],
+                "escalated_rows": c["cascade_escalated_rows"],
+                "degraded_requests": c["cascade_degraded"],
+                "escalation_fraction": (
+                    round(c["cascade_escalated_rows"] / cheap_stage_rows,
+                          4) if cheap_stage_rows else None),
+            },
+            "fleet": {
+                "failovers": c["failovers"],
+                "failovers_total": sum(c["failovers"].values()),
+                "last_failover": c["last_failover"],
+                "hedges": c["hedges"],
+                "hedge_wins": c["hedge_wins"],
+                "replica_trips": sum(c["replica_trips"].values()),
+                "replica_trips_by_replica": c["replica_trips"],
             },
             "resilience": {
                 "deadline_shed_requests": c["deadline_shed_requests"],
@@ -473,6 +592,8 @@ _PROM_HELP = {
         "Batches dispatched per compile bucket.",
     "dmnist_serve_version_requests_total":
         "Requests served per model version (canary separability).",
+    "dmnist_serve_replica_batches_total":
+        "Batches computed per fleet replica.",
     "dmnist_serve_dtype_batches_total":
         "Batches computed per serving precision.",
     "dmnist_serve_shadow_errors_total":
@@ -494,6 +615,13 @@ _PROM_HELP = {
         "Circuit-breaker trips attributed per model version.",
     "dmnist_serve_rollbacks_total":
         "Completed automatic rollbacks to a healthy resident.",
+    "dmnist_serve_failovers_total":
+        "Batches rescued on a sibling replica, by failure kind.",
+    "dmnist_serve_hedges_total": "Hedged duplicate dispatches raced.",
+    "dmnist_serve_hedge_wins_total":
+        "Hedge races the duplicate won (tail bought back).",
+    "dmnist_serve_replica_trips_total":
+        "Per-replica circuit-breaker trips.",
     "dmnist_serve_stage_duration_ms":
         "Per-stage request durations derived from trace spans, ms.",
     "dmnist_serve_pending_rows": "Rows pending in the batcher queue.",
@@ -537,6 +665,23 @@ _PROM_HELP = {
     "dmnist_serve_cache_expired_total":
         "Cache entries that aged past the TTL (expired hits count "
         "as misses).",
+    "dmnist_serve_cascade_requests_total":
+        "Requests entering the cascade front, by accuracy class "
+        "(X-Accuracy-Class: fast / balanced / exact).",
+    "dmnist_serve_cascade_stage_rows_total":
+        "Rows answered per cascade stage (the cheap dtype counts every "
+        "stage-1 row, float32 only the escalated slice).",
+    "dmnist_serve_cascade_escalated_requests_total":
+        "Balanced requests with at least one row under the calibrated "
+        "margin threshold (re-submitted to f32).",
+    "dmnist_serve_cascade_escalated_rows_total":
+        "Rows escalated to the f32 stage.",
+    "dmnist_serve_cascade_escalation_fraction":
+        "Escalated rows over cheap-stage rows: the fraction of "
+        "stage-1 work the calibrated threshold sent on to f32.",
+    "dmnist_serve_cascade_degraded_total":
+        "Cascade-front requests served by the plain live route "
+        "(no calibrated cascade on the live version).",
 }
 
 
@@ -618,6 +763,9 @@ def prometheus_exposition(snapshot: dict, trace_stages: dict = None,
     emit("dmnist_serve_version_requests_total", "counter",
          [({"version": v}, vs.get("requests"))
           for v, vs in s.get("by_version", {}).items()])
+    emit("dmnist_serve_replica_batches_total", "counter",
+         [({"replica": r}, rs.get("batches"))
+          for r, rs in s.get("by_replica", {}).items()])
     emit("dmnist_serve_dtype_batches_total", "counter",
          [({"dtype": d}, ds.get("batches"))
           for d, ds in s.get("by_dtype", {}).items()])
@@ -642,6 +790,16 @@ def prometheus_exposition(snapshot: dict, trace_stages: dict = None,
           res.get("breaker_trips_by_version", {}).items()])
     emit("dmnist_serve_rollbacks_total", "counter",
          [({}, res.get("rollbacks"))])
+    fleet = s.get("fleet", {})
+    emit("dmnist_serve_failovers_total", "counter",
+         [({"kind": k}, n) for k, n in fleet.get("failovers", {}).items()])
+    emit("dmnist_serve_hedges_total", "counter",
+         [({}, fleet.get("hedges"))])
+    emit("dmnist_serve_hedge_wins_total", "counter",
+         [({}, fleet.get("hedge_wins"))])
+    emit("dmnist_serve_replica_trips_total", "counter",
+         [({"replica": r}, n) for r, n in
+          fleet.get("replica_trips_by_replica", {}).items()])
     dd = s.get("dedup", {})
     emit("dmnist_serve_dedup_requests_total", "counter",
          [({}, dd.get("requests"))])
@@ -653,6 +811,21 @@ def prometheus_exposition(snapshot: dict, trace_stages: dict = None,
          [({}, fp.get("rows"))])
     emit("dmnist_serve_fastpath_lane_fraction", "gauge",
          [({}, fp.get("lane_fraction"))])
+    ca = s.get("cascade", {})
+    emit("dmnist_serve_cascade_requests_total", "counter",
+         [({"accuracy_class": cls}, n)
+          for cls, n in sorted(ca.get("by_class", {}).items())])
+    emit("dmnist_serve_cascade_stage_rows_total", "counter",
+         [({"stage": st}, v.get("rows"))
+          for st, v in sorted(ca.get("stage_rows", {}).items())])
+    emit("dmnist_serve_cascade_escalated_requests_total", "counter",
+         [({}, ca.get("escalated_requests"))])
+    emit("dmnist_serve_cascade_escalated_rows_total", "counter",
+         [({}, ca.get("escalated_rows"))])
+    emit("dmnist_serve_cascade_escalation_fraction", "gauge",
+         [({}, ca.get("escalation_fraction"))])
+    emit("dmnist_serve_cascade_degraded_total", "counter",
+         [({}, ca.get("degraded_requests"))])
     if cache:
         for name, mtype, key in (
                 ("dmnist_serve_cache_hits_total", "counter", "hits"),

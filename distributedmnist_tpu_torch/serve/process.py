@@ -80,10 +80,11 @@ class ServerProcess:
         return self.err.read()[-tail:]
 
     def call(self, path: str, data: Optional[bytes] = None,
-             json_body=None, timeout: float = 120.0) -> tuple[int, dict]:
-        """(status, parsed JSON body) of one request; HTTP errors
-        included. A body makes it a POST."""
-        headers = {}
+             json_body=None, timeout: float = 120.0,
+             headers: Optional[dict] = None) -> tuple[int, dict]:
+        """(status, parsed JSON body) of one request, with `headers`;
+        HTTP errors included. A body makes it a POST."""
+        headers = dict(headers or {})
         if json_body is not None:
             data = json.dumps(json_body).encode()
             headers["Content-Type"] = "application/json"

@@ -21,12 +21,29 @@ and add() refuses a newcomer up front when every resident version holds
 one. All versions share one EngineFactory — model, device, bucket
 ladder — so a swap never changes the shapes the kernels run at.
 
+**Replicas**: with a ReplicaSet in the router's slot (serve/fleet.py,
+`build_serving` with serve_replicas > 1) every version and variant warms
+one engine per replica, each proved warm on its own, and every route
+change fans the whole list out, so a roll moves the entire fleet. The
+factory places replica i on card i when at least N cards are visible,
+else every replica on one card, each on a CUDA stream of its own.
+
+**The cascade** (serve/cascade.py): enable_cascade() builds the cheap
+variant, calibrates the confidence threshold on the held-out batch and
+runs the composed-accuracy gate; set_cascade_threshold() and promote's
+`cascade_threshold` judge an operator's override by the same gate;
+cascade_plan() is the CascadeFront's per-request read. The live route
+carries an alternates table (the float32 base and every ready variant of
+the live version) for the cascade's pinned dispatches. A fleet front has
+no alternates, so a cascade on it is refused, as the JAX registry
+refuses it.
+
 set_cache() installs the prediction cache (serve/cache.py), which every
 live-route change invalidates under the state lock, atomically with the
-swap: promote, rollback, dtype activation and a re-gate's demotion. The
-failpoints `registry.restore`, `registry.warmup` and `registry.variant`
-(serve/faults.py) drive the failed-version bookkeeping on demand. Not
-ported yet: replicas and the cascade (ROADMAP §1 item 6).
+swap: promote, rollback, dtype activation, a re-gate's demotion and a
+cascade change. The failpoints `registry.restore`, `registry.warmup` and
+`registry.variant` (serve/faults.py) drive the failed-version
+bookkeeping on demand.
 """
 
 from __future__ import annotations
@@ -41,9 +58,11 @@ import numpy as np
 
 from distributedmnist_tpu_torch import checkpoint
 from distributedmnist_tpu_torch.analysis.locks import make_lock, make_rlock
+from distributedmnist_tpu_torch.serve import cascade as cascade_mod
 from distributedmnist_tpu_torch.serve.engine import (InferenceEngine,
                                                      make_buckets)
 from distributedmnist_tpu_torch.serve.faults import failpoint
+from distributedmnist_tpu_torch.serve.fleet import ReplicaSet
 from distributedmnist_tpu_torch.serve.quantize import (  # noqa: F401
     PARITY_ROWS, PARITY_SEED, variant_supported)
 from distributedmnist_tpu_torch.serve.router import Router
@@ -72,7 +91,9 @@ class VariantInfo:
 
     infer_dtype: str
     state: str = "warming"
-    engine: Any = None
+    engine: Any = None             # replica 0's engine
+    # one warmed engine per fleet replica ([engine] on one replica)
+    engines: list = dataclasses.field(default_factory=list)
     warmup_builds: int = 0
     warmup_s: float = 0.0
     parity: Optional[dict] = None
@@ -82,13 +103,14 @@ class VariantInfo:
         return {"infer_dtype": self.infer_dtype, "state": self.state,
                 "warmup_builds": self.warmup_builds,
                 "warmup_s": round(self.warmup_s, 3), "parity": self.parity,
-                "last_error": self.last_error}
+                "last_error": self.last_error,
+                "replica_engines": len(self.engines)}
 
 
 @dataclasses.dataclass
 class ModelVersion:
     version: str
-    engine: Any                    # None until warm
+    engine: Any                    # replica 0's engine, None until warm
     state: str                     # warming | ready | live | failed
     source: str                    # "checkpoint <dir>" | "fresh-init" | ...
     step: Optional[int] = None     # checkpoint step, when from disk
@@ -99,6 +121,12 @@ class ModelVersion:
     warmup_s: float = 0.0
     last_error: Optional[str] = None
     variants: dict = dataclasses.field(default_factory=dict)
+    # one warmed engine per fleet replica ([engine] on one replica):
+    # routes fan the whole list out
+    engines: list = dataclasses.field(default_factory=list)
+    # the calibrated cascade (serve/cascade.CascadeState) once
+    # enable_cascade's gate passed; None otherwise
+    cascade: Any = None
 
     def describe(self) -> dict:
         return {
@@ -111,21 +139,48 @@ class ModelVersion:
                 str(b): round(c * 1e3, 3)
                 for b, c in sorted(self.engine.bucket_costs().items())}
                 if self.engine is not None else None),
+            "replica_engines": len(self.engines),
             "variants": {dt: v.describe()
                          for dt, v in sorted(self.variants.items())},
+            "cascade": (self.cascade.describe()
+                        if self.cascade is not None else None),
         }
 
 
 class EngineFactory:
-    """Builds shape-identical InferenceEngines: one model, one device, one
-    bucket ladder for every version."""
+    """Builds shape-identical InferenceEngines, one per (version, fleet
+    replica): one model, one bucket ladder for every version.
 
-    def __init__(self, model: str, device="cuda", max_batch: int = 512):
+    With `replicas` > 1 on the card, replica i runs on card i when at
+    least `replicas` cards are visible; otherwise every replica runs on
+    the factory's card, each engine of replica i launching on replica
+    i's own CUDA stream. On the CPU the replicas are logical: separate
+    engines and staging pools on one device. `total_chips` counts the
+    distinct cards (or 1 on the CPU)."""
+
+    def __init__(self, model: str, device="cuda", max_batch: int = 512,
+                 replicas: int = 1):
+        if replicas < 1:
+            raise ValueError(f"replicas must be >= 1, got {replicas}")
         self.model = model
         self.device = resolve_device(device)
         self.platform = self.device.type
         self.max_batch = max_batch
         self.buckets = make_buckets(max_batch)
+        self.replicas = replicas
+        self.n_chips = 1                    # per replica
+        self.replica_devices = [self.device] * replicas
+        self.replica_streams = [None] * replicas
+        if self.device.type == "cuda" and replicas > 1:
+            import torch
+
+            if torch.cuda.device_count() >= replicas:
+                self.replica_devices = [torch.device("cuda", i)
+                                        for i in range(replicas)]
+            self.replica_streams = [torch.cuda.Stream(device=d)
+                                    for d in self.replica_devices]
+        self.total_chips = len({(d.type, d.index)
+                                for d in self.replica_devices})
         # engines built so far: with the kernel-library loads, the
         # process's build count (the HTTP server's compiles_total)
         self.engine_builds = 0
@@ -139,16 +194,34 @@ class EngineFactory:
             return torch.cuda.get_device_name(self.device)
         return "cpu"
 
-    def make_router(self, metrics=None, seed: int = 0) -> Router:
+    def make_router(self, metrics=None, seed: int = 0,
+                    replica: Optional[str] = None) -> Router:
         return Router(self.max_batch, self.buckets, self.platform,
-                      metrics=metrics, seed=seed)
+                      n_chips=self.n_chips, metrics=metrics, seed=seed,
+                      replica=replica)
+
+    def make_fleet(self, metrics=None, seed: int = 0,
+                   per_replica_inflight: Optional[int] = None,
+                   hedge: bool = False):
+        """The N-replica dispatcher (serve/fleet.py): one Router per
+        replica, labelled rN and seeded apart so canary and shadow draws
+        never lockstep across replicas."""
+        routers = [self.make_router(metrics=metrics, seed=seed + i,
+                                    replica=f"r{i}")
+                   for i in range(self.replicas)]
+        return ReplicaSet(routers, metrics=metrics,
+                          per_replica_inflight=per_replica_inflight,
+                          hedge=hedge)
 
     def make_engine(self, params, version: str,
-                    infer_dtype: str = "float32") -> InferenceEngine:
+                    infer_dtype: str = "float32",
+                    replica: int = 0) -> InferenceEngine:
         self.engine_builds += 1
-        return InferenceEngine(self.model, params, device=self.device,
+        return InferenceEngine(self.model, params,
+                               device=self.replica_devices[replica],
                                max_batch=self.max_batch, version=version,
-                               infer_dtype=infer_dtype)
+                               infer_dtype=infer_dtype,
+                               stream=self.replica_streams[replica])
 
     def init_params(self, seed: int = 0) -> dict:
         """Fresh-init parameters (a seeded CPU generator, so the values do
@@ -186,6 +259,9 @@ class ModelRegistry:
         self.router = router
         self.checkpoint_dir = checkpoint_dir
         self.max_versions = max_versions
+        # a ReplicaSet router: every version warms one engine a replica
+        # and every route change fans the list out
+        self.n_replicas = getattr(router, "n_replicas", 1)
         self._versions: dict[str, ModelVersion] = {}   # insertion-ordered
         self._admin = make_rlock("registry.admin")
         self._state = make_lock("registry.state")
@@ -202,14 +278,38 @@ class ModelRegistry:
         it)."""
         self._cache = cache
 
-    def _set_live(self, engine, version: str) -> None:
-        """The one live-route swap, with the cache's invalidation: cached
-        bytes are keyed by the live route, so the flush reclaims entries
-        the new route can no longer reach and bumps the epoch that drops
-        in-flight inserts which raced the swap."""
-        self.router.set_live(engine, version)
-        if self._cache is not None:
-            self._cache.invalidate(reason=f"live -> {version}")
+    def _route_set(self, kind: str, mv: ModelVersion,
+                   fraction: Optional[float] = None,
+                   engines: Optional[list] = None) -> None:
+        """One route change, fanned out: a ReplicaSet takes the whole
+        per-replica engine list under its pick lock, a Router the single
+        engine. `engines` overrides the version's base list (a variant
+        serving under the version's name). A live change on a Router
+        carries the alternates table (the float32 base and every ready
+        variant of this version, for pinned dispatches) and invalidates
+        the cache: cached bytes are keyed by the live route, so the flush
+        reclaims entries the new route can no longer reach and bumps the
+        epoch that drops in-flight inserts which raced the swap."""
+        engines = mv.engines if engines is None else engines
+        target = list(engines) if self.n_replicas > 1 else engines[0]
+        if kind == "live":
+            if (self.n_replicas == 1
+                    and getattr(self.router, "supports_alternates",
+                                False)):
+                alternates = {"float32": mv.engines[0]}
+                for dt, vi in mv.variants.items():
+                    if vi.state == "ready" and vi.engines:
+                        alternates[dt] = vi.engines[0]
+                self.router.set_live(target, mv.version,
+                                     alternates=alternates)
+            else:
+                self.router.set_live(target, mv.version)
+            if self._cache is not None:
+                self._cache.invalidate(reason=f"live -> {mv.version}")
+        elif kind == "shadow":
+            self.router.set_shadow(target, mv.version, fraction)
+        else:
+            self.router.set_canary(target, mv.version, fraction)
 
     def _warm(self, engine: InferenceEngine, what: str) -> int:
         """Warm `engine`, then prove it warm: a second warmup must
@@ -222,6 +322,21 @@ class ModelRegistry:
                 "build(s) on the verification warmup pass — refusing to "
                 "mark it promotable")
         return builds
+
+    def _build_warm(self, params, version: str, infer_dtype: str,
+                    what: str) -> tuple[list, int]:
+        """One engine a replica, each proved warm on its own (promote fans
+        out, so one cold replica would poison the fleet): (engines, kernel
+        library builds)."""
+        engines, builds = [], 0
+        for i in range(self.n_replicas):
+            engine = self.factory.make_engine(params, version,
+                                              infer_dtype=infer_dtype,
+                                              replica=i)
+            where = f" (replica {i})" if self.n_replicas > 1 else ""
+            builds += self._warm(engine, what + where)
+            engines.append(engine)
+        return engines, builds
 
     # -- loading -----------------------------------------------------------
 
@@ -260,14 +375,16 @@ class ModelRegistry:
             try:
                 t0 = time.perf_counter()
                 failpoint("registry.warmup", version=version)
-                engine = self.factory.make_engine(params, version)
-                mv.warmup_builds = self._warm(engine, f"version {version!r}")
-                mv.engine = engine
+                engines, mv.warmup_builds = self._build_warm(
+                    params, version, "float32", f"version {version!r}")
+                mv.engines = engines
+                mv.engine = engines[0]
                 mv.warmup_s = time.perf_counter() - t0
                 mv.state = "ready"
             except Exception as e:
                 mv.state = "failed"
                 mv.engine = None
+                mv.engines = []
                 mv.last_error = f"warmup: {type(e).__name__}: {e}"
                 raise
             with self._state:
@@ -419,10 +536,10 @@ class ModelRegistry:
                 t0 = time.perf_counter()
                 failpoint("registry.variant", version=version,
                           dtype=infer_dtype)
-                engine = self.factory.make_engine(
-                    mv.engine.params, version, infer_dtype=infer_dtype)
-                vi.warmup_builds = self._warm(
-                    engine, f"variant {infer_dtype!r} of {version!r}")
+                engines, vi.warmup_builds = self._build_warm(
+                    mv.engine.params, version, infer_dtype,
+                    f"variant {infer_dtype!r} of {version!r}")
+                engine = engines[0]
                 x = self._parity_batch()
                 ref = mv.engine.infer(x)
                 cand = engine.infer(x)
@@ -433,12 +550,14 @@ class ModelRegistry:
                     raise ParityRefused(
                         f"parity gate REFUSED {infer_dtype!r} variant of "
                         f"{version!r}: {vi.parity['why']}")
+                vi.engines = engines
                 vi.engine = engine
                 vi.warmup_s = time.perf_counter() - t0
                 vi.state = "ready"
             except Exception as e:
                 vi.state = "failed"
                 vi.engine = None
+                vi.engines = []
                 vi.last_error = f"{type(e).__name__}: {e}"
                 raise
             log.info("registry: %s variant %s ready (%.2fs; parity agree=%s "
@@ -467,7 +586,7 @@ class ModelRegistry:
         if (self.router.live_version() == mv.version
                 and self.router.live_infer_dtype() == dt):
             with self._state:
-                self._set_live(mv.engine, mv.version)
+                self._route_set("live", mv)
                 # "at" is wall clock, for display only
                 self._events.append({
                     "event": "variant_demoted", "version": mv.version,
@@ -475,8 +594,9 @@ class ModelRegistry:
                     "reason": vi.last_error, "at": round(time.time(), 3)})
             log.warning("registry: live variant %s of %s demoted to "
                         "float32 (%s)", dt, mv.version, vi.parity["why"])
-        # batches in flight keep the engine alive through their handles
+        # batches in flight keep the engines alive through their handles
         vi.engine = None
+        vi.engines = []
         raise ParityRefused(vi.last_error)
 
     def cheapest_variant(self, version: str) -> str:
@@ -540,32 +660,206 @@ class ModelRegistry:
         self.promote(version)
         return "float32"
 
+    # -- the confidence cascade ---------------------------------------------
+
+    def _cascade_gate(self, mv: ModelVersion, vi: VariantInfo,
+                      threshold: Optional[float] = None,
+                      max_escalation: float = 0.5) -> dict:
+        """The cascade's gate: the held-out batch through the float32
+        engine and the cheap variant, then calibrate (or, given
+        `threshold`, judge) the threshold so that the COMPOSED answer
+        agrees with float32 within the variant's own agreement bar."""
+        x = self._parity_batch()
+        ref = mv.engines[0].infer(x)
+        cheap = vi.engines[0].infer(x)
+        return cascade_mod.calibrate(
+            np.asarray(ref), np.asarray(cheap),
+            min_agreement=PARITY_GATES[vi.infer_dtype][0],
+            threshold=threshold, max_escalation=max_escalation)
+
+    def _refresh_live_routes(self, mv: ModelVersion) -> None:
+        """Re-set the live route on `mv` (same engines, current
+        alternates) and flush the cache, after a cascade change, so
+        pinned routes and composed entries never serve a stale
+        calibration."""
+        live_dt = self.router.live_infer_dtype()
+        engines = None
+        if live_dt not in (None, "float32"):
+            lvi = mv.variants.get(live_dt)
+            if lvi is not None and lvi.engines:
+                engines = lvi.engines
+        self._route_set("live", mv, engines=engines)
+
+    def enable_cascade(self, version: Optional[str] = None,
+                       cheap_dtype: str = "auto",
+                       threshold: Optional[float] = None,
+                       max_escalation: float = 0.5):
+        """Calibrate and gate a confidence cascade on `version` (default:
+        the live one). `cheap_dtype` 'auto' takes the cheapest ready
+        non-float32 variant by warmup-measured bucket cost (int8 when
+        none is ready yet); an explicit dtype is warmed and gated by
+        add_variant first. `threshold` overrides the calibration search
+        and faces the same gate. Returns the CascadeState now active;
+        raises RuntimeError when the gate refuses (the version's cascade
+        cleared, the refusal recorded as an event) or the router cannot
+        resolve pinned routes (a fleet front)."""
+        with self._admin:
+            if not getattr(self.router, "supports_alternates", False):
+                raise RuntimeError(
+                    "router does not support pinned-route alternates "
+                    "(fleet front / engine double); a cascade needs "
+                    "per-dtype dispatch on one routing table")
+            if version is None:
+                version = self.router.live_version()
+                if version is None:
+                    raise RuntimeError(
+                        "no live version to enable a cascade on")
+            with self._state:
+                mv = self._get(version)
+                if mv.state not in ("ready", "live"):
+                    raise RuntimeError(
+                        f"version {version!r} is {mv.state!r}; a cascade "
+                        "hangs off a warmed version")
+                ready = {dt: vi for dt, vi in mv.variants.items()
+                         if vi.state == "ready" and vi.engines}
+            if cheap_dtype == "auto":
+                if ready:
+                    def price(vi) -> float:
+                        costs = vi.engine.bucket_costs()
+                        return (sum(costs.values()) if costs
+                                else float("inf"))
+                    cheap_dtype = min(ready,
+                                      key=lambda dt: price(ready[dt]))
+                else:
+                    cheap_dtype = "int8"
+            if cheap_dtype in (None, "float32"):
+                raise ValueError(
+                    "the cascade's cheap stage must be a low-precision "
+                    f"variant, not {cheap_dtype!r}")
+            # checks the dtype, warms and gates once; a refusal raises
+            vi = self.add_variant(version, cheap_dtype)
+            rec = self._cascade_gate(mv, vi, threshold=threshold,
+                                     max_escalation=max_escalation)
+            if not rec["passed"]:
+                with self._state:
+                    mv.cascade = None
+                    self._events.append({
+                        "event": "cascade_refused", "version": version,
+                        "cheap_dtype": cheap_dtype, "reason": rec["why"],
+                        "at": round(time.time(), 3)})
+                raise RuntimeError(
+                    f"cascade-accuracy gate REFUSED {cheap_dtype!r} "
+                    f"cascade of {version!r}: {rec['why']}")
+            state = cascade_mod.CascadeState(
+                cheap_dtype=cheap_dtype, threshold=rec["threshold"],
+                calibration=rec)
+            with self._state:
+                mv.cascade = state
+                self._events.append({
+                    "event": "cascade_enabled", "version": version,
+                    "cheap_dtype": cheap_dtype,
+                    "threshold": round(rec["threshold"], 6),
+                    "escalation_fraction": rec["escalation_fraction"],
+                    "at": round(time.time(), 3)})
+            if self.router.live_version() == version:
+                self._refresh_live_routes(mv)
+            log.info("registry: cascade enabled on %s (%s, threshold %.4f, "
+                     "composed agreement %s, escalating %.1f%% of the "
+                     "calibration batch)", version, cheap_dtype,
+                     rec["threshold"], rec["composed_agreement"],
+                     100 * rec["escalation_fraction"])
+            return state
+
+    def set_cascade_threshold(self, version: str, threshold: float):
+        """Judge `version`'s cascade again at an operator's threshold
+        (promote's `cascade_threshold`), by the same composed gate; a
+        refusal raises RuntimeError (409) and keeps the previous
+        state."""
+        with self._admin:
+            with self._state:
+                mv = self._get(version)
+                state = mv.cascade
+            if state is None:
+                raise RuntimeError(
+                    f"version {version!r} has no cascade to "
+                    "re-threshold; enable one first")
+            vi = mv.variants.get(state.cheap_dtype)
+            if vi is None or vi.state != "ready" or not vi.engines:
+                raise RuntimeError(
+                    f"cascade variant {state.cheap_dtype!r} of "
+                    f"{version!r} is no longer ready; re-enable the "
+                    "cascade")
+            rec = self._cascade_gate(
+                mv, vi, threshold=threshold,
+                max_escalation=state.calibration.get("max_escalation",
+                                                     0.5))
+            if not rec["passed"]:
+                raise RuntimeError(
+                    f"cascade threshold override {threshold!r} REFUSED "
+                    f"for {version!r}: {rec['why']}")
+            new = cascade_mod.CascadeState(
+                cheap_dtype=state.cheap_dtype,
+                threshold=rec["threshold"], calibration=rec)
+            with self._state:
+                mv.cascade = new
+                self._events.append({
+                    "event": "cascade_threshold_set", "version": version,
+                    "threshold": round(rec["threshold"], 6),
+                    "at": round(time.time(), 3)})
+            if self.router.live_version() == version:
+                self._refresh_live_routes(mv)
+            return new
+
+    def cascade_plan(self) -> Optional[tuple]:
+        """(live version, CascadeState) when the live version has a
+        calibrated cascade (the CascadeFront's read on every request),
+        else None: every class then degrades to the live route."""
+        live = self.router.live_version()
+        if live is None:
+            return None
+        with self._state:
+            mv = self._versions.get(live)
+            if mv is None or mv.cascade is None:
+                return None
+            return (live, mv.cascade)
+
     # -- routing -----------------------------------------------------------
 
     def promote(self, version: str,
-                infer_dtype: Optional[str] = None) -> ModelVersion:
+                infer_dtype: Optional[str] = None,
+                cascade_threshold: Optional[float] = None
+                ) -> ModelVersion:
         """Atomic hot-swap: `version` (warmed: 'ready' or already 'live')
-        becomes the live target, through its float32 engine or, with
+        becomes the live target, through its float32 engines or, with
         `infer_dtype`, one of its parity-passing ready variants. The
-        demoted version stays resident in state 'ready'."""
-        with self._admin, self._state:
+        demoted version stays resident in state 'ready'.
+        `cascade_threshold` first judges the version's cascade at that
+        threshold; a refusal aborts the promote (the old live stays)."""
+        with self._admin:
+            if cascade_threshold is not None:
+                self.set_cascade_threshold(version, cascade_threshold)
+            return self._promote_locked(version, infer_dtype)
+
+    def _promote_locked(self, version: str,
+                        infer_dtype: Optional[str]) -> ModelVersion:
+        with self._state:
             mv = self._get(version)
             if mv.state not in ("ready", "live"):
                 raise RuntimeError(
                     f"version {version!r} is {mv.state!r}; only a warmed "
                     "('ready') version may take live traffic")
-            engine = mv.engine
+            engines = None
             if infer_dtype not in (None, "float32"):
                 vi = mv.variants.get(infer_dtype)
-                if vi is None or vi.state != "ready" or vi.engine is None:
+                if vi is None or vi.state != "ready" or not vi.engines:
                     why = vi.last_error if vi is not None else "never warmed"
                     raise RuntimeError(
                         f"variant {infer_dtype!r} of {version!r} is not "
                         f"promotable ({why}); only a parity-passing ready "
                         "variant may take traffic")
-                engine = vi.engine
+                engines = vi.engines
             prev = self.router.live_version()
-            self._set_live(engine, version)
+            self._route_set("live", mv, engines=engines)
             mv.state = "live"
             if prev is not None and prev != version:
                 old = self._versions.get(prev)
@@ -592,7 +886,7 @@ class ModelRegistry:
             candidates = [
                 mv for name, mv in self._versions.items()
                 if name != from_version and mv.state == "ready"
-                and mv.engine is not None and mv.last_error is None]
+                and mv.engines and mv.last_error is None]
             # "at" is wall clock, for display only
             event = {"from": from_version, "reason": reason,
                      "at": round(time.time(), 3)}
@@ -604,7 +898,7 @@ class ModelRegistry:
                           reason)
                 return None
             target = max(candidates, key=lambda mv: mv.loaded_mono)
-            self._set_live(target.engine, target.version)
+            self._route_set("live", target)
             target.state = "live"
             old = self._versions.get(from_version)
             if old is not None:
@@ -632,7 +926,7 @@ class ModelRegistry:
                 raise RuntimeError(
                     f"version {version!r} is {mv.state!r}; only a warmed "
                     "non-live version can shadow")
-            self.router.set_shadow(mv.engine, mv.version, fraction)
+            self._route_set("shadow", mv, fraction)
             return mv
 
     def set_canary(self, version: str, fraction: float = 0.1
@@ -645,7 +939,7 @@ class ModelRegistry:
                 raise RuntimeError(
                     f"version {version!r} is {mv.state!r}; only a warmed "
                     "non-live version can take canary traffic")
-            self.router.set_canary(mv.engine, mv.version, fraction)
+            self._route_set("canary", mv, fraction)
             return mv
 
     def clear_candidates(self) -> None:
@@ -680,6 +974,7 @@ class ModelRegistry:
                 "buckets": list(self.factory.buckets),
                 "max_batch": self.factory.max_batch,
                 "device": str(self.factory.device),
+                "replicas": self.n_replicas,
             }
 
     # -- eviction ----------------------------------------------------------
@@ -709,15 +1004,24 @@ def build_serving(cfg, metrics=None):
     """(registry, router, factory) from a Config: `cfg.model` (mlp or
     lenet), its device, bucket ladder, checkpoint_dir and
     serve_max_versions; the router records shadow comparisons into
-    `metrics` and draws its routes from cfg.seed. No version is loaded
-    yet: the caller bootstraps. Raises without a card unless cfg.device
-    is 'cpu'."""
+    `metrics` and draws its routes from cfg.seed. With serve_replicas > 1
+    the router's slot holds a ReplicaSet (serve/fleet.py) of that many
+    replicas, with serve_replica_inflight and serve_hedge; 1 keeps the
+    bare Router. No version is loaded yet: the caller bootstraps. Raises
+    without a card unless cfg.device is 'cpu'."""
     from distributedmnist_tpu_torch import models
 
     models.build(cfg.model, device="meta")    # refuses unknown names
     factory = EngineFactory(cfg.model, device=cfg.device,
-                            max_batch=cfg.serve_max_batch)
-    router = factory.make_router(metrics=metrics, seed=cfg.seed)
+                            max_batch=cfg.serve_max_batch,
+                            replicas=cfg.serve_replicas)
+    if cfg.serve_replicas > 1:
+        router = factory.make_fleet(
+            metrics=metrics, seed=cfg.seed,
+            per_replica_inflight=cfg.serve_replica_inflight,
+            hedge=cfg.serve_hedge)
+    else:
+        router = factory.make_router(metrics=metrics, seed=cfg.seed)
     registry = ModelRegistry(factory, router,
                              checkpoint_dir=cfg.checkpoint_dir,
                              max_versions=cfg.serve_max_versions)

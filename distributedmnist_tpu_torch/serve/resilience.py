@@ -14,7 +14,7 @@ per-version circuit breaker with auto-rollback, and the health tracker.
   reason) on a thread of its own, which promotes the newest healthy
   resident; the trip and the rollback are recorded in metrics.
 - **HealthTracker**: an n-weighted success ratio and a latency EWMA per
-  key, for the replica fleet's pick (the fleet is not ported yet).
+  key, for the replica fleet's pick (serve/fleet.py).
 
 Every time-dependent call takes `now` (time.monotonic() by default), so
 tests drive windows and cooldowns with an injected clock.
@@ -146,7 +146,7 @@ class HealthTracker:
     """Per-key sliding-window health score: n-weighted
     success ratio over the last `window_s` seconds plus a latency EWMA.
 
-    The replica fleet (not ported yet) records every batch outcome here,
+    The replica fleet (serve/fleet.py) records every batch outcome here,
     keyed by replica id, beside a per-replica CircuitBreaker: the breaker
     decides EXCLUSION (binary, with cooldown hysteresis), the tracker
     keeps the continuous score an operator reads off /healthz to see a

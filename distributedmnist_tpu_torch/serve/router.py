@@ -27,13 +27,18 @@ random.Random under the routes lock, in the JAX router's order, so
 sampling is reproducible. Every engine the router takes shares its
 bucket ladder and max_batch.
 
+dispatch(x, infer_dtype=...) is the **pinned route** (the cascade's
+stage requests): the live version's warmed engine of that precision,
+from the alternates table set_live swaps in atomically with the live
+target. It skips canary and shadow and draws nothing from the seeded
+sequence; a precision with no live route raises NoLiveModel.
+
 dispatch_fast() is the fast lane's routed dispatch: the live engine's
 resident route, or None when canary/shadow roles are set (those
 populations are defined over coalesced dispatches) or the engine declines.
 The shadow duplicate crosses the `router.shadow` failpoint and span.
-Handles carry the version (the breaker and metrics read it) and a
-replica tag (None until the fleet lands). Not ported: the pinned
-infer_dtype route (the cascade's, ROADMAP §1 item 6).
+Handles carry the version (the breaker and metrics read it), the
+precision and the fleet replica the router serves (None standalone).
 """
 
 from __future__ import annotations
@@ -84,7 +89,7 @@ class RoutedHandle:
     shadow_engine: Any = None
     shadow_version: Optional[str] = None
     infer_dtype: Optional[str] = None
-    # the fleet replica that computed the batch (None: one replica)
+    # the fleet replica that computed the batch (None standalone)
     replica: Optional[str] = None
 
 
@@ -97,13 +102,21 @@ class Router:
     # outstanding shadow duplicates (dispatched or queued for comparison)
     SHADOW_CAP = 64
 
+    # The registry wires a cascade only onto a router that resolves a
+    # pinned precision; the fleet front and engine doubles lack it.
+    supports_alternates = True
+
     def __init__(self, max_batch: int, buckets: Sequence[int],
-                 platform: str, metrics=None, seed: int = 0,
-                 shadow_cap: Optional[int] = None):
+                 platform: str, n_chips: int = 1, metrics=None,
+                 seed: int = 0, shadow_cap: Optional[int] = None,
+                 replica: Optional[str] = None):
         self.max_batch = max_batch
         self.buckets = tuple(buckets)
         self.platform = platform
+        self.n_chips = n_chips
         self.metrics = metrics
+        # the fleet replica this router serves, stamped on every handle
+        self.replica = replica
         # `is None`: an explicit 0 (drop every sampled duplicate) holds
         self.shadow_cap = (self.SHADOW_CAP if shadow_cap is None
                            else shadow_cap)
@@ -111,6 +124,9 @@ class Router:
         self._live: Optional[_Target] = None
         self._canary: Optional[_Target] = None
         self._shadow: Optional[_Target] = None
+        # infer_dtype -> warmed engine of the LIVE version, swapped with
+        # the live target so a pinned dispatch never pairs two versions
+        self._alternates: dict = {}
         self._rng = random.Random(seed)
         self._shadow_q = make_fifo("router.shadow_q")
         self._shadow_pending = 0
@@ -131,19 +147,33 @@ class Router:
                 f"{self.buckets} (max_batch {self.max_batch}), engine has "
                 f"{tuple(engine.buckets)} (max_batch {engine.max_batch})")
 
-    def set_live(self, engine, version: str) -> None:
+    def set_live(self, engine, version: str,
+                 alternates: Optional[dict] = None) -> None:
         """Atomic hot-swap: the next dispatched batch runs `version`.
-        Clears a candidate role the promoted version held."""
+        Clears a candidate role the promoted version held. `alternates`
+        maps infer_dtype -> warmed engine of this version for pinned
+        dispatches; omitted, it holds the live engine under its own
+        dtype alone."""
         self._check_compatible(engine)
+        if alternates is not None:
+            for alt in alternates.values():
+                self._check_compatible(alt)
+            alternates = dict(alternates)
+        else:
+            alternates = {
+                (getattr(engine, "infer_dtype", None) or "float32"):
+                    engine}
         with self._lock:
             prev = self._live.version if self._live else None
             self._live = _Target(engine, version)
+            self._alternates = alternates
             if self._canary and self._canary.version == version:
                 self._canary = None
             if self._shadow and self._shadow.version == version:
                 self._shadow = None
-        log.info("router: live version %s -> %s [%s]", prev, version,
-                 getattr(engine, "infer_dtype", None))
+        log.info("router: live version %s -> %s [%s] (alternates: %s)",
+                 prev, version, getattr(engine, "infer_dtype", None),
+                 sorted(alternates))
 
     def set_shadow(self, engine, version: str, fraction: float) -> None:
         self._check_compatible(engine)
@@ -199,6 +229,7 @@ class Router:
                 "shadow": ({"version": self._shadow.version,
                             "fraction": self._shadow.fraction}
                            if self._shadow else None),
+                "alternates": sorted(self._alternates),
             }
 
     def versions_in_route(self) -> set:
@@ -214,11 +245,30 @@ class Router:
         canary dispatches too."""
         with self._lock:
             live = self._live
-        return live.engine.bucket_costs() if live is not None else {}
+        if live is None:
+            return {}
+        costs = getattr(live.engine, "bucket_costs", None)
+        return costs() if callable(costs) else {}
+
+    def bucket_costs_p95(self) -> dict:
+        """The live engine's p95 cost table, the fleet's hedge trigger;
+        empty while nothing is live or for an engine without one (which
+        turns hedging off, not serving)."""
+        with self._lock:
+            live = self._live
+        if live is None:
+            return {}
+        costs = getattr(live.engine, "bucket_costs_p95", None)
+        return costs() if callable(costs) else {}
 
     # -- the engine surface the batcher drives -----------------------------
 
-    def dispatch(self, x) -> RoutedHandle:
+    def dispatch(self, x, infer_dtype: Optional[str] = None
+                 ) -> RoutedHandle:
+        if infer_dtype is not None:
+            # before the seeded draws: a pinned stage dispatch must not
+            # move the canary/shadow sampling of interleaved live traffic
+            return self._dispatch_pinned(x, infer_dtype)
         with self._lock:
             live, canary, shadow = self._live, self._canary, self._shadow
             route_draw = self._rng.random()
@@ -232,7 +282,7 @@ class Router:
         h = target.engine.dispatch(x)
         rh = RoutedHandle(handle=h, engine=target.engine,
                           version=target.version, n=h.n, bucket=h.bucket,
-                          canary=is_canary,
+                          canary=is_canary, replica=self.replica,
                           infer_dtype=getattr(target.engine, "infer_dtype",
                                               None))
         # only live-routed batches are shadowed: the canary and shadow
@@ -268,6 +318,32 @@ class Router:
                 trace.end_span(sp)
         return rh
 
+    def _dispatch_pinned(self, x, infer_dtype: str) -> RoutedHandle:
+        """Dispatch on the live version's engine of `infer_dtype` (the
+        cascade's `fast` and stage-1 requests pin the cheap dtype,
+        escalations and `exact` pin float32), with no canary or shadow:
+        a stage's rows are merged with its sibling stage's, so they must
+        come from the live version. A missing alternate is NoLiveModel,
+        systemic (503), so the batcher fails the batch without
+        bisecting it."""
+        with self._lock:
+            live = self._live
+            engine = self._alternates.get(infer_dtype)
+        if live is None:
+            raise NoLiveModel(
+                "no warmed model version is live (server warming?)")
+        if engine is None:
+            raise NoLiveModel(
+                f"no live {infer_dtype!r} route for version "
+                f"{live.version} (variant not promoted with the "
+                "cascade, or demoted by a re-gate)")
+        h = engine.dispatch(x)
+        return RoutedHandle(handle=h, engine=engine,
+                            version=live.version, n=h.n, bucket=h.bucket,
+                            canary=False, replica=self.replica,
+                            infer_dtype=getattr(engine, "infer_dtype",
+                                                None))
+
     def dispatch_fast(self, x) -> Optional[RoutedHandle]:
         """The fast lane's routed dispatch: the live engine's resident
         route, or None when the full dispatch() semantics are needed (a
@@ -288,6 +364,7 @@ class Router:
             return None
         return RoutedHandle(handle=h, engine=live.engine,
                             version=live.version, n=h.n, bucket=h.bucket,
+                            replica=self.replica,
                             infer_dtype=getattr(live.engine, "infer_dtype",
                                                 None))
 

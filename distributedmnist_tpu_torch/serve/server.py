@@ -21,7 +21,15 @@ the root serve.py's ServerState, shed_retry_after_s and _http_serve):
                            warm a version off the hot path; promotable,
                            not live
     POST /models/promote   {"version", "mode"?: live|canary|shadow,
-                           "fraction"?, "infer_dtype"? (live only)}
+                           "fraction"?, "infer_dtype"? (live only),
+                           "cascade_threshold"? (live only: the cascade
+                           judged again at it first; 409 when refused)}
+    POST /replicas/{id}/drain|rejoin
+                           (--serve-replicas >= 2) take a replica out of
+                           the fleet's pick set, its batches in flight
+                           finishing, or bring it back with a fresh
+                           health slate; 409 on a single-replica server
+                           and on draining the last active replica
     GET  /metrics          the ServeMetrics record plus the queue gauges,
                            the adaptive controller, the cache's counters,
                            the breaker's windows (`resilience_policy`),
@@ -44,15 +52,19 @@ first version on a thread (a failure leaves the server up and /healthz
 503 "failed") and writes a serve_stats heartbeat line every
 --metrics-every seconds.
 
-/predict submits through the prediction cache's front when one is given
-(--serve-cache): a hit comes back resolved, version-tagged and metered.
+/predict submits through the cascade front (--serve-cascade), then the
+prediction cache's front (--serve-cache): a hit comes back resolved,
+version-tagged and metered. `X-Accuracy-Class: fast|balanced|exact`
+picks the request's place on the cascade's frontier; an unknown class,
+or any class on a server without the cascade, is a 400. /healthz carries
+the live version's `cascade` state and, on a fleet, `replicas` and
+`failovers`; /metrics its `fleet` block.
 
 Routes whose layer the JAX server refuses on this configuration answer
-as it does: X-Accuracy-Class and X-Tenant (400), GET /tenants and POST
-/tenants/... (409), POST /replicas/... on one replica (409). POST
-/cluster/epoch needs the gateway, which the port has not got: 501 naming
-it (ROADMAP §1 item 6). Signal handlers are installed by the caller
-(serve/__main__.py), so tests can run a server in-process.
+as it does: X-Tenant (400), GET /tenants and POST /tenants/... (409).
+POST /cluster/epoch needs the gateway, which the port has not got: 501
+naming it (ROADMAP §1 item 4). Signal handlers are installed by the
+caller (serve/__main__.py), so tests can run a server in-process.
 """
 
 from __future__ import annotations
@@ -74,6 +86,7 @@ from distributedmnist_tpu_torch.analysis.locks import make_lock, make_thread
 from distributedmnist_tpu_torch.ops import kernel_lib
 from distributedmnist_tpu_torch.serve import trace as trace_lib
 from distributedmnist_tpu_torch.serve.batcher import Rejected
+from distributedmnist_tpu_torch.serve.cascade import ACCURACY_CLASSES
 from distributedmnist_tpu_torch.serve.metrics import prometheus_exposition
 from distributedmnist_tpu_torch.serve.quantize import INFER_DTYPES
 from distributedmnist_tpu_torch.serve.resilience import DeadlineExceeded
@@ -82,10 +95,8 @@ from distributedmnist_tpu_torch.serve.router import NoLiveModel
 log = logging.getLogger("distributedmnist_tpu_torch")
 
 IMAGE_BYTES = 28 * 28
-# the JAX cascade's accuracy classes: the header is validated against
-# them before it is refused, as the JAX server does without a cascade
-ACCURACY_CLASSES = ("fast", "balanced", "exact")
-UNPORTED = "ROADMAP §1 item 6"
+TENANCY_UNPORTED = "ROADMAP §1 item 2"
+GATEWAY_UNPORTED = "ROADMAP §1 item 4"
 
 
 class ServerState:
@@ -147,15 +158,26 @@ class ServerState:
             "versions": len(desc["versions"]),
             "rollbacks": len(rollbacks),
             "last_rollback": attempts[-1] if attempts else None,
-            # no gateway assigns an epoch and no cascade is enabled: the
-            # JAX server's values on this configuration
+            # no gateway assigns an epoch (the JAX server's None when
+            # standalone)
             "cluster_epoch": None,
-            "cascade": None,
         }
         factory = getattr(registry, "factory", None)
         if factory is not None:
             payload["backend"] = factory.platform
             payload["device_kind"] = factory.device_kind
+        # the live version's cascade (cheap dtype, threshold, the gate's
+        # record), None while warming or without one
+        live_desc = next((v for v in desc["versions"]
+                          if isinstance(v, dict)
+                          and v.get("version") == live), None)
+        payload["cascade"] = (live_desc or {}).get("cascade")
+        # on a fleet, each replica's state and the failover counters
+        fleet = getattr(registry, "router", None)
+        if getattr(fleet, "n_replicas", 1) > 1:
+            snap = fleet.snapshot()
+            payload["replicas"] = snap["replicas"]
+            payload["failovers"] = snap["failovers"]
         return (200 if ok else 503), payload
 
 
@@ -192,14 +214,22 @@ class HTTPServer:
                  port: int = 0, request_timeout: float = 60.0,
                  retry_after_cap_s: float = 30.0,
                  infer_dtype_choice: str = "float32", front=None,
-                 cache=None):
+                 cache=None, cascade: bool = False,
+                 cascade_threshold: Optional[float] = None):
         self.batcher = batcher
-        # the submit target: the cache front, or the batcher itself; the
-        # queue gauges always read the batcher
+        # the submit target: the cascade front, the cache front, or the
+        # batcher itself; the queue gauges always read the batcher
         self.front = front if front is not None else batcher
         self.cache = cache
         self.metrics = metrics
         self.registry = registry
+        # the fleet when serving one (drain/rejoin, the /metrics block)
+        self.fleet = (registry.router
+                      if getattr(registry.router, "n_replicas", 1) > 1
+                      else None)
+        # SIGHUP calibrates the cascade again on the new version
+        self.cascade = cascade
+        self.cascade_threshold = cascade_threshold
         self.state = state
         self.request_timeout = request_timeout
         self.retry_after_cap_s = retry_after_cap_s
@@ -296,15 +326,31 @@ class HTTPServer:
             log.exception("SIGHUP reload FAILED; %s stays live at %s",
                           self.registry.live_version(),
                           self.registry.router.live_infer_dtype())
+            return
+        if self.cascade:
+            # the new parameters calibrate from scratch: a checkpoint
+            # roll never carries a stale threshold forward
+            try:
+                with self.admin_lock:
+                    st = self.registry.enable_cascade(
+                        mv.version, threshold=self.cascade_threshold)
+                log.info("SIGHUP reload: cascade re-gated on %s (cheap "
+                         "%s, threshold %.4g)", mv.version,
+                         st.cheap_dtype, st.threshold)
+            except Exception:
+                log.exception("SIGHUP reload: cascade refused on %s; "
+                              "accuracy classes degrade to the plain "
+                              "live route", mv.version)
 
     # -- GET ---------------------------------------------------------------
 
     def metrics_payload(self) -> dict:
         """GET /metrics: the metrics record plus the pipeline's gauges,
         the adaptive controller's state, the cache's counters, the
-        breaker's windows, the tracer's snapshot and compiles_total; a
-        block is None when its layer is off, and the fleet's and
-        tenancy's are None until those layers land."""
+        breaker's windows, the fleet's snapshot, the tracer's snapshot
+        and compiles_total; a block is None when its layer is off (the
+        fleet's on one replica), and tenancy's until that layer lands
+        (ROADMAP §1 item 2)."""
         b = self.batcher
         payload = self.metrics.record()
         payload["queue"] = {
@@ -320,7 +366,8 @@ class HTTPServer:
         payload["resilience_policy"] = (b.resilience.snapshot()
                                         if b.resilience is not None
                                         else None)
-        payload["fleet"] = None
+        payload["fleet"] = (self.fleet.snapshot()
+                            if self.fleet is not None else None)
         tracer = trace_lib.active()
         payload["trace"] = (tracer.snapshot() if tracer is not None
                             else None)
@@ -416,7 +463,7 @@ def _handler_class(server: HTTPServer):
                 self._send(200, registry.describe())
             elif self.path == "/tenants":
                 self._send(409, {"error": "multi-tenant serving is off "
-                                          f"({UNPORTED})"})
+                                          f"({TENANCY_UNPORTED})"})
             else:
                 self._send(404, {"error": f"unknown path {self.path}"})
 
@@ -430,17 +477,9 @@ def _handler_class(server: HTTPServer):
             elif self.path == "/cluster/epoch":
                 self._send(501, {"error": "cluster epochs belong to the "
                                           "gateway, not ported yet "
-                                          f"({UNPORTED})"})
+                                          f"({GATEWAY_UNPORTED})"})
             elif self.path.startswith("/replicas/"):
-                parts = self.path.strip("/").split("/")
-                if len(parts) != 3 or parts[2] not in ("drain", "rejoin"):
-                    self._send(404, {"error": "want POST /replicas/{id}/"
-                                              "drain or /replicas/{id}/"
-                                              "rejoin"})
-                else:
-                    self._send(409, {"error": "this server runs a single "
-                                              "replica (the fleet: "
-                                              f"{UNPORTED})"})
+                self._replicas_admin()
             elif self.path.startswith("/tenants/"):
                 parts = self.path.strip("/").split("/")
                 if len(parts) != 3 or parts[2] != "quota":
@@ -448,9 +487,41 @@ def _handler_class(server: HTTPServer):
                                               "quota"})
                 else:
                     self._send(409, {"error": "multi-tenant serving is "
-                                              f"off ({UNPORTED})"})
+                                              f"off ({TENANCY_UNPORTED})"})
             else:
                 self._send(404, {"error": f"unknown path {self.path}"})
+
+        # -- admin: the replica fleet -------------------------------------
+
+        def _replicas_admin(self):
+            """POST /replicas/{id}/drain|rejoin: 404 on another shape or
+            an unknown replica, 409 on a single-replica server and on
+            draining the last active replica."""
+            parts = self.path.strip("/").split("/")
+            if len(parts) != 3 or parts[2] not in ("drain", "rejoin"):
+                self._send(404, {"error": "want POST /replicas/{id}/"
+                                          "drain or /replicas/{id}/"
+                                          "rejoin"})
+                return
+            _, rid, action = parts
+            fleet = server.fleet
+            if fleet is None:
+                self._send(409, {"error": "this server runs a single "
+                                          "replica; --serve-replicas "
+                                          ">= 2 enables the fleet"})
+                return
+            try:
+                with server.admin_lock:
+                    snap = (fleet.drain(rid) if action == "drain"
+                            else fleet.rejoin(rid))
+                self._send(200, {"action": action, "replica": snap})
+            except KeyError as e:
+                self._send(404, {"error": str(e)})
+            except RuntimeError as e:
+                # draining the last active replica: the rules refuse it
+                self._send(409, {"error": str(e)})
+            except Exception as e:
+                self._send(500, {"error": f"{type(e).__name__}: {e}"})
 
         # -- admin: model lifecycle ---------------------------------------
 
@@ -549,17 +620,10 @@ def _handler_class(server: HTTPServer):
                     return
             try:
                 with server.admin_lock:
-                    if cascade_threshold is not None:
-                        # no version has a cascade here (ROADMAP §1
-                        # item 6): the JAX registry's refusal, after its
-                        # unknown-version check
-                        registry.get(version)
-                        raise RuntimeError(
-                            f"version {version!r} has no cascade to "
-                            "re-threshold; enable one first")
                     if mode == "live":
-                        mv = registry.promote(version,
-                                              infer_dtype=infer_dtype)
+                        mv = registry.promote(
+                            version, infer_dtype=infer_dtype,
+                            cascade_threshold=cascade_threshold)
                     elif mode == "shadow":
                         mv = registry.set_shadow(version, fraction)
                     else:
@@ -610,22 +674,30 @@ def _handler_class(server: HTTPServer):
                                               "finite number > 0"})
                     return
                 deadline_s = time.monotonic() + budget_s
+            # X-Accuracy-Class: fast = the cheap variant, balanced = the
+            # cascade, exact = float32; sent to a server without the
+            # cascade it is a client's error, never served at another
+            # precision than asked
             acc_hdr = self.headers.get("X-Accuracy-Class")
+            accuracy_class = None
             if acc_hdr is not None:
-                if acc_hdr.strip().lower() not in ACCURACY_CLASSES:
+                accuracy_class = acc_hdr.strip().lower()
+                if accuracy_class not in ACCURACY_CLASSES:
                     self._send(400, {
                         "error": "X-Accuracy-Class must be one of "
                                  f"{'|'.join(ACCURACY_CLASSES)}, got "
                                  f"{acc_hdr!r}"})
                     return
-                self._send(400, {
-                    "error": "X-Accuracy-Class requires the confidence "
-                             f"cascade, not ported yet ({UNPORTED})"})
-                return
+                if not getattr(front, "is_cascade_front", False):
+                    self._send(400, {
+                        "error": "X-Accuracy-Class requires the "
+                                 "confidence cascade; restart with "
+                                 "--serve-cascade"})
+                    return
             if self.headers.get("X-Tenant") is not None:
                 self._send(400, {
                     "error": "X-Tenant requires multi-tenant serving, "
-                             f"not ported yet ({UNPORTED})"})
+                             f"not ported yet ({TENANCY_UNPORTED})"})
                 return
             raw = self.rfile.read(length)
             x = np.frombuffer(raw, np.uint8).reshape(-1, IMAGE_BYTES)
@@ -651,9 +723,14 @@ def _handler_class(server: HTTPServer):
                 return hdrs
 
             try:
-                # through the cache front when there is one: a hit comes
-                # back resolved, a collapsed miss shares its leader's
-                fut = front.submit(x, deadline_s=deadline_s)
+                # through the cascade and cache fronts when there are
+                # any: a hit comes back resolved, a collapsed miss shares
+                # its leader's
+                if accuracy_class is not None:
+                    fut = front.submit(x, deadline_s=deadline_s,
+                                       accuracy_class=accuracy_class)
+                else:
+                    fut = front.submit(x, deadline_s=deadline_s)
                 # bounded: a wedged pipeline sheds its waiters instead of
                 # holding handler threads forever
                 logits = fut.result(timeout=(

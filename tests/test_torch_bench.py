@@ -7,9 +7,11 @@ package's committed records), in a fresh interpreter with no jax: the
 throughput, time-to-accuracy, serve, sweep and smoke modes, bfloat16
 throughput, and --data-dir on IDX files through the supervised worker;
 the serve mode's request-path legs (--lowlat, --zipf, --zipf-cache-off,
---chaos, --chaos --serve-cache, --trace), each leg's keys those of the
-root bench's records (and of its code, for keys newer than its last
-committed record) and its bars computed alike; plus the guards: no card
+--chaos, --chaos --serve-cache, --trace), the fleet's (--serve-replicas 2
+--serve-hedge, with the chaos leg's replica kill) and --dtype-sweep and
+--cascade, each leg's keys those of the root bench's records (and of its
+code, for keys newer than its last committed record) and its bars
+computed alike; plus the guards: no card
 without --device cpu raises, an unported flag exits 2 naming its
 ROADMAP item, a misplaced flag exits 2, and a supervised bench whose
 every attempt fails exits 1 with no CPU re-run.
@@ -44,14 +46,18 @@ from distributedmnist_tpu_torch.data import packing as tpacking
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the serve legs of the root bench that the port has not ported yet
-# (ROADMAP.md section 1 item 6); every other key of its record is carried
+# (ROADMAP.md section 1 items 2, 3 and 5); every other key of its record
+# is carried
 UNPORTED_SERVE_KEYS = {"compile_surface", "trace_replay", "swap",
-                       "dtype_sweep", "cascade", "multimodel", "replicas"}
+                       "multimodel"}
 # the root bench's records of each request-path leg
 LEG_RECORDS = {"lowlat": "BENCH_serve_r09.json",
                "zipf": "BENCH_serve_r08.json",
                "chaos": "BENCH_serve_r13.json",
-               "trace": "BENCH_serve_r07.json"}
+               "trace": "BENCH_serve_r07.json",
+               "replicas": "BENCH_serve_r07.json",
+               "dtype_sweep": "BENCH_serve_r06.json",
+               "cascade": "BENCH_serve_r10.json"}
 RECORD_KEYS = {"metric", "value", "unit", "vs_baseline", "detail"}
 
 
@@ -262,7 +268,7 @@ def test_serve_lowlat_zipf_trace_chaos_record():
     d = rec["detail"]
     assert set(d) == (_jax_detail_keys("BENCH_serve_r13.json")
                       - UNPORTED_SERVE_KEYS)
-    for leg in LEG_RECORDS:
+    for leg in ("lowlat", "zipf", "chaos", "trace"):
         _leg_keys_are_the_root_benchs(leg, d[leg])
     low = d["lowlat"]
     assert low["fastpath_lane_fraction"] == 1.0
@@ -314,6 +320,117 @@ def test_serve_zipf_cache_off_and_chaos_through_the_cache():
     assert ch["breaker_trips"] == 1 and d["lowlat"] is None
 
 
+def test_serve_fleet_record_with_hedge_and_replica_kill():
+    """--serve-replicas 2 --serve-hedge --chaos --trace: the fleet leg, the
+    `replicas` block and the chaos leg's replica kill with the root
+    bench's keys (its r07 record); the kill absorbed by failover
+    (non-injected availability 1.0, no replica fault reaching a client,
+    rescues as parented spans), failovers and hedges as counts, the fleet
+    leg's dispatches balanced within the root bench's 1.25, nothing built
+    after warmup."""
+    rec, modules, _ = _run(*SERVE_ARGS, "--serve-replicas", "2",
+                           "--serve-hedge", "--chaos", "--trace",
+                           timeout=600)
+    assert modules == []
+    d = rec["detail"]
+    assert set(d) == (_jax_detail_keys("BENCH_serve_r13.json")
+                      - UNPORTED_SERVE_KEYS)
+    for leg in ("replicas", "chaos", "trace"):
+        _leg_keys_are_the_root_benchs(leg, d[leg])
+    with open(os.path.join(REPO, LEG_RECORDS["replicas"])) as f:
+        root = json.load(f)["detail"]
+    assert set(d["replicas"]["fleet_leg"]) == set(
+        root["replicas"]["fleet_leg"])
+    assert set(d["chaos"]["replica_kill"]) == set(
+        root["chaos"]["replica_kill"])
+    rep = d["replicas"]
+    assert rep["count"] == 2 and rep["disjoint_devices"] is False
+    assert [p["id"] for p in rep["provenance"]] == ["r0", "r1"]
+    fl = rep["fleet_leg"]
+    assert fl["balance_ok"] and set(fl["per_replica_dispatches"]) == {
+        "r0", "r1"}
+    assert rep["final"]["hedge"] is True
+    ch = d["chaos"]
+    assert isinstance(ch["failovers"], int) and ch["failovers"] > 0
+    assert isinstance(ch["hedges"], int)
+    assert ch["availability_excluding_injected"] == 1.0
+    assert ch["replica_kill"]["rescued_exactly"]
+    assert ch["replica_kill"]["target"] == "r1"
+    assert ch["injected_replica_faults_surfaced"] == 0
+    assert ch["poison_isolated_exact"] and ch["rollback_engaged"]
+    assert d["trace"]["chaos"]["failover_rescue_ok"] is True
+    assert d["recompiles_after_warmup"] == 0 and d["n_chips"] == 1
+
+
+def test_serve_dtype_sweep_and_cascade_record(tmp_path):
+    """--dtype-sweep --cascade on a fitted MLP checkpoint (its int8 and
+    bfloat16 variants clear their gates): both legs with the root
+    bench's keys (its r06 and r10 records), every phase building
+    nothing, the cascade's bars computed as the root bench's and its
+    stressed point escalating."""
+    from distributedmnist_tpu_torch.checkpoint import Checkpointer
+    from torch_fit_util import fit_params
+
+    ck = Checkpointer(str(tmp_path))
+    ck.save(7, {"params": fit_params(), "optimizer": {},
+                "scheduler": {}})
+    ck.close()
+    rec, modules, _ = _run(*SERVE_ARGS, "--checkpoint-dir", str(tmp_path),
+                           "--dtype-sweep", "--cascade", timeout=600)
+    assert modules == []
+    d = rec["detail"]
+    assert d["params"] == f"checkpoint {tmp_path}"
+    for leg in ("dtype_sweep", "cascade"):
+        _leg_keys_are_the_root_benchs(leg, d[leg])
+    sw = d["dtype_sweep"]
+    assert set(sw["legs"]) == {"float32", "bfloat16", "int8"}
+    for dt, leg in sw["legs"].items():
+        assert leg["recompiles_after_warmup"] == 0, dt
+        assert leg["img_s_chip"] > 0, dt
+    assert set(sw["speedup_vs_float32"]) == {"bfloat16", "int8"}
+    ca = d["cascade"]
+    with open(os.path.join(REPO, LEG_RECORDS["cascade"])) as f:
+        root = json.load(f)["detail"]["cascade"]
+    assert set(ca["legs"]) == set(root["legs"])
+    for name in ca["legs"]:
+        assert set(ca["legs"][name]) == set(root["legs"][name]), name
+        assert ca["legs"][name]["recompiles_after_warmup"] == 0, name
+    # 'auto': the cheapest ready variant, bfloat16 too once the sweep
+    # has warmed it (the root bench's rule)
+    assert ca["calibration"]["passed"]
+    assert ca["cheap_dtype"] in ("int8", "bfloat16")
+    # the bars are computed as the root bench computes them (its probe
+    # stream is random pixels, off the calibration batch's distribution,
+    # so the agreement bar is reported, not assumed)
+    agree = ca["agreement_vs_f32"]
+    assert ca["agreement_ok"] == (agree["balanced"] >= 0.995)
+    assert agree["balanced"] >= agree["fast"] and ca["agreement_rows"] > 0
+    assert ca["efficiency_ok"] == (ca["cascade_efficiency_vs_fast"]
+                                   is not None
+                                   and ca["cascade_efficiency_vs_fast"]
+                                   >= 0.9)
+    assert ca["legs"]["balanced_stressed"]["escalation_fraction"] > 0
+    assert d["recompiles_after_warmup"] == 0
+
+
+def test_unported_table_shrank_by_the_fleet_and_cascade_flags():
+    """The fleet's and the cascade's four flags left UNPORTED; each is a
+    flag of the port's bench now, and the rest still exit 2."""
+    assert set(tbench.UNPORTED) == {
+        "--multimodel", "--gateway", "--trace-replay", "--autoscale",
+        "--swap-during-load", "--baseline", "--artifact-dir"}
+    args = tbench._parse(["serve", "--serve-replicas", "2", "--serve-hedge",
+                          "--dtype-sweep", "--cascade"])
+    assert (args.serve_replicas, args.serve_hedge, args.dtype_sweep,
+            args.cascade) == (2, True, True, True)
+    for argv in (["throughput", "--serve-replicas", "2"],
+                 ["serve", "--serve-replicas", "0"],
+                 ["time-to-accuracy", "--cascade"]):
+        with pytest.raises(SystemExit) as exc:
+            tbench._parse(argv)
+        assert exc.value.code == 2
+
+
 def test_chaos_fault_spec_equals_the_root_benchs():
     from distributedmnist_tpu.serve.faults import parse_spec
 
@@ -339,14 +456,14 @@ def test_bench_raises_without_a_card(argv):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["serve", "--dtype-sweep"], "item 6"),
-    (["serve", "--cascade"], "item 6"),
-    (["serve", "--multimodel"], "item 6"),
-    (["serve", "--trace-replay", "square:qps=10"], "item 6"),
-    (["serve", "--gateway", "2"], "item 6"),
-    (["serve", "--serve-replicas", "2"], "item 6"),
-    (["serve", "--baseline", "BENCH_serve_r13.json"], "item 6"),
-    (["serve", "--artifact-dir", "out"], "item 6")])
+    (["serve", "--autoscale"], "item 5"),
+    (["serve", "--swap-during-load"], "item 3"),
+    (["serve", "--multimodel"], "item 2"),
+    (["serve", "--trace-replay", "square:qps=10"], "item 5"),
+    (["serve", "--gateway", "2"], "item 4"),
+    (["serve", "--multimodel", "--gateway", "2"], "item 2"),
+    (["serve", "--baseline", "BENCH_serve_r13.json"], "item 3"),
+    (["serve", "--artifact-dir", "out"], "item 3")])
 def test_unported_flag_exits_2(argv, item, capsys):
     with pytest.raises(SystemExit) as exc:
         tbench.main(argv + ["--inline"])

@@ -733,3 +733,207 @@ def test_row_staged_route_on_card_with_a_dirty_buffer():
         h = eng.dispatch_fast(x[i:i + 1])
         assert h is not None and h.bucket == 8
         assert eng.fetch(h).tobytes() == eng.infer(x[i:i + 1]).tobytes()
+
+
+def _fit_mlp(seed: int = 1, steps: int = 1000) -> dict:
+    """MLP weights with real margins, fit on the CPU from a seed
+    (tests/test_torch_serve.py's recipe): every variant clears its
+    parity gate on them."""
+    import torch.nn.functional as F
+
+    data = mnist.synthetic_mnist(seed=709, train_n=8192, test_n=16)
+    net = models.build("mlp", device="cpu")
+    net.load_state_dict(models.init_params("mlp", seed))
+    opt = torch.optim.SGD(net.parameters(), lr=0.05, momentum=0.9)
+    x = torch.from_numpy(data["train_x"])
+    y = torch.from_numpy(data["train_y"]).long()
+    g = torch.Generator().manual_seed(seed)
+    for _ in range(steps):
+        idx = torch.randint(0, x.shape[0], (128,), generator=g)
+        loss = F.cross_entropy(net(x[idx].float() / 255.0), y[idx])
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+    return {k: v.detach().clone() for k, v in net.state_dict().items()}
+
+
+def _fleet_batches_against_single_routers(registry, fleet, factory, reqs):
+    """Serve `reqs` (uint8 (n, 28, 28, 1) arrays) through a batcher over
+    the fleet, recording each batch the fleet fetched; every batch must be
+    bit for bit a single Router's dispatch of the same rows on the engine
+    of the replica that computed it, and every answer its request's slice
+    of its batch. Returns the replicas that computed batches."""
+    from distributedmnist_tpu_torch.serve import DynamicBatcher
+
+    version = fleet.live_version()
+    singles = {}
+    for rep in fleet.replicas:
+        r = factory.make_router()
+        r.set_live(rep.router._live.engine, version)
+        singles[rep.rid] = r
+    seen = []
+    fetch = fleet.fetch
+
+    def recording_fetch(fh):
+        out = fetch(fh)
+        seen.append((fh.replica, fh.x, out))
+        return out
+
+    fleet.fetch = recording_fetch
+    b = DynamicBatcher(fleet, max_wait_us=2000).start()
+    try:
+        futs = [b.submit(x) for x in reqs]
+        outs = [f.result(timeout=120) for f in futs]
+    finally:
+        b.stop()
+        del fleet.fetch
+    rows = {}
+    for rid, parts, out in seen:
+        assert singles[rid].infer(parts).tobytes() == out.tobytes(), rid
+        off = 0
+        for p in parts:
+            rows[id(p)] = out[off:off + p.shape[0]]
+            off += p.shape[0]
+    for x, got in zip(reqs, outs):
+        assert got.tobytes() == rows[id(x)].tobytes()
+    return {rid for rid, _, _ in seen}
+
+
+@pytest.mark.gpu
+def test_two_replica_fleet_on_one_card_is_each_routers_dispatch():
+    """Two replicas from build_serving, each engine on a CUDA stream of
+    its own (never the default stream): for every precision, each batch
+    the fleet computes is bit for bit the single Router's dispatch of the
+    same rows on that replica's engine, both replicas serve, the
+    replicas' engines give the same bits, and all three kernels
+    launch."""
+    _need_card()
+    from distributedmnist_tpu_torch.config import Config
+    from distributedmnist_tpu_torch.serve import build_serving
+
+    registry, fleet, factory = build_serving(Config(
+        model="mlp", device="cuda", serve_max_batch=64, serve_replicas=2))
+    registry.add(_fit_mlp(), version="v1")
+    registry.promote("v1")
+    for dt in ("bfloat16", "int8", "megakernel"):
+        registry.add_variant("v1", dt)
+    engines = registry.get("v1").engines
+    streams = [e.stream for e in engines]
+    assert all(s is not None for s in streams)
+    assert streams[0].cuda_stream != streams[1].cuda_stream
+    for s in streams:
+        assert s.cuda_stream != torch.cuda.default_stream(
+            s.device).cuda_stream
+    rng = _rng(5)
+    reqs = [rng.integers(0, 256, (int(n), 28, 28, 1), dtype=np.uint8)
+            for n in rng.integers(1, 33, 96)]
+    x = reqs[0]
+    before = dict(fused.LAUNCHES)
+    for dt in ("float32", "bfloat16", "int8", "megakernel"):
+        registry.promote("v1", infer_dtype=dt)
+        served = _fleet_batches_against_single_routers(registry, fleet,
+                                                       factory, reqs)
+        assert served == {"r0", "r1"}, dt
+        a, b = (rep.router.infer(x) for rep in fleet.replicas)
+        assert a.tobytes() == b.tobytes(), dt
+    launched = {k: fused.LAUNCHES[k] - before[k] for k in before}
+    assert all(n > 0 for n in launched.values()), launched
+
+
+@pytest.mark.gpu
+def test_fleet_replicas_on_their_own_cards():
+    """With 4 cards visible, 4 replicas: replica i's engines, weights and
+    stream on card i, each batch bit for bit the single Router's dispatch
+    on that replica, and every card's answer the same bits."""
+    _need_card()
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 cards: one replica a card")
+    from distributedmnist_tpu_torch.config import Config
+    from distributedmnist_tpu_torch.serve import build_serving
+
+    registry, fleet, factory = build_serving(Config(
+        model="mlp", device="cuda", serve_max_batch=64, serve_replicas=4))
+    assert factory.replica_devices == [torch.device("cuda", i)
+                                       for i in range(4)]
+    assert factory.total_chips == 4
+    registry.add(_fit_mlp(), version="v1")
+    registry.promote("v1")
+    registry.add_variant("v1", "int8")
+    for i, eng in enumerate(registry.get("v1").engines):
+        assert eng.device == torch.device("cuda", i)
+        assert eng.stream.device == torch.device("cuda", i)
+        assert all(p.device == torch.device("cuda", i)
+                   for p in eng.params.values())
+    rng = _rng(6)
+    reqs = [rng.integers(0, 256, (int(n), 28, 28, 1), dtype=np.uint8)
+            for n in rng.integers(1, 33, 128)]
+    for dt in ("float32", "int8"):
+        registry.promote("v1", infer_dtype=dt)
+        served = _fleet_batches_against_single_routers(registry, fleet,
+                                                       factory, reqs)
+        assert len(served) >= 2, (dt, served)
+        outs = [rep.router.infer(reqs[1]) for rep in fleet.replicas]
+        assert all(o.tobytes() == outs[0].tobytes() for o in outs), dt
+
+
+@pytest.mark.gpu
+def test_cascade_on_the_trained_lenet_on_card(tmp_path):
+    """Config 2 trained for its 10 epochs at seed 709 (cuDNN's
+    deterministic algorithms, as chip_smoke.py trains it), served from
+    its checkpoint with the cascade enabled: the gate passes; `exact` is
+    the float32 engine's bytes, `fast` the int8 engine's, `balanced`
+    composes the two row by row (an escalated row is the float32
+    engine's dispatch of the escalated rows), agrees with `exact` at the
+    parity bar, and the cheap stage launched quant_dense."""
+    _need_card()
+    from distributedmnist_tpu_torch.config import PRESETS, Config
+    from distributedmnist_tpu_torch.serve import (DynamicBatcher,
+                                                  ServeMetrics,
+                                                  build_serving)
+    from distributedmnist_tpu_torch.serve.cascade import (CascadeFront,
+                                                          softmax_margin)
+
+    cfg = PRESETS["lenet-adam"].replace(
+        synthetic=True, steps=4680, eval_every=1000, seed=709,
+        target_accuracy=None, device="cuda", checkpoint_dir=str(tmp_path),
+        checkpoint_every=4680)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = trainer.fit(cfg, data=mnist.synthetic_mnist(seed=709))
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    assert out["test_accuracy"] >= 0.98
+    metrics = ServeMetrics()
+    registry, router, _ = build_serving(Config(
+        model="lenet", device="cuda", serve_max_batch=64,
+        checkpoint_dir=str(tmp_path)), metrics=metrics)
+    mv = registry.bootstrap()
+    state = registry.enable_cascade()
+    assert state.cheap_dtype == "int8" and state.calibration["passed"]
+    f32 = mv.engine
+    cheap = mv.variants["int8"].engine
+    x = mnist.synthetic_mnist(seed=709, train_n=16,
+                              test_n=512)["test_x"][:64]
+    b = DynamicBatcher(router, max_wait_us=500, metrics=metrics).start()
+    front = CascadeFront(b, b, router, registry, metrics=metrics)
+    before = dict(fused.LAUNCHES)
+    try:
+        got = {c: front.submit(x, accuracy_class=c).result(timeout=120)
+               for c in ("exact", "fast", "balanced")}
+    finally:
+        b.stop()
+    assert fused.LAUNCHES["quant_dense"] - before["quant_dense"] > 0
+    assert got["exact"].tobytes() == f32.infer(x).tobytes()
+    assert got["fast"].tobytes() == cheap.infer(x).tobytes()
+    esc = softmax_margin(got["fast"]) < state.threshold
+    assert got["balanced"][~esc].tobytes() == got["fast"][~esc].tobytes()
+    if esc.any():
+        assert got["balanced"][esc].tobytes() == f32.infer(
+            x[esc]).tobytes()
+    agree = float(np.mean(got["balanced"].argmax(-1)
+                          == got["exact"].argmax(-1)))
+    assert agree >= 0.995, agree
+    block = metrics.snapshot()["cascade"]
+    assert block["by_class"] == {"balanced": 1, "exact": 1, "fast": 1}
+    assert block["escalated_rows"] == int(esc.sum())

@@ -587,6 +587,9 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         build_serving(tconfig.Config(model="mlp"))
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        build_serving(tconfig.Config(model="mlp", serve_replicas=2,
+                                     serve_cascade=True))
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         InferenceEngine("mlp", models.init_params("mlp"))
     registry, _, factory = build_serving(
         tconfig.Config(model="mlp", device="cpu", serve_max_batch=4))
@@ -611,15 +614,17 @@ def test_lenet_builds_but_is_not_served_yet():
 
 def test_selftest_cli_imports_no_jax():
     """The selftest, end to end in a fresh interpreter, with the bench
-    module and the HTTP server's modules imported too: one serve_selftest
-    line with nothing rejected, and neither jax nor the JAX package in
-    sys.modules afterwards."""
+    module, the HTTP server's modules, the fleet and the cascade imported
+    too: one serve_selftest line with nothing rejected, and neither jax
+    nor the JAX package in sys.modules afterwards."""
     code = (
         "import json, sys\n"
         "import distributedmnist_tpu_torch.bench\n"
         "import distributedmnist_tpu_torch.serve.process\n"
         "import distributedmnist_tpu_torch.serve.resilience\n"
         "import distributedmnist_tpu_torch.serve.server\n"
+        "import distributedmnist_tpu_torch.serve.fleet\n"
+        "import distributedmnist_tpu_torch.serve.cascade\n"
         "from distributedmnist_tpu_torch.serve.__main__ import main\n"
         "rc = main(['--device', 'cpu', '--model', 'mlp', '--selftest', "
         "'48', '--serve-max-batch', '16', '--serve-infer-dtype', "

@@ -19,10 +19,18 @@ and the serving pieces it needs, against the JAX package, on the CPU.
   unported layers), and again with the request path's layers on in both
   (--serve-cache --serve-dedup --serve-fastlane --serve-trace and a
   fault spec): then /trace and the Prometheus route answer 200 in both,
-  and only the fleet's and tenancy's /metrics blocks stay None.
+  and only the fleet's (one replica) and tenancy's /metrics blocks stay
+  None.
 - The in-process server with those layers on: the Prometheus exposition
   by query and by Accept header, /trace, X-Trace-Id and Server-Timing,
   cache hits version-tagged and metered.
+- The fleet and the cascade over HTTP: root serve.py and the port's
+  server on the same fitted MLP, with --serve-replicas 2 --serve-hedge
+  (drain and rejoin, the last-active 409, /healthz's replicas, /metrics'
+  fleet block) and with --serve-cascade (X-Accuracy-Class fast, balanced
+  and exact, an unknown class, promote's cascade_threshold 400s and 409):
+  the same codes and bodies' keys; ServerState on a fleet against the
+  JAX one.
 """
 
 import importlib.util
@@ -73,11 +81,9 @@ MAX_BATCH = 16
 # /metrics keys of the JAX server that belong to layers the port has not
 # got yet, each with its ROADMAP.md §1 item
 UNPORTED_METRICS_KEYS = {
-    "by_replica": "item 6: the fleet",
-    "by_tenant": "item 6: tenancy",
-    "by_model": "item 6: tenancy",
-    "cascade": "item 6: the cascade",
-    "autoscale": "item 6: autoscaling",
+    "by_tenant": "item 2: tenancy",
+    "by_model": "item 2: tenancy",
+    "autoscale": "item 5: autoscaling",
 }
 
 
@@ -194,6 +200,30 @@ def test_healthz_reports_started_at_and_uptime():
     assert later["started_at"] == payload["started_at"]
     assert later["uptime_s"] > payload["uptime_s"]
     assert "replicas" not in payload
+
+
+def test_healthz_on_a_fleet_matches_jax():
+    """On a fleet registry /healthz carries each replica's state and the
+    failover counters, with the JAX ServerState's keys and values; the
+    live version's cascade block rides along (None without one)."""
+    from distributedmnist_tpu.serve import fleet as jfleet
+    from distributedmnist_tpu_torch.serve import fleet as tfleet
+    from tests.test_serve_fleet import StubRouter
+
+    jserve = _load_jax_serve()
+    seen = []
+    for state_cls, fleet_mod in ((jserve.ServerState, jfleet),
+                                 (tserver.ServerState, tfleet)):
+        reg = _StubRegistry()
+        reg.live = "v1"
+        reg.router = fleet_mod.ReplicaSet([StubRouter("r0"),
+                                           StubRouter("r1")])
+        reg.router.drain("r1")
+        code, payload = state_cls().healthz(reg, _StubBatcher())
+        seen.append((code, set(payload), payload["replicas"],
+                     payload["failovers"], payload["cascade"]))
+    assert seen[0] == seen[1]
+    assert seen[1][2][1]["state"] == "draining"
 
 
 # -- (b) router and registry against the JAX package -----------------------
@@ -584,7 +614,7 @@ def test_metrics_blocks_and_heartbeat_match_jax():
     assert set(t["resilience"]) <= set(j["resilience"])
     for k, v in t["resilience"].items():
         assert v == j["resilience"][k], k
-    assert set(j) - set(t) == set(UNPORTED_METRICS_KEYS) | {"fleet"}
+    assert set(j) - set(t) == set(UNPORTED_METRICS_KEYS)
     assert set(t) - set(j) == set()
 
 
@@ -915,10 +945,12 @@ def _break_variant_kernel(m, srv, failure):
     if failure == "build":
         make = srv.factory.make_engine
 
-        def broken_build(params, version, infer_dtype="float32"):
+        def broken_build(params, version, infer_dtype="float32",
+                         replica=0):
             if infer_dtype != "float32":
                 raise RuntimeError("injected: the kernel did not build")
-            return make(params, version, infer_dtype=infer_dtype)
+            return make(params, version, infer_dtype=infer_dtype,
+                        replica=replica)
 
         m.setattr(srv.factory, "make_engine", broken_build)
     else:
@@ -1001,6 +1033,13 @@ def test_server_boot_with_a_failing_variant_kernel_is_failed(monkeypatch,
     (["--serve-breaker-ratio", "0"], "serve-breaker-ratio"),
     (["--serve-breaker-window-s", "0"], "serve-breaker-window-s"),
     (["--serve-breaker-min-requests", "0"], "serve-breaker-min-requests"),
+    (["--serve-replicas", "0"], "--serve-replicas must be >= 1"),
+    (["--serve-replica-inflight", "0"],
+     "--serve-replica-inflight must be >= 1"),
+    (["--serve-cascade-threshold", "0.5"],
+     "--serve-cascade-threshold requires --serve-cascade"),
+    (["--serve-cascade", "--serve-cascade-threshold", "nan"],
+     "--serve-cascade-threshold must be in [0, 1]"),
 ])
 def test_server_cli_usage_errors(capsys, argv, msg):
     with pytest.raises(SystemExit) as ei:
@@ -1417,3 +1456,208 @@ def test_conformance_with_jax_serve_request_path_layers(tmp_path):
     for name in ("predict 3 rows", "predict after"):
         assert "X-Trace-Id" in answers["port"][name][2]
         assert "X-Trace-Id" in answers["jax"][name][2]
+
+
+# -- (f) the fleet and the cascade over HTTP, against root serve.py ----------
+
+
+def _save_fitted_checkpoints(jck, tck, step=5):
+    """The fitted MLP of tests/test_torch_serve.py (real margins: both
+    packages' int8 variants clear their gates on it) as a JAX train-state
+    checkpoint and a port checkpoint of the same step."""
+    from distributedmnist_tpu import optim
+    from distributedmnist_tpu.checkpoint import Checkpointer as JCkpt
+    from distributedmnist_tpu.parallel import replicated
+    from distributedmnist_tpu.trainer import init_state
+    from torch_fit_util import fit_params, mlp_flax
+
+    params = fit_params()
+    flax = mlp_flax(params)
+    mesh = make_mesh(jax.devices()[:8])
+    model = jmodels.build("mlp", fused="xla")
+    state = init_state(jax.random.PRNGKey(0), model,
+                       optim.build("adam", 1e-3),
+                       jnp.zeros((1, 28, 28, 1)))
+    state = state.replace(step=jnp.asarray(step, jnp.int32),
+                          params=jax.tree.map(jnp.asarray, flax))
+    state = jax.device_put(state, replicated(mesh))
+    ck = JCkpt(str(jck), async_save=False)
+    ck.save(step, state)
+    ck.wait()
+    ck.close()
+    tk = Checkpointer(str(tck))
+    tk.save(step, {"params": params, "optimizer": {}, "scheduler": {}})
+    tk.close()
+
+
+def _pair(tmp_path, layers, script, ready=None):
+    """Root serve.py and the port's server on the fitted step-5 MLP with
+    the same extra flags; once both are healthy (and `ready(healthz)`
+    holds), the same script: {server: (answers, healthz, metrics,
+    Prometheus text)}."""
+    from conftest import worker_env
+
+    jck, tck = tmp_path / "jck", tmp_path / "tck"
+    _save_fitted_checkpoints(jck, tck)
+    jenv, _ = worker_env()
+    common = ["--model", "mlp", "--device", "cpu", "--serve-max-batch",
+              str(MAX_BATCH), "--port", "0", "--metrics-every", "60",
+              *layers]
+    servers = {
+        "jax": ServerProcess([sys.executable,
+                              os.path.join(REPO, "serve.py"), *common,
+                              "--checkpoint-dir", str(jck)], env=jenv,
+                             cwd=REPO),
+        "port": ServerProcess([sys.executable, "-m",
+                               "distributedmnist_tpu_torch.serve", *common,
+                               "--checkpoint-dir", str(tck)],
+                              env=_port_env(), cwd=REPO),
+    }
+    out = {}
+    try:
+        for name, srv in servers.items():
+            health = _wait_healthy(srv.base, timeout=180)
+            deadline = time.monotonic() + 120
+            while ready is not None and not ready(health):
+                assert time.monotonic() < deadline, health
+                time.sleep(0.1)
+                health = _request(f"{srv.base}/healthz")[1]
+            answers = _run_script(srv.base, script)
+            out[name] = (answers, _request(f"{srv.base}/healthz")[1],
+                         _request(f"{srv.base}/metrics")[1],
+                         _text(f"{srv.base}/metrics?format=prometheus")[1])
+    finally:
+        rcs = {name: srv.stop().rc for name, srv in servers.items()}
+    assert rcs == {"jax": 0, "port": 0}
+    return out
+
+
+def _post_json(path, body):
+    return ("POST", path, json.dumps(body).encode(),
+            {"Content-Type": "application/json"})
+
+
+def _families_of(text):
+    return set(re.findall(r"^# TYPE (\S+) ", text, re.M))
+
+
+def test_conformance_fleet_admin_with_jax_serve(tmp_path):
+    """`--serve-replicas 2 --serve-hedge` on both servers: drain r1 (200,
+    twice), the last-active drain of r0 (409), an unknown replica and a
+    bad action (404), predictions while drained, rejoin (200), and a
+    cascade header on a server without the cascade (400): equal codes
+    and bodies' keys; /healthz carries `replicas` and `failovers`,
+    /metrics a `fleet` block of JAX's keys and the replica families."""
+    x2 = _images(2, seed=709).reshape(2, 784).tobytes()
+    script = [
+        ("predict", "POST", "/predict", x2, {}),
+        ("drain r1", *_post_json("/replicas/r1/drain", {})),
+        ("drain r1 again", *_post_json("/replicas/r1/drain", {})),
+        ("drain r0 last active", *_post_json("/replicas/r0/drain", {})),
+        ("drain unknown", *_post_json("/replicas/r9/drain", {})),
+        ("bad action", *_post_json("/replicas/r1/restart", {})),
+        ("predict drained", "POST", "/predict", x2, {}),
+        ("rejoin r1", *_post_json("/replicas/r1/rejoin", {})),
+        ("rejoin unknown", *_post_json("/replicas/r9/rejoin", {})),
+        ("accuracy class without cascade", "POST", "/predict", x2,
+         {"X-Accuracy-Class": "fast"}),
+        ("predict after", "POST", "/predict", x2, {}),
+    ]
+    runs = _pair(tmp_path, ["--serve-replicas", "2", "--serve-hedge"],
+                 script)
+    (ja, jh, jm, jp), (ta, th, tm, tp) = runs["jax"], runs["port"]
+    codes = {name: (ja[name][0], ta[name][0]) for name in ja}
+    assert all(a == b for a, b in codes.values()), codes
+    assert codes["drain r1"] == codes["rejoin r1"] == (200, 200)
+    assert codes["drain r0 last active"] == (409, 409)
+    assert codes["drain unknown"] == codes["bad action"] == (404, 404)
+    assert codes["accuracy class without cascade"] == (400, 400)
+    for name in ja:
+        assert set(ta[name][1]) == set(ja[name][1]), name
+    for name in ("drain r1", "rejoin r1"):
+        assert set(ta[name][1]["replica"]) == set(ja[name][1]["replica"])
+        assert ta[name][1]["replica"]["id"] == "r1"
+    assert ta["drain r1"][1]["replica"]["state"] == "draining"
+    assert ta["rejoin r1"][1]["replica"]["state"] == "active"
+    for name in ("predict", "predict drained", "predict after"):
+        assert ta[name][1]["classes"] == ja[name][1]["classes"], name
+    assert set(th) == set(jh) and {"replicas", "failovers"} <= set(th)
+    assert [r["id"] for r in th["replicas"]] == ["r0", "r1"]
+    assert set(th["replicas"][0]) == set(jh["replicas"][0])
+    assert set(tm) == set(jm) - set(UNPORTED_METRICS_KEYS)
+    assert set(tm["fleet"]) == set(jm["fleet"])
+    assert tm["fleet"]["n_replicas"] == 2 and tm["fleet"]["hedge"] is True
+    assert set(tm["by_replica"]) <= {"r0", "r1"} and tm["by_replica"]
+    fams = _families_of(tp)
+    assert {"dmnist_serve_replica_batches_total", "dmnist_serve_hedges_total",
+            "dmnist_serve_failovers_total"} & _families_of(jp) <= fams
+    assert "dmnist_serve_replica_batches_total" in fams
+
+
+def test_conformance_cascade_with_jax_serve(tmp_path):
+    """`--serve-cascade` on both servers (a calibrated int8 cascade in
+    each): X-Accuracy-Class fast, balanced and exact (200; exact's classes
+    JAX's), an unknown class (400), promote's cascade_threshold malformed
+    or out of range (400), judged and kept (200), and on a version with
+    no cascade (409, the old version stays live): equal codes and bodies'
+    keys; /healthz's `cascade` block and /metrics' `cascade` block of
+    JAX's keys."""
+    x3 = _images(3, seed=709).reshape(3, 784).tobytes()
+
+    def promote(body):
+        return _post_json("/models/promote", body)
+
+    script = [
+        ("exact", "POST", "/predict", x3, {"X-Accuracy-Class": "exact"}),
+        ("fast", "POST", "/predict", x3, {"X-Accuracy-Class": "fast"}),
+        ("balanced", "POST", "/predict", x3,
+         {"X-Accuracy-Class": "balanced"}),
+        ("class in capitals", "POST", "/predict", x3,
+         {"X-Accuracy-Class": "EXACT"}),
+        ("unknown class", "POST", "/predict", x3,
+         {"X-Accuracy-Class": "bogus"}),
+        ("no class", "POST", "/predict", x3, {}),
+        ("threshold not a number",
+         *promote({"version": "step-5", "cascade_threshold": "x"})),
+        ("threshold out of range",
+         *promote({"version": "step-5", "cascade_threshold": 1.5})),
+        ("threshold on a canary",
+         *promote({"version": "step-5", "mode": "canary",
+                   "cascade_threshold": 0.5})),
+        ("threshold kept",
+         *promote({"version": "step-5", "cascade_threshold": 1.0})),
+        ("load fresh", *_post_json("/models/load",
+                                   {"fresh": {"seed": 4,
+                                              "version": "fresh"}})),
+        ("threshold without cascade",
+         *promote({"version": "fresh", "cascade_threshold": 0.5})),
+        ("balanced after", "POST", "/predict", x3,
+         {"X-Accuracy-Class": "balanced"}),
+    ]
+    runs = _pair(tmp_path, ["--serve-cascade"], script,
+                 ready=lambda h: h.get("cascade") is not None)
+    (ja, jh, jm, jp), (ta, th, tm, tp) = runs["jax"], runs["port"]
+    codes = {name: (ja[name][0], ta[name][0]) for name in ja}
+    assert all(a == b for a, b in codes.values()), codes
+    for name in ("exact", "fast", "balanced", "class in capitals",
+                 "threshold kept", "balanced after"):
+        assert codes[name] == (200, 200), name
+    for name in ("unknown class", "threshold not a number",
+                 "threshold out of range", "threshold on a canary"):
+        assert codes[name] == (400, 400), name
+    assert codes["threshold without cascade"] == (409, 409)
+    for name in ja:
+        if name != "load fresh":   # a version's describe(): its own keys
+            assert set(ta[name][1]) == set(ja[name][1]), name
+    assert ta["exact"][1]["classes"] == ja["exact"][1]["classes"]
+    assert ta["exact"][1]["classes"] == ta["class in capitals"][1]["classes"]
+    assert ta["balanced after"][1]["version"] == "step-5"
+    assert set(th["cascade"]) == set(jh["cascade"])
+    assert th["cascade"]["cheap_dtype"] == jh["cascade"]["cheap_dtype"]
+    assert th["cascade"]["threshold"] == 1.0 == jh["cascade"]["threshold"]
+    assert set(tm["cascade"]) == set(jm["cascade"])
+    assert tm["cascade"]["by_class"] == jm["cascade"]["by_class"] == {
+        "balanced": 3, "exact": 2, "fast": 1}
+    cascade_fams = {f for f in _families_of(jp)
+                    if f.startswith("dmnist_serve_cascade_")}
+    assert cascade_fams and cascade_fams <= _families_of(tp)

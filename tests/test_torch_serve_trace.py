@@ -31,12 +31,9 @@ from distributedmnist_tpu_torch.serve import (DeadlineExceeded,
 from tests.test_serve_batcher import StubEngine
 
 # the JAX snapshot's blocks of layers the port has not got yet
-DEFERRED_KEYS = {"by_replica", "by_tenant", "by_model", "cascade", "fleet",
-                 "autoscale"}
+DEFERRED_KEYS = {"by_tenant", "by_model", "autoscale"}
 # their Prometheus families (prefixes)
-DEFERRED_FAMILIES = ("dmnist_serve_replica_", "dmnist_serve_failovers",
-                     "dmnist_serve_hedge", "dmnist_serve_cascade_",
-                     "dmnist_serve_tenant_", "dmnist_serve_model_",
+DEFERRED_FAMILIES = ("dmnist_serve_tenant_", "dmnist_serve_model_",
                      "dmnist_serve_autoscale_")
 
 
