@@ -2,8 +2,8 @@
 """Drive the PyTorch port's MLP serving path, its training paths (one
 card, data-parallel and tensor-parallel ranks sharing it, bfloat16, the
 streaming pipeline), its LeNet-5 serving path, its HTTP server, its
-request path, its replica fleet and cascade, and its bench on one CUDA
-card.
+request path, its replica fleet and cascade, multi-tenant, multi-model
+serving, and its bench on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -150,8 +150,34 @@ card.
    non-injected requests, failovers and hedges counted) and `serve
    --dtype-sweep --cascade` on LeNet-5 (the frontier), with the root
    bench's keys.
-13. Prints a `kernels` JSON line (launches on each path, with the
-   `fleet` and `cascade` paths also as columns of their own, error,
+13. Tenancy and the bench's records (after phase 12), on launch counts of
+   its own: the MLP and LeNet-5 in one process behind the global
+   scheduler (build_tenancy over `mlp,lenet`, each model from its own
+   checkpoint subtree: the fitted MLP and config 2's 10-epoch LeNet-5,
+   each model's engines on a CUDA stream of its own), tenants `light`
+   (weight 2, 5000 ms deadline, the MLP) and `heavy` (weight 1, LeNet-5),
+   at float32 and again at megakernel (LeNet-5 refuses it and stays at
+   float32); 256 mixed requests of 1-16 rows per tenant, every batch bit
+   for bit its model's own router's dispatch of the same rows and every
+   answer its slice; a quota shed (429 with retry_after_s), a door
+   deadline shed (504, nothing dispatched), a cached answer served over
+   quota, the observed skip maximum under drr_skip_bound, nothing built
+   after warmup; the cross-model contention probe with the catalog's
+   per-model streams and without them. Over HTTP a `--serve-models
+   mlp,lenet --serve-tenants ... --serve-infer-dtype int8` server
+   (X-Tenant 200 for a class and an unknown tenant, a free tenant's burst
+   into 429 with Retry-After, X-Deadline-Ms 0.001 504, GET /tenants,
+   the quota route's 200 and 404, /metrics' by_tenant and by_model
+   blocks and families, quant_dense launched, SIGTERM rc 0 with the
+   summary's tenancy block). The bench's `serve --multimodel
+   --swap-during-load` (the root bench's leg keys, fairness ratios, no
+   build after warmup or after the swap) writing BENCH_torch_serve_r01.json
+   into a temporary directory (the card's name as device_kind, the
+   commit), a second run diffing against it with --baseline, and a
+   --baseline on the JAX package's CPU record refused before any load
+   phase (exit 4, not retried).
+14. Prints a `kernels` JSON line (launches on each path, with the
+   `fleet`, `cascade` and `tenancy` paths also as columns of their own, error,
    times, bound; dense_relu's entry lists the new shapes, dense_relu's
    and quant_dense's LeNet's serving shapes; each entry's `fastlane` its
    b = 1 case and fast-route launches) and, last, {"ok": true,
@@ -295,11 +321,13 @@ BENCH_RUNS = (
      "256", "--repeats", "3"),
     ("time-to-accuracy", "--model", "lenet", "--global-batch", "512",
      "--trials", "1", "--target-accuracy", "0.99"),
-    ("serve", "--model", "mlp", "--serve-duration", "1"),
+    ("serve", "--model", "mlp", "--serve-duration", "1", "--no-artifact"),
     ("serve", "--model", "lenet", "--serve-infer-dtype", "bfloat16",
-     "--serve-duration", "1", "--checkpoint-dir", "{ckpt}"),
+     "--serve-duration", "1", "--checkpoint-dir", "{ckpt}",
+     "--no-artifact"),
     ("serve", "--model", "lenet", "--serve-infer-dtype", "int8",
-     "--serve-duration", "1", "--checkpoint-dir", "{ckpt}"),
+     "--serve-duration", "1", "--checkpoint-dir", "{ckpt}",
+     "--no-artifact"),
     ("sweep", "--model", "lenet", "--sweep-batches", "64,512",
      "--steps-per-call", "128", "--warmup-steps", "128", "--bench-steps",
      "256", "--repeats", "2"),
@@ -370,10 +398,11 @@ FLEET_BALANCE_BAR = 1.25
 FLEET_SLOW_MS = 20
 FLEET_BENCH_RUNS = (
     ("serve", "--model", "mlp", "--serve-duration", "1",
-     "--serve-replicas", "2", "--serve-hedge", "--chaos", "--inline"),
+     "--serve-replicas", "2", "--serve-hedge", "--chaos", "--inline",
+     "--no-artifact"),
     ("serve", "--model", "lenet", "--serve-duration", "1",
      "--dtype-sweep", "--cascade", "--checkpoint-dir", "{ckpt}",
-     "--inline"),
+     "--inline", "--no-artifact"),
 )
 CASCADE_ROWS = 512
 # the root bench's r07 record's `replicas` keys and r10's `cascade` keys
@@ -428,7 +457,35 @@ BENCH_KEYS = {
         "recompiles_after_warmup", "bucket_cost_ms", "slo_ms", "adaptive",
         "closed_loop", "qps_sweep", "ragged", "inflight_comparison",
         "zipf", "lowlat", "chaos", "trace", "dtype_sweep", "cascade",
-        "replicas"},
+        "replicas", "swap", "multimodel"},
+}
+# The tenancy phase: the in-process catalog's tenants (the root bench's
+# multimodel leg's classes), its geometry and traffic, the HTTP server's
+# classes (a free tenant whose two tokens refill in 20 s apiece), and
+# the bench's runs. The bench writes its records into a temporary
+# directory; every other serve run here passes --no-artifact.
+TENANCY_TENANTS = ("light:weight=2,deadline_ms=5000,model=mlp;"
+                   "heavy:weight=1,model=lenet")
+TENANCY_HTTP_TENANTS = ("gold:qps=1000,burst=64,model=mlp;"
+                        "free:qps=0.05,burst=2,model=lenet")
+TENANCY_MAX_BATCH = 64
+TENANCY_MAX_ROWS = 16
+TENANCY_REQUESTS = 256
+TENANCY_BENCH_RUN = ("serve", "--model", "mlp", "--serve-duration", "1",
+                     "--multimodel", "--swap-during-load", "--inline")
+# the root bench's r11 record's `multimodel` keys and r02's `swap` keys
+TENANCY_RECORD_KEYS = {
+    "multimodel": {"duration_s_per_phase", "fairness", "fairness_model",
+                   "fairness_ok", "heavy_mixed_p99_ms", "host_contention_x",
+                   "light_mixed_p99_ms", "light_p99_bar",
+                   "light_p99_bar_reachable", "light_p99_degradation_x",
+                   "light_p99_ok", "light_solo_p99_ms", "max_skip_observed",
+                   "models", "recompiles_after_warmup", "rows_per_request",
+                   "slo_attainment", "warmup_compile_events", "weights"},
+    "swap": {"load_warm_s", "p99_ratio_vs_steady", "post_swap_p99_ms",
+             "post_swap_p99_ratio_vs_steady", "recompiles_after_swap",
+             "steady_p99_ms", "swap_window", "swap_window_p99_ms",
+             "version", "warmup_compile_events", "window_s"},
 }
 
 
@@ -2167,7 +2224,7 @@ def drive_request_bench() -> tuple[dict, dict]:
     env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
     argv = ["serve", "--model", "mlp", "--serve-duration", "1",
             "--serve-qps", "200", "--serve-clients", "8", "--lowlat",
-            "--zipf", "--chaos", "--trace", "--inline"]
+            "--zipf", "--chaos", "--trace", "--inline", "--no-artifact"]
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "distributedmnist_tpu_torch.bench", *argv],
@@ -2857,6 +2914,499 @@ def drive_fleet_and_cascade(params: dict, lenet_checkpoint_dir: str,
     return figures, launches
 
 
+def _tenancy_base(base: str, params: dict,
+                  lenet_checkpoint_dir: str) -> None:
+    """A checkpoint base for the catalog, one subtree a model: the fitted
+    MLP under mlp/, config 2's 10-epoch LeNet-5 under lenet/."""
+    import shutil
+
+    from distributedmnist_tpu_torch.checkpoint import Checkpointer
+
+    ck = Checkpointer(os.path.join(base, "mlp"))
+    ck.save(1, {"params": params, "optimizer": {}, "scheduler": {}})
+    ck.close()
+    step = str(TRAIN_STEPS["lenet-adam"])
+    shutil.copytree(os.path.join(lenet_checkpoint_dir, step),
+                    os.path.join(base, "lenet", step))
+
+
+def _tenancy_config(base: str, **kw):
+    from distributedmnist_tpu_torch.config import Config
+
+    return Config(model="mlp", device="cuda", serve_models="mlp,lenet",
+                  serve_tenants=TENANCY_TENANTS, checkpoint_dir=base,
+                  serve_max_batch=TENANCY_MAX_BATCH,
+                  serve_queue_depth=SELFTEST_QUEUE_DEPTH, **kw)
+
+
+def _record_batches(catalog, seen: list) -> None:
+    """Wrap each catalog model's router so every batch it computes is
+    appended to `seen` as (model, engine, version, the parts, the
+    logits); _unwrap_batches undoes it."""
+    for entry in catalog.entries():
+        router = entry.router
+        dispatch, fetch = router.dispatch, router.fetch
+
+        def recording_dispatch(x, *a, _dispatch=dispatch, **kw):
+            rh = _dispatch(x, *a, **kw)
+            rh.parts = x
+            return rh
+
+        def recording_fetch(rh, _fetch=fetch, _name=entry.name):
+            out = _fetch(rh)
+            seen.append((_name, rh.engine, rh.version, rh.parts, out))
+            return out
+
+        router.dispatch, router.fetch = recording_dispatch, recording_fetch
+
+
+def _unwrap_batches(catalog) -> None:
+    for entry in catalog.entries():
+        entry.router.__dict__.pop("dispatch", None)
+        entry.router.__dict__.pop("fetch", None)
+
+
+def drive_tenancy_in_process(base: str) -> tuple[dict, list]:
+    """The catalog and the global scheduler in process on the card, at
+    float32 and again at megakernel (see the module docstring's phase
+    13). Returns (figures, each run's recorded batches and answers, to
+    be checked against single routers once the launch counts are
+    read)."""
+    import numpy as np
+
+    from distributedmnist_tpu_torch.ops import kernel_lib
+    from distributedmnist_tpu_torch.serve import ServeMetrics, build_tenancy
+    from distributedmnist_tpu_torch.serve import scheduler as policy
+
+    figures, runs = {}, []
+    rng = np.random.default_rng(SEED + 13)
+    reqs = [(tenant, rng.integers(0, 256, (int(n), 28, 28, 1),
+                                  dtype=np.uint8))
+            for n in rng.integers(1, TENANCY_MAX_ROWS + 1,
+                                  TENANCY_REQUESTS)
+            for tenant in ("light", "heavy")]
+    for dt in ("float32", "megakernel"):
+        t0 = time.perf_counter()
+        metrics = ServeMetrics()
+        # the float32 run fronts each model with its prediction cache,
+        # for the cache-aware shed
+        catalog, sched = build_tenancy(
+            _tenancy_config(base, serve_infer_dtype=dt,
+                            serve_cache=dt == "float32"), metrics=metrics)
+        seen: list = []
+        try:
+            for name in catalog.names():
+                catalog.ensure_live(name, infer_dtype=dt)
+            desc = catalog.describe()
+            want_dtype = {"mlp": dt, "lenet": "float32"}
+            got_dtype = {m: d["live_infer_dtype"] for m, d in desc.items()}
+            if got_dtype != want_dtype:
+                raise RuntimeError(f"tenancy {dt}: live {got_dtype}, want "
+                                   f"{want_dtype}")
+            sources = {m: e.registry.get(e.router.live_version()).source
+                       for m, e in zip(catalog.names(), catalog.entries())}
+            if sources != {m: f"checkpoint {base}/{m}"
+                           for m in ("mlp", "lenet")}:
+                raise RuntimeError(f"tenancy sources {sources}")
+            streams = [e.factory.replica_streams[0]
+                       for e in catalog.entries()]
+            if (None in streams
+                    or streams[0].cuda_stream == streams[1].cuda_stream):
+                raise RuntimeError(f"catalog streams {streams}")
+            warm_s = time.perf_counter() - t0
+
+            def builds():
+                return kernel_lib.load_events() + sum(
+                    e.factory.engine_builds for e in catalog.entries())
+
+            steady = builds()
+            _record_batches(catalog, seen)
+            t1 = time.perf_counter()
+            futs = [(tenant, x, sched.submit(x, tenant=tenant))
+                    for tenant, x in reqs]
+            outs = [(tenant, x, f.result(timeout=120))
+                    for tenant, x, f in futs]
+            took = time.perf_counter() - t1
+            snap = sched.snapshot()
+            bound = policy.drr_skip_bound(
+                len(snap["tenants"]), sched._max_head_cost_s,
+                sched.quantum_s,
+                min(c.weight for c in sched.classes().values()))
+            if snap["max_skip_observed"] > bound:
+                raise RuntimeError(f"tenancy {dt}: max skip "
+                                   f"{snap['max_skip_observed']} > {bound}")
+            rec = {"warm_s": warm_s, "s": took,
+                   "rows_per_s": sum(x.shape[0] for _, x in reqs) / took,
+                   "granted_rows": {t: v["granted_rows"] for t, v
+                                    in snap["tenants"].items()},
+                   "max_skip_observed": snap["max_skip_observed"],
+                   "skip_bound": bound,
+                   "batches": {m: sum(1 for b in seen if b[0] == m)
+                               for m in catalog.names()},
+                   "latency_ms": {t: v["latency_ms"] for t, v in
+                                  metrics.snapshot()["by_tenant"].items()}}
+            if dt == "float32":
+                rec["sheds"] = _tenancy_sheds(sched, catalog, metrics, rng)
+            rebuilt = builds() - steady
+            if rebuilt:
+                raise RuntimeError(f"tenancy {dt}: {rebuilt} builds after "
+                                   "warmup")
+            rec["builds_after_warmup"] = rebuilt
+        finally:
+            sched.stop()          # raises if the grant thread died
+            _unwrap_batches(catalog)
+        runs.append((dt, catalog, seen, outs))
+        figures[dt] = rec
+    return figures, runs
+
+
+def _tenancy_sheds(sched, catalog, metrics, rng) -> dict:
+    """The scheduler's sheds on the float32 catalog: a door deadline shed
+    (504, nothing dispatched), a quota shed (429 with retry_after_s), and
+    a cached answer served over quota."""
+    import numpy as np
+
+    from distributedmnist_tpu_torch.serve import (DeadlineExceeded,
+                                                  QuotaExceeded)
+
+    batches = metrics.snapshot()["batches"]
+    x = rng.integers(0, 256, (3, 28, 28, 1), dtype=np.uint8)
+    try:
+        sched.submit(x, tenant="light", deadline_s=time.monotonic() - 1e-3)
+        raise RuntimeError("an expired deadline was admitted")
+    except DeadlineExceeded:
+        pass
+    if metrics.snapshot()["batches"] != batches:
+        raise RuntimeError("a door deadline shed dispatched")
+    sched.set_quota("heavy", qps=0.01, burst=1)
+    first = sched.submit(x, tenant="heavy").result(timeout=120)
+    hit = sched.submit(x, tenant="heavy").result(timeout=10)
+    if hit.tobytes() != first.tobytes():
+        raise RuntimeError("the cache-aware shed served other bytes")
+    try:
+        sched.submit(x[:1], tenant="heavy")
+        raise RuntimeError("an over-quota miss was admitted")
+    except QuotaExceeded as e:
+        retry = e.retry_after_s
+    if not retry > 0:
+        raise RuntimeError(f"a 429 with retry_after_s {retry}")
+    bt = metrics.snapshot()["by_tenant"]
+    if (bt["heavy"]["cache_hits"] != 1 or bt["heavy"]["quota_sheds"] != 1
+            or bt["light"]["deadline_sheds"] != 1):
+        raise RuntimeError(f"shed accounting {bt}")
+    return {"retry_after_s": retry,
+            "cache": catalog.get("lenet").cache.stats()["hits"],
+            "by_tenant": {t: {k: v[k] for k in (
+                "deadline_sheds", "quota_sheds", "cache_hits")}
+                for t, v in bt.items()}}
+
+
+def check_tenancy_runs(runs) -> int:
+    """Every batch a run recorded, bit for bit a single router's dispatch
+    of the same rows on the engine that computed it, and every answer its
+    request's slice of its batch. Returns the batches checked."""
+    checked = 0
+    for dt, catalog, seen, outs in runs:
+        singles = {}
+        rows = {}
+        for name, engine, version, parts, out in seen:
+            key = id(engine)
+            if key not in singles:
+                r = catalog.get(name).factory.make_router()
+                r.set_live(engine, version)
+                singles[key] = r
+            if singles[key].infer(parts).tobytes() != out.tobytes():
+                raise RuntimeError(f"tenancy {dt}: a {name} batch is not "
+                                   "its router's dispatch")
+            off = 0
+            for p in (parts if isinstance(parts, list) else [parts]):
+                rows[id(p)] = out[off:off + p.shape[0]]
+                off += p.shape[0]
+            checked += 1
+        for tenant, x, got in outs:
+            if got.tobytes() != rows[id(x)].tobytes():
+                raise RuntimeError(f"tenancy {dt}: a {tenant} answer is "
+                                   "not its batch's rows")
+    return checked
+
+
+def contention_figures(base: str) -> dict:
+    """The bench's cross-model contention probe on the float32 catalog,
+    with each model's engines on a stream of their own and with both on
+    the default stream."""
+    from distributedmnist_tpu_torch.bench import contention_probe
+    from distributedmnist_tpu_torch.serve import build_catalog
+
+    out = {}
+    for label, own in (("streams_on", True), ("streams_off", False)):
+        catalog = build_catalog(_tenancy_config(base), own_streams=own)
+        try:
+            for name in catalog.names():
+                catalog.ensure_live(name)
+            out[label] = contention_probe(catalog)
+        finally:
+            catalog.stop()
+    return out
+
+
+def _http(srv, path, data=None, headers=None, json_body=None):
+    """(status, JSON body, headers) of one request to a child server."""
+    import urllib.error
+    import urllib.request
+
+    headers = dict(headers or {})
+    if json_body is not None:
+        data = json.dumps(json_body).encode()
+        headers["Content-Type"] = "application/json"
+    req = urllib.request.Request(srv.base + path, data=data,
+                                 headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read()), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), dict(e.headers)
+
+
+def drive_tenancy_http(base: str, card: str) -> tuple[dict, dict]:
+    """A `--serve-models mlp,lenet --serve-tenants ... --serve-infer-dtype
+    int8` server on the card (see the module docstring's phase 13).
+    Returns (figures, its launches)."""
+    import urllib.request
+
+    import numpy as np
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    x = np.random.default_rng(SEED + 14).integers(
+        0, 256, (4, 784), dtype=np.uint8).tobytes()
+    srv = start_server(["--model", "mlp", "--checkpoint-dir", base,
+                        "--serve-models", "mlp,lenet", "--serve-tenants",
+                        TENANCY_HTTP_TENANTS, "--serve-infer-dtype",
+                        "int8", "--serve-max-batch",
+                        str(TENANCY_MAX_BATCH)], env, here)
+    codes, headers = {}, {}
+    try:
+        healthy(srv)
+        for name, path, kw in (
+                ("gold", "/predict", {"data": x,
+                                      "headers": {"X-Tenant": "gold"}}),
+                ("unknown tenant", "/predict",
+                 {"data": x, "headers": {"X-Tenant": "nobody"}}),
+                ("free 1", "/predict", {"data": x,
+                                        "headers": {"X-Tenant": "free"}}),
+                ("free 2", "/predict", {"data": x,
+                                        "headers": {"X-Tenant": "free"}}),
+                ("free over quota", "/predict",
+                 {"data": x, "headers": {"X-Tenant": "free"}}),
+                ("deadline", "/predict",
+                 {"data": x, "headers": {"X-Tenant": "gold",
+                                         "X-Deadline-Ms": "0.001"}}),
+                ("tenants", "/tenants", {}),
+                ("quota", "/tenants/free/quota",
+                 {"json_body": {"qps": 100, "burst": 10}}),
+                ("quota unknown", "/tenants/nobody/quota",
+                 {"json_body": {"qps": 1}}),
+                ("free after", "/predict",
+                 {"data": x, "headers": {"X-Tenant": "free"}})):
+            codes[name], body, headers[name] = _http(srv, path, **kw)
+            if name == "tenants":
+                tenants = body
+        metrics = srv.ok("/metrics")
+        with urllib.request.urlopen(srv.base + "/metrics?format=prometheus",
+                                    timeout=60) as r:
+            prom = r.read().decode()
+    finally:
+        summary, launches = stop_server(srv)
+    want = {"gold": 200, "unknown tenant": 200, "free 1": 200,
+            "free 2": 200, "free over quota": 429, "deadline": 504,
+            "tenants": 200, "quota": 200, "quota unknown": 404,
+            "free after": 200}
+    bad = []
+    if codes != want:
+        bad.append(f"codes {codes}")
+    retry = headers["free over quota"].get("Retry-After")
+    if retry is None or int(retry) < 1:
+        bad.append(f"the 429's Retry-After {retry}")
+    models = tenants.get("models", {})
+    if ({m: v.get("live_infer_dtype") for m, v in models.items()}
+            != {"mlp": "int8", "lenet": "int8"}):
+        bad.append(f"/tenants models {models}")
+    if set(tenants.get("tenants", {})) != {"gold", "free", "default"}:
+        bad.append(f"/tenants tenants {tenants.get('tenants')}")
+    if (set(metrics["by_tenant"]) != {"gold", "free", "default"}
+            or set(metrics["by_model"]) != {"mlp", "lenet"}
+            or metrics["tenancy"] is None):
+        bad.append(f"/metrics blocks by_tenant {metrics['by_tenant']}, "
+                   f"by_model {metrics['by_model']}")
+    for fam in ("dmnist_serve_tenant_requests_total",
+                "dmnist_serve_tenant_sheds_total",
+                "dmnist_serve_model_dispatched_rows_total"):
+        if f"# TYPE {fam} " not in prom:
+            bad.append(f"family {fam} missing")
+    if launches.get("quant_dense", 0) <= 0:
+        bad.append(f"the int8 server launched {launches}")
+    if "tenancy" not in summary:
+        bad.append("the summary has no tenancy block")
+    if bad:
+        raise RuntimeError(f"tenancy server: {bad}")
+    return {"codes": codes, "retry_after": retry,
+            "by_model": metrics["by_model"],
+            "by_tenant": {t: {k: v[k] for k in ("requests", "quota_sheds",
+                                                "deadline_sheds")}
+                          for t, v in metrics["by_tenant"].items()},
+            "compiles_total": metrics["compiles_total"]}, launches
+
+
+def _bench_run(argv, env, cwd) -> tuple:
+    """One bench subprocess: (rc, its record or None, stderr)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "distributedmnist_tpu_torch.bench", *argv],
+        cwd=cwd, env=env, capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT_S)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    return (proc.returncode, json.loads(lines[-1]) if lines else None,
+            proc.stderr)
+
+
+def _bench_launches(err: str) -> dict:
+    counts = [json.loads(ln.split("launches ", 1)[1])
+              for ln in err.splitlines() if ln.startswith("bench: launches ")]
+    if len(counts) != 1:
+        raise RuntimeError("a bench run reported no launch counts")
+    return counts[0]
+
+
+def drive_tenancy_bench(card: str) -> tuple[dict, dict]:
+    """The bench's multimodel and swap legs with its records (see the
+    module docstring's phase 13). Returns (figures, the launches of the
+    runs that served)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    launches: dict = {}
+    figures = {}
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        rc, rec, err = _bench_run([*TENANCY_BENCH_RUN, "--artifact-dir",
+                                   out], env, here)
+        if rc != 0 or rec is None:
+            raise RuntimeError(f"bench {TENANCY_BENCH_RUN} exited {rc}:\n"
+                               f"{err[-4000:]}")
+        d = rec["detail"]
+        mm, sw = d["multimodel"], d["swap"]
+        bad = []
+        if set(d) != BENCH_KEYS["serve_images_per_sec_per_chip"]:
+            bad.append("keys differ from the root bench's")
+        for leg in ("multimodel", "swap"):
+            if set(d[leg]) != TENANCY_RECORD_KEYS[leg]:
+                bad.append(f"{leg} keys differ from the root bench's")
+        if (d["recompiles_after_warmup"] != 0
+                or mm["recompiles_after_warmup"] != 0
+                or sw["recompiles_after_swap"] != 0):
+            bad.append(f"builds after warmup {d['recompiles_after_warmup']}"
+                       f", multimodel {mm['recompiles_after_warmup']}, "
+                       f"after the swap {sw['recompiles_after_swap']}")
+        if set(mm["fairness"]) != {"light", "heavy"}:
+            bad.append(f"fairness {mm['fairness']}")
+        path = os.path.join(out, "BENCH_torch_serve_r01.json")
+        if not os.path.isfile(path):
+            bad.append(f"no record file: {os.listdir(out)}")
+        else:
+            with open(path) as f:
+                saved = json.load(f)
+            host = saved["detail"]["host"]
+            if host["device_kind"] != card.split(",")[0].strip():
+                bad.append(f"the record's device_kind {host['device_kind']}")
+            try:
+                head = subprocess.run(["git", "rev-parse", "HEAD"],
+                                      cwd=here, capture_output=True,
+                                      text=True, timeout=60)
+                commit = (head.stdout.strip() if head.returncode == 0
+                          else None)
+            except OSError:
+                commit = None     # no git here: the record says None too
+            if "git_commit" not in host or host["git_commit"] != commit:
+                bad.append(f"the record's commit {host.get('git_commit')}, "
+                           f"the checkout's {commit}")
+        if bad:
+            raise RuntimeError(f"tenancy bench: {bad}: {str(rec)[:3000]}")
+        launches = _bench_launches(err)
+        figures["multimodel"] = {k: mm[k] for k in sorted(
+            TENANCY_RECORD_KEYS["multimodel"])}
+        figures["swap"] = {k: sw[k] for k in sorted(
+            TENANCY_RECORD_KEYS["swap"]) if k != "swap_window"}
+        figures["record"] = {"file": os.path.basename(path),
+                             "device_kind": host["device_kind"],
+                             "git_commit": host["git_commit"],
+                             "power_limit_w": host["power_limit_w"]}
+        figures["took_s"] = time.perf_counter() - t0
+        # a second run diffs against the first record
+        rc, rec2, err2 = _bench_run(
+            ["serve", "--model", "mlp", "--serve-duration", "1",
+             "--inline", "--baseline", path, "--artifact-dir", out], env,
+            here)
+        if (rc != 0 or rec2 is None or "baseline" not in rec2["detail"]
+                or "baseline delta vs BENCH_torch_serve_r01.json"
+                not in err2
+                or sorted(os.listdir(out)) != [
+                    "BENCH_torch_serve_r01.json",
+                    "BENCH_torch_serve_r02.json"]):
+            raise RuntimeError(f"the --baseline run exited {rc}:\n"
+                               f"{err2[-4000:]}")
+        for k, n in _bench_launches(err2).items():
+            launches[k] = launches.get(k, 0) + n
+        figures["baseline_delta"] = {
+            k: rec2["detail"]["baseline"][k]
+            for k in ("img_s_chip", "closed_p99_ms",
+                      "recompiles_after_warmup")}
+        # the JAX package's CPU record: refused before any load phase,
+        # and not retried by the supervisor
+        rc, rec3, err3 = _bench_run(
+            ["serve", "--model", "mlp", "--no-artifact", "--baseline",
+             os.path.join(here, "BENCH_serve_r13.json")], env, here)
+        if (rc != 4 or rec3 is not None or "REFUSING --baseline" not in err3
+                or "closed loop" in err3 or "not retried" not in err3):
+            raise RuntimeError(f"the CPU baseline was not refused (exit "
+                               f"{rc}):\n{err3[-4000:]}")
+        figures["refused"] = [ln for ln in err3.splitlines()
+                              if "REFUSING" in ln][0]
+    return figures, launches
+
+
+def drive_tenancy(params: dict, lenet_checkpoint_dir: str,
+                  card: str) -> tuple[dict, dict]:
+    """The tenancy phase: the in-process catalog, the HTTP server and the
+    bench, launch counts set to 0 just before the in-process path and
+    read just after (the server and bench children report their own);
+    the comparisons with single routers and the contention probes made
+    after the counts are read. Returns (figures, {"tenancy": counts})."""
+    from distributedmnist_tpu_torch.ops import fused
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as base:
+        _tenancy_base(base, params, lenet_checkpoint_dir)
+        fused.reset_launches()
+        in_process, runs = drive_tenancy_in_process(base)
+        counts = dict(fused.LAUNCHES)
+        in_process["batches_checked"] = check_tenancy_runs(runs)
+        in_process["contention"] = contention_figures(base)
+        http, http_launches = drive_tenancy_http(base, card)
+    bench, bench_launches = drive_tenancy_bench(card)
+    launches = {"tenancy": {k: counts[k] + http_launches.get(k, 0)
+                            + bench_launches.get(k, 0) for k in counts}}
+    missing = [k for k, n in launches["tenancy"].items() if n <= 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on the tenancy path: "
+                           f"{missing}")
+    figures = {"in_process": in_process, "http": http, "bench": bench,
+               "launches_in_process": counts,
+               "phase_s": time.perf_counter() - t0}
+    print(f"tenancy on {card}: " + json.dumps(figures, default=str),
+          flush=True)
+    return figures, launches
+
+
 def main() -> int:
     import torch
 
@@ -2994,6 +3544,9 @@ def main() -> int:
                                                     card)
         launches.update(fleet_launches)
 
+        _, tenancy_launches = drive_tenancy(params, lenet_ckpt, card)
+        launches.update(tenancy_launches)
+
     line = []
     for name in ("dense_relu", "quant_dense", "mlp_megakernel"):
         timed = next(r for r in records if r["name"] == name
@@ -3007,6 +3560,7 @@ def main() -> int:
                                  for path, n in launches.items()},
             "fleet": launches["fleet"][name],
             "cascade": launches["cascade"][name],
+            "tenancy": launches["tenancy"][name],
             "max_abs_err": max(r["max_abs_err"] for r in records
                                if r["name"] == name),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],

@@ -44,14 +44,29 @@ its flag names, defaults and record keys:
   stressed threshold). With --serve-replicas N >= 2 the router's slot
   holds a fleet (--serve-hedge hedges its tail): the fleet leg measures
   one replica against all N, and --chaos adds a replica kill that
-  failover must absorb.
+  failover must absorb. --swap-during-load rolls a fresh-init version
+  in under closed-loop load (recompiles_after_swap must be 0), and
+  --multimodel serves the MLP and LeNet-5 from one process behind the
+  global scheduler (serve/tenancy.py): a light tenant's p99 alone and
+  under a heavy tenant's burst at the other model, both tenants'
+  fairness on one model, and the cross-model contention probe.
+
+  The serve record is also written to BENCH_torch_serve_rNN.json, the
+  next free round number of that prefix (the JAX package's
+  BENCH_serve_rNN.json records are never counted or touched), in
+  --artifact-dir (default: the repository root); --no-artifact writes
+  none. With --trace the Chrome trace-event file rides beside it
+  (`..._trace.json`). --baseline RECORD embeds and prints the delta
+  against an earlier record, and refuses (exit 4, before any load
+  phase) a record of another device_kind, another infer_dtype, a zipf
+  leg of the other cache setting, or a gateway record.
 
 Runs on the card; --device cpu runs on the CPU, and without a card the
 bench raises. --dtype bfloat16 trains in bfloat16 (throughput,
 time-to-accuracy, sweep, smoke); --data-dir reads MNIST from IDX files or
 mnist.npz there instead of the synthetic set. Progress marks go to
 stderr, and at the end the kernel launch counts (`bench: launches
-{...}`). The bench writes no file.
+{...}`).
 
 As the root bench does, the measurement runs in a supervised worker
 process (utils/supervise.py: killed and retried when it goes silent for
@@ -68,6 +83,9 @@ fails: a CPU number is never a result of the card's bench.
         --checkpoint-dir ckpt --serve-infer-dtype int8
     python -m distributedmnist_tpu_torch.bench serve --model mlp \\
         --serve-replicas 2 --serve-hedge --chaos
+    python -m distributedmnist_tpu_torch.bench serve --model mlp \\
+        --multimodel --swap-during-load \\
+        --baseline BENCH_torch_serve_r01.json
 
 vs_baseline is null in every record: the root bench's targets
 (TARGET_IPS_PER_CHIP, TARGET_WALL_S) were set for a TPU, and no figure
@@ -107,17 +125,20 @@ MODES = ("throughput", "time-to-accuracy", "sweep", "smoke", "serve")
 # Flags and modes of the root bench whose machinery the port does not
 # have yet, each with the ROADMAP.md item that ports it. They exit 2.
 UNPORTED = {
-    "--multimodel": "section 1 item 2 (tenancy)",
-    "--gateway": "section 1 item 4 (the gateway)",
-    "--trace-replay": "section 1 item 5 (workload replay)",
-    "--autoscale": "section 1 item 5 (autoscaling)",
-    "--swap-during-load": "section 1 item 3 (the swap leg)",
-    "--baseline": "section 1 item 3 (bench artifacts and --baseline)",
-    "--artifact-dir": "section 1 item 3 (bench artifacts and --baseline)",
+    "--gateway": "section 1 item 2 (the gateway)",
+    "--trace-replay": "section 1 item 3 (workload replay)",
+    "--autoscale": "section 1 item 3 (autoscaling)",
 }
-_UNPORTED_SWITCHES = ("--autoscale", "--multimodel", "--swap-during-load")
-_UNPORTED_VALUES = ("--trace-replay", "--gateway", "--baseline",
-                    "--artifact-dir")
+_UNPORTED_SWITCHES = ("--autoscale",)
+_UNPORTED_VALUES = ("--trace-replay", "--gateway")
+
+# The exit code of a serve run that refuses its --baseline (before any
+# load phase): deterministic, so the supervisor does not retry it.
+REFUSED = 4
+
+# The port's serve records, numbered apart from the JAX package's
+# BENCH_serve_rNN.json.
+ARTIFACT_PREFIX = "BENCH_torch_serve_r"
 
 
 def _mark(msg: str) -> None:
@@ -271,6 +292,40 @@ def _parser() -> argparse.ArgumentParser:
                         "a tracer and a stage-attribution row for every "
                         "over-SLO request; with --chaos the chaos leg is "
                         "traced too")
+    p.add_argument("--multimodel", action="store_true", default=None,
+                   help="[serve] the multi-tenant leg: MLP and LeNet-5 "
+                        "in one process behind the global DRR/EDF "
+                        "scheduler; the light tenant's p99 alone, then "
+                        "under a heavy burst tenant at the other model "
+                        "(bar: <= 1.5x solo), both tenants saturating "
+                        "LeNet for the dispatch-share/weight-share "
+                        "fairness ratios (bar: within [0.8, 1.25]), "
+                        "per-tenant SLO attainment, the cross-model "
+                        "contention probe and the recompile count (must "
+                        "stay 0); bars recorded, not raised")
+    p.add_argument("--swap-during-load", action="store_true",
+                   default=None,
+                   help="[serve] a closed-loop phase with a real model "
+                        "roll mid-window: load and warm a fresh-init "
+                        "version while clients hammer the live one, "
+                        "promote it, and report the window's p99 against "
+                        "the steady p99 and the post-warm recompile "
+                        "count (must be 0)")
+    p.add_argument("--baseline", default=None,
+                   metavar="BENCH_torch_serve.json",
+                   help="[serve] an earlier serve record to diff "
+                        "against: prints a delta table and refuses "
+                        "(exit 4, before any load phase) when its "
+                        "detail.host.device_kind, infer_dtype or zipf "
+                        "cache setting differs, or when it is a gateway "
+                        "record")
+    p.add_argument("--artifact-dir", default=None,
+                   help="[serve] directory for the "
+                        "BENCH_torch_serve_rNN.json record (default: the "
+                        "repository root)")
+    p.add_argument("--no-artifact", action="store_true", default=None,
+                   help="[serve] write no BENCH_torch_serve_rNN.json "
+                        "record")
     for flag in _UNPORTED_SWITCHES:
         p.add_argument(flag, action="store_true", default=None,
                        help=f"not ported: ROADMAP.md {UNPORTED[flag]}")
@@ -314,7 +369,12 @@ def _parse(argv) -> argparse.Namespace:
                    "--serve-replicas": args.serve_replicas,
                    "--serve-hedge": args.serve_hedge,
                    "--dtype-sweep": args.dtype_sweep,
-                   "--cascade": args.cascade}
+                   "--cascade": args.cascade,
+                   "--multimodel": args.multimodel,
+                   "--swap-during-load": args.swap_during_load,
+                   "--baseline": args.baseline,
+                   "--artifact-dir": args.artifact_dir,
+                   "--no-artifact": args.no_artifact}
     if args.mode != "serve":
         given = [k for k, v in serve_flags.items() if v is not None]
         if given or args.serve_rows != 1:
@@ -376,6 +436,34 @@ def _parse(argv) -> argparse.Namespace:
                     parse_spec(template)
                 except ValueError as e:
                     p.error(f"chaos schedule template is invalid: {e}")
+        if args.baseline is not None:
+            # an unreadable or shapeless baseline is a usage error now;
+            # the device_kind refusal waits for the card, in the worker
+            try:
+                with open(args.baseline) as f:
+                    base = json.load(f)
+            except (OSError, ValueError) as e:
+                p.error(f"--baseline {args.baseline!r}: {e}")
+            detail = base.get("detail") if isinstance(base, dict) else None
+            host = (detail.get("host") if isinstance(detail, dict)
+                    else None)
+            kind = (host.get("device_kind") if isinstance(host, dict)
+                    else None)
+            if not kind:
+                p.error(f"--baseline {args.baseline!r} has no "
+                        "detail.host.device_kind — not a serve record "
+                        "(records without provenance can't be safely "
+                        "compared)")
+        # last (its mkdir is a side effect): a bad artifact dir fails
+        # now, not after the load phases
+        if args.artifact_dir is not None and not args.no_artifact:
+            if not args.artifact_dir:
+                p.error("--artifact-dir needs a non-empty path "
+                        "(or use --no-artifact)")
+            try:
+                os.makedirs(args.artifact_dir, exist_ok=True)
+            except OSError as e:
+                p.error(f"--artifact-dir {args.artifact_dir!r}: {e}")
     elif args.mode in ("throughput", "sweep"):
         if args.trials is not None:
             p.error("--trials is a time-to-accuracy flag; throughput "
@@ -424,11 +512,13 @@ def main(argv=None) -> int:
     from distributedmnist_tpu_torch.utils import supervise
 
     if not args.inline and not supervise.is_worker():
-        # no fallback_env: when every attempt fails, the bench fails
+        # no fallback_env: when every attempt fails, the bench fails; a
+        # refused --baseline is final
         return supervise.run_supervised(
             ["-m", "distributedmnist_tpu_torch.bench", *argv],
             accept=supervise.json_record_acceptor("metric"),
-            stall_timeout=args.stall_timeout, attempts=args.max_attempts)
+            stall_timeout=args.stall_timeout, attempts=args.max_attempts,
+            final_codes=(REFUSED,))
     run = {"throughput": _throughput, "time-to-accuracy": _time_to_accuracy,
            "sweep": _sweep, "smoke": _smoke, "serve": _serve}[args.mode]
     rc = run(args)
@@ -1020,16 +1110,22 @@ def _serve_ragged_leg(router, metrics, factory, make_batcher,
 
 class _BuildCounter:
     """The port's compile-event count: kernel-library builds and loads
-    plus engine builds (the HTTP server's compiles_total). snapshot()
-    deltas around a window must be 0 in steady state."""
+    plus the tracked factories' engine builds (the HTTP server's
+    compiles_total). snapshot() deltas around a window must be 0 in
+    steady state."""
 
-    def __init__(self, factory):
-        self.factory = factory
+    def __init__(self, *factories):
+        self.factories = list(factories)
+
+    def track(self, *factories) -> None:
+        """Count these factories' engine builds too (a leg's own)."""
+        self.factories.extend(factories)
 
     def snapshot(self) -> int:
         from distributedmnist_tpu_torch.ops import kernel_lib
 
-        return kernel_lib.load_events() + self.factory.engine_builds
+        return kernel_lib.load_events() + sum(f.engine_builds
+                                              for f in self.factories)
 
 
 def _serve_zipf_leg(router, metrics, factory, make_batcher,
@@ -1321,14 +1417,15 @@ def _span_census(tracer) -> dict:
 
 
 def _serve_trace_leg(router, metrics, factory, make_batcher,
-                     pipelined: int, duration: float, qps: float) -> dict:
+                     pipelined: int, duration: float, qps: float,
+                     chrome_events: list) -> dict:
     """The tail-attribution leg (the root bench's): a seeded mixed-size
     open-loop window under a tracer whose SLO is one coalescing wait plus
     two full-batch service times (from the measured cost table), then a
     stage-attribution row for every over-SLO request (the slowest
-    retained ones, labelled, when none is over). The root bench also
-    writes the Chrome trace-event file beside its artifact; the port's
-    bench writes no file, so the leg exports the events and counts them."""
+    retained ones, labelled, when none is over). The leg's Chrome
+    trace events go into `chrome_events`, the file the caller writes
+    beside its record."""
     import numpy as np
 
     from distributedmnist_tpu_torch.serve import trace as trace_lib
@@ -1365,7 +1462,9 @@ def _serve_trace_leg(router, metrics, factory, make_batcher,
     min_attr = min((r["attributed_frac"] for r in rows), default=None)
     table = rows[:32]
     snap = tracer.snapshot()
-    n_events = len(tracer.export_chrome()["traceEvents"])
+    events = tracer.export_chrome()["traceEvents"]
+    chrome_events.extend(events)
+    n_events = len(events)
     _mark(f"trace: {len(traces)} retained, {len(over)} over-SLO "
           f"(basis {basis}, {len(rows)} checked); min attributed frac "
           f"{min_attr}; {n_events} Chrome trace events")
@@ -1729,6 +1828,304 @@ def _serve_cascade_leg(registry, router, factory, metrics, make_batcher,
     return leg
 
 
+def contention_probe(catalog, n: int = 30) -> dict:
+    """The cross-model contention ceiling: the median of `n` MLP router
+    dispatches of 8 rows alone, then with a LeNet router storm of 16-row
+    dispatches on another thread. Router-direct, no queues: the ratio is
+    device and host contention that no scheduler can remove. On the card
+    it shows whether the catalog's per-model streams keep the MLP off
+    LeNet's queue."""
+    import numpy as np
+
+    probe_rng = np.random.default_rng(7)
+    xm = probe_rng.integers(0, 256, (8, 28, 28, 1), dtype=np.uint8)
+    xl = probe_rng.integers(0, 256, (16, 28, 28, 1), dtype=np.uint8)
+    mlp_router = catalog.get("mlp").router
+    lenet_router = catalog.get("lenet").router
+
+    def median_infer_ms():
+        times = []
+        for _ in range(n):
+            t0 = time.monotonic()
+            mlp_router.infer(xm)
+            times.append(time.monotonic() - t0)
+        return float(np.median(times)) * 1e3
+
+    alone_ms = median_infer_ms()
+    storm_stop = [False]
+
+    def storm():
+        while not storm_stop[0]:
+            lenet_router.infer(xl)
+
+    t = make_thread(target=storm, name="bench-mm-storm", daemon=True)
+    t.start()
+    try:
+        contended_ms = median_infer_ms()
+    finally:
+        storm_stop[0] = True
+        t.join()
+    return {"alone_ms": round(alone_ms, 4),
+            "contended_ms": round(contended_ms, 4),
+            "contention_x": (round(contended_ms / alone_ms, 3)
+                             if alone_ms else None)}
+
+
+def _serve_multimodel_leg(compiles, device: str, duration: float,
+                          rows: int) -> dict:
+    """The multi-tenant leg (the root bench's): MLP and LeNet-5 resident
+    in one process behind the global DRR/EDF scheduler, on a catalog and
+    scheduler of their own (the main single-model stack is untouched).
+    Phase A measures the light tenant's p99 alone; phase B adds a heavy
+    burst tenant at the other model; phase C saturates both tenants on
+    LeNet for the fairness split. Pumps keep windows of requests
+    outstanding (always backlogged), so the granted-row split is the
+    scheduler's decision, not client pacing. Bars recorded, not raised:
+    light mixed p99 <= 1.5x solo, both fairness ratios in [0.8, 1.25],
+    zero builds across the three phases. The catalog's two warmups are
+    `warmup_compile_events`, which the caller excludes from its
+    whole-run count."""
+    import collections
+
+    import numpy as np
+
+    from distributedmnist_tpu_torch.config import Config
+    from distributedmnist_tpu_torch.serve import ServeMetrics
+    from distributedmnist_tpu_torch.serve.tenancy import build_tenancy
+
+    weights = {"light": 2.0, "heavy": 1.0}
+    # a quantum well below the head costs: DRR's shares converge to the
+    # weights only when affording a head takes several credit scans (one
+    # that covers every head at once degenerates to round robin)
+    cfg = Config(
+        model="mlp", device=device, serve_models="mlp,lenet",
+        serve_tenants=(f"light:weight={weights['light']:g},"
+                       "deadline_ms=5000,model=mlp;"
+                       f"heavy:weight={weights['heavy']:g},"
+                       "model=lenet"),
+        serve_max_batch=16, serve_max_wait_us=500,
+        serve_tenant_quantum_us=200.0)
+    metrics = ServeMetrics()
+    catalog, sched = build_tenancy(cfg, metrics=metrics)
+    compiles.track(*[e.factory for e in catalog.entries()])
+    boot_from = compiles.snapshot()
+    lat = {"solo": [], "light": [], "heavy": []}
+    try:
+        for name in catalog.names():     # eager residency, as the server
+            catalog.ensure_live(name, seed=cfg.seed)
+        # the whole boot delta (both models' engines and kernel-library
+        # loads), which the whole-run count excludes
+        warmup_compiles = compiles.snapshot() - boot_from
+        steady_from = compiles.snapshot()
+        _mark(f"multimodel leg: {catalog.names()} resident "
+              f"({warmup_compiles} warmup builds); light solo "
+              f"{duration:g}s then +heavy burst {duration:g}s")
+        probe = contention_probe(catalog)
+        contention_x = probe["contention_x"]
+        _mark(f"multimodel: cross-model contention ceiling "
+              f"{contention_x}x (mlp {probe['alone_ms']:.3f} -> "
+              f"{probe['contended_ms']:.3f} ms under a lenet storm)")
+
+        errors: list = []
+
+        def pump(tenant, window, stop_at, lats, model=None):
+            rng = np.random.default_rng(sum(map(ord, tenant)))
+            x = rng.integers(0, 256, (rows, 28, 28, 1), dtype=np.uint8)
+            outstanding = collections.deque()
+            while time.monotonic() < stop_at:
+                try:
+                    while (len(outstanding) < window
+                           and time.monotonic() < stop_at):
+                        outstanding.append(
+                            (time.monotonic(),
+                             sched.submit(x, tenant=tenant,
+                                          model=model)))
+                    t0, fut = outstanding.popleft()
+                    fut.result(timeout=120)
+                    lats.append(time.monotonic() - t0)
+                except BaseException as e:
+                    errors.append(e)
+                    return
+            while outstanding:
+                t0, fut = outstanding.popleft()
+                try:
+                    fut.result(timeout=120)
+                    lats.append(time.monotonic() - t0)
+                except BaseException as e:
+                    errors.append(e)
+                    return
+
+        def phase(pumps):
+            threads = [make_thread(target=pump, args=spec,
+                                   name=f"bench-mm-{spec[0]}",
+                                   daemon=True)
+                       for spec in pumps]
+            granted0 = {t: s["granted_rows"] for t, s in
+                        sched.snapshot()["tenants"].items()}
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            if errors:
+                raise RuntimeError(
+                    "multimodel pump died; the fairness split would "
+                    "be measured against a degraded tenant") \
+                    from errors[0]
+            return {t: s["granted_rows"] - granted0[t] for t, s in
+                    sched.snapshot()["tenants"].items()}
+
+        def p99_ms(samples):
+            return (round(float(np.percentile(samples, 99)) * 1e3, 3)
+                    if samples else None)
+
+        # Phase A: the light tenant alone, its uncontended p99.
+        phase([("light", 8, time.monotonic() + duration, lat["solo"])])
+        solo_p99 = p99_ms(lat["solo"])
+        # Phase B: the same light pump plus a heavy burst at the OTHER
+        # model, 8x the outstanding window.
+        stop_at = time.monotonic() + duration
+        phase([("light", 8, stop_at, lat["light"]),
+               ("heavy", 64, stop_at, lat["heavy"])])
+        mixed_p99 = p99_ms(lat["light"])
+        # Phase C: both tenants saturated on ONE model (LeNet, the
+        # expensive one): the pacing cap keeps their backlogs in the
+        # per-tenant queues, so every row that reaches the card got there
+        # by a DRR grant.
+        stop_at = time.monotonic() + duration
+        granted = phase([("light", 64, stop_at, [], "lenet"),
+                         ("heavy", 64, stop_at, [], "lenet")])
+        recompiles = compiles.snapshot() - steady_from
+    finally:
+        sched.stop()
+
+    backlogged = {t: w for t, w in weights.items() if granted.get(t)}
+    total_rows = sum(granted[t] for t in backlogged) or 1
+    total_weight = sum(backlogged.values())
+    fairness = {}
+    for t, w in backlogged.items():
+        # one model in phase C: equal per-row cost, so the row share is
+        # the service-time share DRR equalizes
+        share = granted[t] / total_rows
+        weight_share = w / total_weight
+        fairness[t] = {
+            "granted_rows": granted[t],
+            "dispatch_share": round(share, 4),
+            "weight_share": round(weight_share, 4),
+            "ratio": round(share / weight_share, 3),
+        }
+    degradation = (round(mixed_p99 / solo_p99, 3)
+                   if mixed_p99 and solo_p99 else None)
+    bt = metrics.snapshot()["by_tenant"]
+    leg = {
+        "models": ["mlp", "lenet"],
+        "weights": weights,
+        "duration_s_per_phase": duration,
+        "rows_per_request": rows,
+        "light_solo_p99_ms": solo_p99,
+        "light_mixed_p99_ms": mixed_p99,
+        "heavy_mixed_p99_ms": p99_ms(lat["heavy"]),
+        "light_p99_degradation_x": degradation,
+        # a heavy burst degrades the light tenant's p99 by at most 1.5x,
+        # reachable only where the two models don't contend for the same
+        # card and host (host_contention_x)
+        "light_p99_bar": 1.5,
+        "host_contention_x": contention_x,
+        "light_p99_bar_reachable": (contention_x is not None
+                                    and contention_x <= 1.5),
+        "light_p99_ok": (degradation is not None
+                         and degradation <= 1.5),
+        "fairness_model": "lenet",
+        "fairness": fairness,
+        "fairness_ok": all(0.8 <= f["ratio"] <= 1.25
+                           for f in fairness.values()),
+        "slo_attainment": {t: bt.get(t, {}).get("slo_attainment")
+                           for t in weights},
+        "max_skip_observed": sched.max_skip_observed,
+        "recompiles_after_warmup": recompiles,
+        "warmup_compile_events": warmup_compiles,
+    }
+    _mark(f"multimodel: light p99 {solo_p99} -> {mixed_p99} ms "
+          f"({degradation}x, ok {leg['light_p99_ok']}), fairness "
+          f"{ {t: f['ratio'] for t, f in fairness.items()} } "
+          f"(ok {leg['fairness_ok']}), {recompiles} recompiles")
+    if not leg["light_p99_bar_reachable"]:
+        _mark(f"multimodel leg: the 1.5x light-p99 bar is out of reach "
+              f"here: cross-model contention alone costs {contention_x}x"
+              "; light_p99_ok reflects the host, not the scheduler")
+    return leg
+
+
+def _serve_swap_window(registry, factory, batcher, metrics, req,
+                       clients: int, duration: float, compiles,
+                       seed: int = 101) -> dict:
+    """A closed-loop window with a real model roll in the middle (the
+    root bench's): after a quarter of the window, load and warm a
+    fresh-init version on this thread while the clients keep hammering
+    the live one, then promote it. Returns the whole window's snapshot,
+    the candidate's warmup cost, and the build count from post-warm to
+    drain, `recompiles_after_swap`, which must be 0."""
+    import threading
+
+    from distributedmnist_tpu_torch.serve import Rejected
+
+    client_errors: list = []
+    stop_evt = threading.Event()
+
+    def client():
+        while not stop_evt.is_set():
+            try:
+                batcher.submit(req).result(timeout=120)
+            except Rejected:
+                time.sleep(0.001)
+            except BaseException as e:
+                client_errors.append(e)
+                return
+
+    threads = [make_thread(target=client, name=f"bench-swap-client-{i}",
+                           daemon=True)
+               for i in range(clients)]
+    for t in threads:
+        t.start()
+    time.sleep(min(0.5, duration * 0.2))     # unmeasured ramp
+    metrics.reset()
+    t_win0 = time.monotonic()
+    time.sleep(duration * 0.25)              # steady traffic pre-swap
+    version = "v-swap"
+    before = compiles.snapshot()
+    t_load0 = time.monotonic()
+    # load and warm off the dispatch path: the live version keeps serving
+    mv = registry.add(factory.init_params(seed), version=version,
+                      source="fresh-init")
+    warm_events = compiles.snapshot() - before
+    steady_from = compiles.snapshot()        # post-warm, pre-promote
+    registry.promote(version)
+    t_swap = time.monotonic()
+    _mark(f"hot-swap: {version} warmed in {t_swap - t_load0:.2f}s "
+          f"({warm_events} builds), promoted")
+    # the post-swap tail: the new version takes all traffic inside the
+    # measured window, so a cold bucket would show in this p99
+    time.sleep(max(duration * 0.5, 0.5))
+    stop_evt.set()
+    for t in threads:
+        t.join()
+    if client_errors:
+        raise RuntimeError(
+            f"{len(client_errors)} of {clients} swap-window clients "
+            "died — a hot-swap must not fail requests") \
+            from client_errors[0]
+    _drain_or_die(batcher, timeout=120)
+    recompiles = compiles.snapshot() - steady_from
+    snap = metrics.snapshot()
+    return {
+        "version": version,
+        "window_s": round(time.monotonic() - t_win0, 3),
+        "load_warm_s": round(mv.warmup_s, 3),
+        "warmup_compile_events": warm_events,
+        "recompiles_after_swap": recompiles,
+        "swap_window": snap,
+    }
+
+
 def chaos_fault_spec(live_version: str, kill_target) -> str:
     """The chaos leg's fault schedule, the root bench's: request-sticky
     poison on ~1.5% of dispatches (bisection's food) and a fetch storm
@@ -2043,6 +2440,157 @@ def _host_provenance(factory, infer_dtype: str = "float32") -> dict:
     }
 
 
+def _baseline_delta(record: dict, baseline: dict, path: str) -> dict:
+    """The --baseline block (the root bench's rows): current against
+    prior on the stable serve signals, printed to stderr as a table and
+    embedded in the record. Rows whose leg either run lacked are
+    None-vs-None; `compile_surface` stays None-vs-None, since the port
+    has no static compile-surface auditor."""
+    cur_d, base_d = record["detail"], baseline.get("detail", {})
+
+    def pct(cur, prev):
+        return (round(100.0 * (cur - prev) / prev, 1)
+                if cur is not None and prev else None)
+
+    def leg(d, name):
+        return d.get(name) or {}
+
+    cur_chaos, base_chaos = leg(cur_d, "chaos"), leg(base_d, "chaos")
+    rows = {
+        "img_s_chip": (record["value"], baseline.get("value")),
+        "closed_p99_ms": (
+            cur_d["closed_loop"]["latency_ms"]["p99"],
+            base_d.get("closed_loop", {}).get("latency_ms", {})
+            .get("p99")),
+        "ragged_closed_waste": (
+            leg(cur_d, "ragged").get("closed_waste_on"),
+            leg(base_d, "ragged").get("closed_waste_on")),
+        "recompiles_after_warmup": (
+            cur_d["recompiles_after_warmup"],
+            base_d.get("recompiles_after_warmup")),
+        "chaos_availability": (
+            cur_chaos.get("availability_excluding_injected"),
+            base_chaos.get("availability_excluding_injected")),
+        "chaos_p99_under_faults_ms": (
+            cur_chaos.get("p99_under_faults_ms"),
+            base_chaos.get("p99_under_faults_ms")),
+        "chaos_failovers": (cur_chaos.get("failovers"),
+                            base_chaos.get("failovers")),
+        "dtype_sweep_best_speedup": (
+            leg(cur_d, "dtype_sweep").get("best_speedup"),
+            leg(base_d, "dtype_sweep").get("best_speedup")),
+        "zipf_hit_ratio": (leg(cur_d, "zipf").get("hit_ratio"),
+                           leg(base_d, "zipf").get("hit_ratio")),
+        "zipf_goodput_x": (leg(cur_d, "zipf").get("goodput_x"),
+                           leg(base_d, "zipf").get("goodput_x")),
+        "zipf_p99_on_ms": (leg(cur_d, "zipf").get("p99_on_ms"),
+                           leg(base_d, "zipf").get("p99_on_ms")),
+        "lowlat_p50_improvement_x": (
+            leg(cur_d, "lowlat").get("p50_improvement_x"),
+            leg(base_d, "lowlat").get("p50_improvement_x")),
+        "lowlat_p50_fastlane_ms": (
+            leg(cur_d, "lowlat").get("p50_fastlane_ms"),
+            leg(base_d, "lowlat").get("p50_fastlane_ms")),
+        "cascade_agreement": (
+            (leg(cur_d, "cascade").get("agreement_vs_f32")
+             or {}).get("balanced"),
+            (leg(base_d, "cascade").get("agreement_vs_f32")
+             or {}).get("balanced")),
+        "cascade_efficiency": (
+            leg(cur_d, "cascade").get("cascade_efficiency_vs_fast"),
+            leg(base_d, "cascade").get("cascade_efficiency_vs_fast")),
+        "cascade_escalation_rate": (
+            ((leg(cur_d, "cascade").get("legs")
+              or {}).get("balanced") or {}).get("escalation_fraction"),
+            ((leg(base_d, "cascade").get("legs")
+              or {}).get("balanced") or {}).get("escalation_fraction")),
+        "trace_slo_attainment": (
+            leg(cur_d, "trace_replay").get("slo_attainment"),
+            leg(base_d, "trace_replay").get("slo_attainment")),
+        "trace_chip_s_per_m_requests": (
+            leg(cur_d, "trace_replay").get("chip_seconds_per_m_requests"),
+            leg(base_d, "trace_replay").get(
+                "chip_seconds_per_m_requests")),
+        "trace_scale_actions": (
+            leg(cur_d, "trace_replay").get("scale_actions"),
+            leg(base_d, "trace_replay").get("scale_actions")),
+        "compile_surface_keys": (
+            leg(cur_d, "compile_surface").get("static_keys"),
+            leg(base_d, "compile_surface").get("static_keys")),
+        "gateway_workers": (leg(cur_d, "gateway").get("workers"),
+                            leg(base_d, "gateway").get("workers")),
+        "gateway_scaling_efficiency": (
+            leg(cur_d, "gateway").get("scaling_efficiency"),
+            leg(base_d, "gateway").get("scaling_efficiency")),
+        "gateway_shard_hit_ratio": (
+            (leg(cur_d, "gateway").get("zipf")
+             or {}).get("shard_hit_ratio"),
+            (leg(base_d, "gateway").get("zipf")
+             or {}).get("shard_hit_ratio")),
+    }
+    delta = {"path": path,
+             "baseline_value": baseline.get("value"),
+             "baseline_device_kind": base_d.get("host", {})
+             .get("device_kind")}
+    _mark(f"baseline delta vs {os.path.basename(path)} "
+          f"(device_kind {delta['baseline_device_kind']}):")
+    for name, (cur, prev) in rows.items():
+        d = pct(cur, prev)
+        delta[name] = {"current": cur, "baseline": prev,
+                       "delta_pct": d}
+        _mark(f"  {name:<24} {prev} -> {cur}"
+              f" ({'+' if d is not None and d >= 0 else ''}{d}%)"
+              if d is not None else
+              f"  {name:<24} {prev} -> {cur}")
+    cur_h = leg(cur_d, "compile_surface").get("fingerprint_set_hash")
+    base_h = leg(base_d, "compile_surface").get("fingerprint_set_hash")
+    delta["compile_surface"] = {
+        "current_hash": cur_h,
+        "baseline_hash": base_h,
+        "match": (cur_h == base_h if cur_h and base_h else None),
+    }
+    return delta
+
+
+def _next_serve_artifact(artifact_dir: str) -> str:
+    """The next free BENCH_torch_serve_rNN.json path in artifact_dir: one
+    record a serve run, counted under the port's own prefix only (the
+    JAX package's BENCH_serve_rNN.json records never move the count)."""
+    import re
+
+    pat = re.compile(re.escape(ARTIFACT_PREFIX) + r"(\d+)\.json$")
+    rounds = [int(m.group(1)) for f in os.listdir(artifact_dir)
+              for m in [pat.match(f)] if m]
+    n = (max(rounds) if rounds else 0) + 1
+    return os.path.join(artifact_dir, f"{ARTIFACT_PREFIX}{n:02d}.json")
+
+
+def _baseline_refusal(args, baseline: dict, this_kind: str
+                      ) -> Optional[str]:
+    """Why --baseline's record does not compare with this run, known
+    before the warmup (the root bench's refusals: a gateway record, the
+    device kind, the zipf leg's cache setting), or None."""
+    d = baseline["detail"]
+    if d.get("gateway") is not None:
+        return (f"it is a --gateway fleet record "
+                f"({d['gateway'].get('workers')} workers); this run is "
+                "single-process")
+    base_kind = d["host"]["device_kind"]
+    if base_kind != this_kind:
+        return (f"it was measured on device_kind={base_kind!r}, this "
+                f"host is {this_kind!r} — cross-silicon serve deltas are "
+                "meaningless")
+    base_zipf = d.get("zipf")
+    if args.zipf and isinstance(base_zipf, dict):
+        cur_on = not args.zipf_cache_off
+        base_on = bool(base_zipf.get("cache_enabled"))
+        if cur_on != base_on:
+            return (f"its zipf leg ran cache_enabled={base_on}, this run "
+                    f"is cache_enabled={cur_on} — cache-on-vs-cache-off "
+                    "serve deltas are meaningless")
+    return None
+
+
 def _serve(args) -> int:
     """The serving load legs (the root bench's _serve, in-process): warmup
     excluded from every window, and a count of kernel-library loads and
@@ -2066,6 +2614,17 @@ def _serve(args) -> int:
     metrics = ServeMetrics()
     registry, router, factory = build_serving(cfg, metrics=metrics)
     compiles = _BuildCounter(factory)
+    # --baseline: refused before any load phase when the records do not
+    # compare (the root bench's exit 4); the dtype check follows the
+    # variant's activation
+    baseline_rec = None
+    if args.baseline:
+        with open(args.baseline) as f:
+            baseline_rec = json.load(f)       # shape checked at parse
+        why = _baseline_refusal(args, baseline_rec, factory.device_kind)
+        if why is not None:
+            _mark(f"REFUSING --baseline {args.baseline}: {why}")
+            return REFUSED
     # the replica fleet (--serve-replicas >= 2): the fleet leg and the
     # chaos replica kill hang off it, and images/s per chip divides by
     # the fleet's distinct cards
@@ -2102,6 +2661,16 @@ def _serve(args) -> int:
         warm_builds += sum(vi.warmup_builds for vi in
                            registry.get(boot.version).variants.values())
     headline_dtype = router.live_infer_dtype() or "float32"
+    if baseline_rec is not None:
+        base_dtype = (baseline_rec["detail"]["host"].get("infer_dtype")
+                      or "float32")
+        if base_dtype != headline_dtype:
+            _mark(f"REFUSING --baseline {args.baseline}: it was measured "
+                  f"at infer_dtype={base_dtype!r}, this run serves "
+                  f"{headline_dtype!r} — cross-dtype serve deltas are "
+                  "meaningless (an int8 record must not masquerade as an "
+                  "f32 win)")
+            return REFUSED
     # engine builds, counted at the factory: none may happen after warmup
     steady_from = compiles.snapshot()
 
@@ -2222,10 +2791,49 @@ def _serve(args) -> int:
             duration, cache_on=not args.zipf_cache_off,
             cache_capacity=args.serve_cache_capacity or 4096)
     trace_leg = None
+    chrome_events: list = []
     if args.trace:
         trace_leg = _serve_trace_leg(router, metrics, factory,
                                      make_batcher, pipelined, duration,
-                                     low_qps)
+                                     low_qps, chrome_events)
+    # the model roll under load, on a batcher of its own: the candidate's
+    # warmup is excluded from the whole-run count below (it rolls the
+    # live version to a fresh-init one, as the root bench's does)
+    swap = None
+    if args.swap_during_load:
+        swap_b = make_batcher(pipelined)
+        try:
+            _mark(f"swap window [inflight={swap_b.max_inflight}]: "
+                  f"{clients} clients, hot-swap mid-window")
+            swap = _serve_swap_window(registry, factory, swap_b, metrics,
+                                      req, clients, duration, compiles)
+        finally:
+            swap_b.stop()
+        steady_p99 = closed["latency_ms"]["p99"]
+        swap_p99 = swap["swap_window"]["latency_ms"]["p99"]
+        swap["steady_p99_ms"] = steady_p99
+        swap["swap_window_p99_ms"] = swap_p99
+        swap["p99_ratio_vs_steady"] = (
+            round(swap_p99 / steady_p99, 3)
+            if steady_p99 and swap_p99 is not None else None)
+        # the new version serves only after the promote: its by_version
+        # p99 is the post-swap population alone
+        post = swap["swap_window"]["by_version"].get(swap["version"])
+        post_p99 = post["latency_ms"]["p99"] if post else None
+        swap["post_swap_p99_ms"] = post_p99
+        swap["post_swap_p99_ratio_vs_steady"] = (
+            round(post_p99 / steady_p99, 3)
+            if steady_p99 and post_p99 is not None else None)
+        _mark(f"swap window: p99 {swap_p99} ms vs steady {steady_p99} ms"
+              f" (ratio {swap['p99_ratio_vs_steady']}; post-swap "
+              f"population {post_p99} ms), "
+              f"{swap['recompiles_after_swap']} recompiles after swap")
+    # the multi-tenant leg, on a catalog and scheduler of its own; its
+    # two model warmups are excluded from the whole-run count below
+    multimodel_leg = None
+    if args.multimodel:
+        multimodel_leg = _serve_multimodel_leg(compiles, args.device,
+                                               duration, rows)
     chaos = None
     if args.chaos:
         from distributedmnist_tpu_torch.serve import trace as trace_lib
@@ -2254,6 +2862,9 @@ def _serve(args) -> int:
             n_rescue_parented = (
                 census["parented"].get("fleet.failover.fetch", 0)
                 + census["parented"].get("fleet.failover.dispatch", 0))
+            chrome_events.extend(chaos_tracer.export_chrome(
+                pid=2, process_name="distributedmnist-serve-chaos"
+            )["traceEvents"])
             trace_leg["chaos"] = {
                 "bisect_split_spans": n_bisect,
                 "bisect_dispatch_spans":
@@ -2286,11 +2897,15 @@ def _serve(args) -> int:
         recompiles -= dtype_sweep["variant_warmup_compile_events"]
     if cascade_leg is not None:
         recompiles -= cascade_leg["variant_warmup_compile_events"]
+    if swap is not None:
+        recompiles -= swap["warmup_compile_events"]
+    if multimodel_leg is not None:
+        recompiles -= multimodel_leg["warmup_compile_events"]
     if recompiles:
         _mark(f"WARNING: {recompiles} kernel-library loads or engine "
               "builds after warmup — steady state was to build nothing")
     open_piped_low = next(r for r in table if r["qps_target"] == low_qps)
-    print(json.dumps({
+    record = {
         "metric": "serve_images_per_sec_per_chip",
         "value": round(value, 1),
         "unit": "images/sec/chip",
@@ -2330,6 +2945,8 @@ def _serve(args) -> int:
             "trace": trace_leg,
             "dtype_sweep": dtype_sweep,
             "cascade": cascade_leg,
+            "swap": swap,
+            "multimodel": multimodel_leg,
             # the fleet (None on one replica): where each replica runs
             # (its own card, or a stream of its own on a shared one), the
             # scaling leg and the fleet's state at the end
@@ -2360,7 +2977,34 @@ def _serve(args) -> int:
                     open_piped_low["latency_ms"],
             },
         },
-    }), flush=True)
+    }
+    if baseline_rec is not None:
+        record["detail"]["baseline"] = _baseline_delta(
+            record, baseline_rec, args.baseline)
+    print(json.dumps(record), flush=True)
+    if not args.no_artifact:
+        # best effort: the record is on stdout already, and an unwritable
+        # default directory must not turn a finished run into a failure
+        artifact_dir = args.artifact_dir or os.path.dirname(
+            os.path.dirname(os.path.abspath(__file__)))
+        try:
+            path = _next_serve_artifact(artifact_dir)
+            with open(path, "w") as f:
+                json.dump(record, f, indent=1)
+                f.write("\n")
+            _mark(f"artifact: {path}")
+            if args.trace and chrome_events:
+                # the Chrome trace-event file beside it, same round:
+                # chrome://tracing or ui.perfetto.dev load it
+                tpath = path[:-len(".json")] + "_trace.json"
+                with open(tpath, "w") as f:
+                    json.dump({"traceEvents": chrome_events,
+                               "displayTimeUnit": "ms"}, f)
+                    f.write("\n")
+                _mark(f"trace artifact: {tpath}")
+        except OSError as e:
+            _mark(f"WARNING: artifact not written ({e}); the record "
+                  "above is the only copy")
     return 0
 
 

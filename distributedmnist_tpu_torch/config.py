@@ -172,6 +172,20 @@ class Config:
     # overrides the calibrated threshold (the same gate judges it).
     serve_cascade: bool = False
     serve_cascade_threshold: Optional[float] = None
+    # Multi-tenant, multi-model serving (serve/tenancy.py): serve_models
+    # lists the catalog ("mlp,lenet" boots both models, each with its own
+    # registry/router/batcher and checkpoint subtree
+    # <checkpoint_dir>/<model>; empty = just cfg.model). serve_tenants
+    # configures the admission classes the X-Tenant header maps to
+    # ("name:qps=50,burst=25,deadline_ms=50,weight=1,model=mlp;..."):
+    # token-bucket quota (429 + Retry-After past it), a default deadline
+    # (infeasible heads shed 504 by the cost model) and the weighted-fair
+    # weight. Empty = tenancy off. serve_tenant_quantum_us is the
+    # deficit-round-robin credit a ring visit grants per unit weight, in
+    # microseconds of modeled dispatch cost.
+    serve_models: str = ""
+    serve_tenants: str = ""
+    serve_tenant_quantum_us: float = 5000.0
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -410,6 +424,26 @@ def add_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         "below it escalate). The composed-accuracy "
                         "gate still judges the override — a failing "
                         "value refuses the cascade loudly")
+    p.add_argument("--serve-models", default=None,
+                   help="[serving] comma-separated model catalog "
+                        "(serve/tenancy.py): 'mlp,lenet' serves both "
+                        "models from one process, each with its own "
+                        "registry, bucket geometry, cost tables and "
+                        "checkpoint subtree <checkpoint-dir>/<model>. "
+                        "Empty (default) serves --model alone")
+    p.add_argument("--serve-tenants", default=None,
+                   help="[serving] tenant SLO classes for the X-Tenant "
+                        "header, 'name:qps=50,burst=25,deadline_ms=50,"
+                        "weight=1,model=mlp;name2:...': token-bucket "
+                        "quota (429 + Retry-After on breach), default "
+                        "deadline (infeasible requests shed 504), and "
+                        "weighted-fair-queueing weight. Setting this "
+                        "routes /predict through the global scheduler "
+                        "(GET /tenants, POST /tenants/{id}/quota)")
+    p.add_argument("--serve-tenant-quantum-us", type=float, default=None,
+                   help="[serving] deficit-round-robin quantum: modeled "
+                        "dispatch microseconds credited per ring visit "
+                        "per unit tenant weight")
     return p
 
 

@@ -6,8 +6,9 @@ fan-out, the cascade's gate, the cache's invalidation), batcher
 drains, bisection, dedup, the fast lane), scheduler, metrics (with the
 Prometheus exposition), fault injection (faults), resilience (the circuit
 breaker and its rollback), tracing (trace), the prediction cache
-(cache), the replica fleet (fleet), the confidence cascade (cascade) and
-the HTTP server (serve/server.py)."""
+(cache), the replica fleet (fleet), the confidence cascade (cascade),
+multi-tenant, multi-model serving (tenancy: the model catalog and the
+global scheduler) and the HTTP server (serve/server.py)."""
 
 from distributedmnist_tpu_torch.serve import faults, trace  # noqa: F401
 from distributedmnist_tpu_torch.serve.batcher import (  # noqa: F401
@@ -33,3 +34,6 @@ from distributedmnist_tpu_torch.serve.router import (  # noqa: F401
     NoLiveModel, Router)
 from distributedmnist_tpu_torch.serve.trace import (  # noqa: F401
     Tracer, attribute_stages)
+from distributedmnist_tpu_torch.serve.tenancy import (  # noqa: F401
+    GlobalScheduler, ModelCatalog, QuotaExceeded, SLOClass, build_catalog,
+    build_tenancy, parse_tenants)

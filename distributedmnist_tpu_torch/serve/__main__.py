@@ -28,6 +28,16 @@ confidence cascade in front of the cache (--serve-cascade,
 version is live. The cascade needs one replica: on a fleet its gate is
 refused and every accuracy class serves the live route.
 
+--serve-tenants / --serve-models turn on multi-tenant, multi-model
+serving (serve/tenancy.py): one serving stack a catalog model, each from
+its own checkpoint subtree <checkpoint-dir>/<model>, every model made
+live at boot, and every request admitted and dispatched by the global
+scheduler (X-Tenant picks the SLO class; GET /tenants, POST
+/tenants/{id}/quota; --serve-tenant-quantum-us sets the DRR quantum).
+It does not compose with --serve-cascade, --serve-replicas above 1 or
+--serve-fastlane, and runs without the resilience policy, as the root
+serve.py does.
+
 Runs on the card; pass --device cpu to run on the CPU.
 
     python -m distributedmnist_tpu_torch.train --preset lenet-adam \\
@@ -36,6 +46,9 @@ Runs on the card; pass --device cpu to run on the CPU.
         --checkpoint-dir ckpt --selftest 256 --serve-infer-dtype int8
     python -m distributedmnist_tpu_torch.serve --model mlp --port 8000 \\
         --serve-replicas 2 --serve-hedge
+    python -m distributedmnist_tpu_torch.serve --port 8000 \\
+        --serve-models mlp,lenet --checkpoint-dir ckpts \\
+        --serve-tenants "gold:qps=100,burst=8,model=mlp;free:qps=5"
 """
 
 from __future__ import annotations
@@ -157,6 +170,36 @@ def main(argv=None) -> int:
         if not 0.0 <= args.serve_cascade_threshold <= 1.0:
             # nan fails both comparisons and lands here too
             p.error("--serve-cascade-threshold must be in [0, 1]")
+    if args.serve_tenants or args.serve_models:
+        # a malformed class table is a usage error now: it must never
+        # boot a server that silently rate-limits nobody; the single-
+        # model fronts don't compose with the scheduler that owns every
+        # dispatch, so their flags are refused, never ignored
+        if args.serve_tenants:
+            from distributedmnist_tpu_torch.serve.tenancy import \
+                parse_tenants
+            try:
+                parse_tenants(args.serve_tenants)
+            except ValueError as e:
+                p.error(f"--serve-tenants: {e}")
+        if (args.serve_tenant_quantum_us is not None
+                and args.serve_tenant_quantum_us <= 0):
+            p.error("--serve-tenant-quantum-us must be > 0")
+        if args.serve_models:
+            for name in (s.strip()
+                         for s in args.serve_models.split(",")):
+                if name not in ("mlp", "lenet"):
+                    p.error(f"--serve-models: unknown model {name!r} "
+                            "(expected mlp|lenet)")
+        if args.serve_cascade:
+            p.error("--serve-cascade does not compose with multi-tenant "
+                    "serving (the global scheduler owns dispatch)")
+        if args.serve_replicas is not None and args.serve_replicas > 1:
+            p.error("--serve-replicas does not compose with multi-tenant "
+                    "serving yet")
+        if args.serve_fastlane:
+            p.error("--serve-fastlane does not compose with multi-tenant "
+                    "serving (every dispatch is a scheduler grant)")
     if args.serve_faults is not None:
         # a malformed schedule is a usage error now: it must never boot
         # a server that silently injects nothing
@@ -171,12 +214,27 @@ def main(argv=None) -> int:
                                                   ServeMetrics,
                                                   build_cache_front,
                                                   build_resilience,
-                                                  build_serving, faults)
+                                                  build_serving,
+                                                  build_tenancy, faults)
     from distributedmnist_tpu_torch.serve import trace as trace_lib
 
     metrics = ServeMetrics()
-    registry, router, factory = build_serving(cfg, metrics=metrics)
-    resilience = build_resilience(cfg, registry=registry, metrics=metrics)
+    # multi-tenant mode: the catalog and the global scheduler; the
+    # single-model path below stays as it is
+    catalog = scheduler = None
+    if cfg.serve_tenants or cfg.serve_models:
+        catalog, scheduler = build_tenancy(cfg, metrics=metrics)
+        entry = catalog.get(catalog.default())
+        registry, router, factory = (entry.registry, entry.router,
+                                     entry.factory)
+        batcher = entry.batcher
+        log.info("multi-tenant serving on: models %s, tenants %s "
+                 "(quantum %.1f ms); X-Tenant picks the SLO class, GET "
+                 "/tenants shows the scheduler's view", catalog.names(),
+                 sorted(scheduler.classes()),
+                 cfg.serve_tenant_quantum_us / 1e3)
+    else:
+        registry, router, factory = build_serving(cfg, metrics=metrics)
     if cfg.serve_faults:
         faults.install(faults.FaultInjector.from_spec(cfg.serve_faults,
                                                       seed=cfg.seed))
@@ -192,27 +250,37 @@ def main(argv=None) -> int:
                  "ms): GET /trace, X-Trace-Id on /predict",
                  cfg.serve_trace_capacity, cfg.serve_trace_sample,
                  cfg.serve_slo_ms)
-    batcher = DynamicBatcher(router, max_batch=cfg.serve_max_batch,
-                             max_wait_us=cfg.serve_max_wait_us,
-                             queue_depth=cfg.serve_queue_depth,
-                             max_inflight=cfg.serve_max_inflight,
-                             slo_ms=cfg.serve_slo_ms,
-                             adaptive=cfg.serve_adaptive,
-                             resilience=resilience,
-                             dedup=cfg.serve_dedup,
-                             fastlane=cfg.serve_fastlane,
-                             metrics=metrics).start()
-    # the submit target: the cache front when --serve-cache (the
-    # registry then invalidates it on every live-route change), wrapped
-    # by the cascade front when --serve-cascade (until warm() has
-    # calibrated it, every class degrades to the live route, counted)
-    front, cache = build_cache_front(cfg, batcher, router, registry,
-                                     metrics=metrics)
-    if cfg.serve_cascade:
-        from distributedmnist_tpu_torch.serve.cascade import CascadeFront
+    if scheduler is not None:
+        # every submit goes through the scheduler; the default model's
+        # cache backs the cache-aware shed, the per-model fronts live in
+        # the catalog
+        front, cache = scheduler, catalog.get(catalog.default()).cache
+    else:
+        resilience = build_resilience(cfg, registry=registry,
+                                      metrics=metrics)
+        batcher = DynamicBatcher(router, max_batch=cfg.serve_max_batch,
+                                 max_wait_us=cfg.serve_max_wait_us,
+                                 queue_depth=cfg.serve_queue_depth,
+                                 max_inflight=cfg.serve_max_inflight,
+                                 slo_ms=cfg.serve_slo_ms,
+                                 adaptive=cfg.serve_adaptive,
+                                 resilience=resilience,
+                                 dedup=cfg.serve_dedup,
+                                 fastlane=cfg.serve_fastlane,
+                                 metrics=metrics).start()
+        # the submit target: the cache front when --serve-cache (the
+        # registry then invalidates it on every live-route change),
+        # wrapped by the cascade front when --serve-cascade (until warm()
+        # has calibrated it, every class degrades to the live route,
+        # counted)
+        front, cache = build_cache_front(cfg, batcher, router, registry,
+                                         metrics=metrics)
+        if cfg.serve_cascade:
+            from distributedmnist_tpu_torch.serve.cascade import \
+                CascadeFront
 
-        front = CascadeFront(front, batcher, router, registry,
-                             metrics=metrics, cache=cache)
+            front = CascadeFront(front, batcher, router, registry,
+                                 metrics=metrics, cache=cache)
     log.info("dispatch pipeline depth: %d; buckets %s; device %s; "
              "replicas %d%s; fast lane %s; cache %s; dedup %s; cascade "
              "%s", batcher.max_inflight, list(factory.buckets),
@@ -222,21 +290,33 @@ def main(argv=None) -> int:
              "on" if cache is not None else "off",
              "on" if cfg.serve_dedup else "off",
              "on" if cfg.serve_cascade else "off")
+    def boot():
+        if catalog is not None:
+            warm_catalog(catalog, cfg)
+        else:
+            warm(registry, cfg)
+
     try:
         if args.port is None:
-            warm(registry, cfg)
+            boot()
             summary = selftest(front, metrics, args.selftest or 256,
                                factory.max_batch)
             summary["device"] = str(factory.device)
             summary["live_infer_dtype"] = router.live_infer_dtype()
             summary["versions"] = registry.describe()["versions"]
+            if scheduler is not None:
+                summary["tenancy"] = scheduler.snapshot()
         else:
             summary = http_serve(args, cfg, batcher, metrics, registry,
-                                 front=front, cache=cache)
+                                 front=front, cache=cache, boot=boot,
+                                 scheduler=scheduler)
         if cache is not None:
             summary["cache"] = cache.stats()
     finally:
-        batcher.stop()
+        if scheduler is not None:
+            scheduler.stop()     # drains every catalog batcher too
+        else:
+            batcher.stop()
         faults.uninstall()
         trace_lib.uninstall()
     print(json.dumps(summary), flush=True)
@@ -279,8 +359,21 @@ def warm(registry, cfg):
     return mv
 
 
+def warm_catalog(catalog, cfg) -> None:
+    """Make every catalog model live at the configured precision (a
+    refused variant keeps float32 live, logged): a server boot warms the
+    whole catalog, so /healthz's 200 means every advertised model answers
+    with no build on the hot path."""
+    t0 = time.perf_counter()
+    for name in catalog.names():
+        catalog.ensure_live(name, seed=cfg.seed,
+                            infer_dtype=cfg.serve_infer_dtype)
+    log.info("catalog warmed in %.2fs: %s", time.perf_counter() - t0,
+             catalog.describe())
+
+
 def http_serve(args, cfg, batcher, metrics, registry, front=None,
-               cache=None) -> dict:
+               cache=None, boot=None, scheduler=None) -> dict:
     """Serve HTTP until SIGTERM/SIGINT; SIGHUP rolls the model. Returns
     the serve_summary record; the kernels' launch counts go to stderr."""
     from distributedmnist_tpu_torch.ops import fused
@@ -295,12 +388,13 @@ def http_serve(args, cfg, batcher, metrics, registry, front=None,
                         infer_dtype_choice=cfg.serve_infer_dtype,
                         front=front, cache=cache,
                         cascade=cfg.serve_cascade,
-                        cascade_threshold=cfg.serve_cascade_threshold)
+                        cascade_threshold=cfg.serve_cascade_threshold,
+                        scheduler=scheduler)
     signal.signal(signal.SIGTERM, lambda signum, frame: server.shutdown())
     signal.signal(signal.SIGINT, lambda signum, frame: server.shutdown())
     signal.signal(signal.SIGHUP, lambda signum, frame: server.reload())
     try:
-        return server.serve(lambda: warm(registry, cfg),
+        return server.serve(boot or (lambda: warm(registry, cfg)),
                             metrics_every=args.metrics_every)
     finally:
         print(LAUNCHES_PREFIX + json.dumps(fused.LAUNCHES),

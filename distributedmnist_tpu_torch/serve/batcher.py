@@ -113,6 +113,10 @@ class _Request:
     dups: list = field(default_factory=list)
     # the infer_dtype the dispatch is pinned to (None = the live route)
     route: Optional[str] = None
+    # the tenancy layer's {"tenant", "model"} attribution, carried onto
+    # this request's queue.wait span and its dispatch's span (None keeps
+    # the untagged span shape)
+    tags: Optional[dict] = None
 
 
 class DynamicBatcher:
@@ -195,7 +199,8 @@ class DynamicBatcher:
 
     def submit(self, x, deadline_s: Optional[float] = None,
                key: Optional[bytes] = None,
-               route: Optional[str] = None) -> Future:
+               route: Optional[str] = None,
+               tags: Optional[dict] = None) -> Future:
         """Enqueue up to max_batch rows; the Future resolves to their
         logits. Raises Rejected past the queue watermark, ValueError for
         a request no single dispatch could carry, and DeadlineExceeded
@@ -204,7 +209,9 @@ class DynamicBatcher:
         live deadline rides the request; _take_batch sheds it if it
         expires while queued. `key` is the input's sha256 when the
         caller has it (the cache front), so the bytes hash once. `route`
-        pins the dispatch to that infer_dtype (coalescing path only)."""
+        pins the dispatch to that infer_dtype (coalescing path only).
+        `tags` (the tenancy layer's {"tenant", "model"}) ride onto this
+        request's queue.wait span and its dispatch's span."""
         x = self.engine._as_images(x)
         n = x.shape[0]
         if n > self.max_batch:
@@ -222,7 +229,8 @@ class DynamicBatcher:
             key = hashlib.sha256(x.tobytes()).digest()
         req = _Request(x=x, n=n, t_enqueue=now, rid=next(self._rid),
                        deadline=deadline_s,
-                       key=key if self.dedup else None, route=route)
+                       key=key if self.dedup else None, route=route,
+                       tags=tags)
         tr = trace.active()
         if tr is not None:
             # opened BEFORE the queue insert, so the dispatch thread's
@@ -355,7 +363,8 @@ class DynamicBatcher:
                 f"({(t_shed - req.deadline) * 1e3:.1f} ms past); "
                 "shed before dispatch")
             trace.add_span("queue.wait", req.t_enqueue, t_shed,
-                           rids=(req.rid,), shed=True)
+                           rids=(req.rid,), shed=True,
+                           **(req.tags or {}))
             trace.add_span("deadline.shed", t_shed, t_shed,
                            rids=(req.rid,))
             self._finish_trace(req, error=err)
@@ -394,7 +403,7 @@ class DynamicBatcher:
                 shed.append((req, now))
                 continue
             trace.add_span("queue.wait", req.t_enqueue, now,
-                           rids=(req.rid,))
+                           rids=(req.rid,), **(req.tags or {}))
             taken += req.n
             batch.append(req)
         if not batch:
@@ -477,6 +486,23 @@ class DynamicBatcher:
             rids.extend(d.rid for d in r.dups)
         return rids
 
+    @staticmethod
+    def _span_tags(seg: list[_Request]) -> dict:
+        """The batch.dispatch span's attribution: the model tag is
+        drain-uniform (one batch runs one engine), so the first tagged
+        request speaks for all; tenants can coalesce, so the span carries
+        the sorted distinct set. Untagged segments add nothing."""
+        tags: dict = {}
+        tenants = sorted({r.tags["tenant"] for r in seg
+                          if r.tags and "tenant" in r.tags})
+        if tenants:
+            tags["tenants"] = ",".join(tenants)
+        for r in seg:
+            if r.tags and "model" in r.tags:
+                tags["model"] = r.tags["model"]
+                break
+        return tags
+
     def _live_version(self) -> Optional[str]:
         """The version a dispatch failure is blamed on: the router's live
         version, or a bare engine's own label; None (never counted by the
@@ -508,7 +534,8 @@ class DynamicBatcher:
         `batch.dispatch` failpoint fires with the dispatched request ids
         (riders are not dispatched)."""
         sp = trace.begin_span("batch.dispatch", rids=self._span_rids(seg),
-                              rows=sum(r.n for r in seg))
+                              rows=sum(r.n for r in seg),
+                              **self._span_tags(seg))
         try:
             failpoint("batch.dispatch", rids=[r.rid for r in seg])
             xs = [r.x for r in seg]

@@ -44,11 +44,14 @@ from distributedmnist_tpu_torch.serve.resilience import DeadlineExceeded
 log = logging.getLogger("distributedmnist_tpu_torch")
 
 
-def _pinned(route: Optional[str]) -> dict:
-    """The batcher submit's route argument, only when one is pinned: an
-    unrouted submit keeps the batcher's plain (x, deadline_s, key)
-    shape."""
-    return {"route": route} if route is not None else {}
+def _pinned(route: Optional[str], tags: Optional[dict] = None) -> dict:
+    """The batcher submit's route and tags arguments, only when a route
+    is pinned or the tags carry attribution: a plain submit keeps the
+    batcher's (x, deadline_s, key) shape."""
+    extra = {"route": route} if route is not None else {}
+    if tags:
+        extra["tags"] = tags
+    return extra
 
 
 def content_key(version: Optional[str], infer_dtype: Optional[str],
@@ -175,6 +178,27 @@ class PredictionCache:
             self._hit_rows += entry.logits.shape[0]
             return np.array(entry.logits)
 
+    def probe(self, key: tuple) -> Optional[np.ndarray]:
+        """Shed-path lookup: the tenancy layer consults the cache before
+        a quota or watermark shed, since a hit costs no device work. A
+        hit counts (and refreshes LRU recency) exactly like lookup's; a
+        miss counts nothing, so it does not dilute the hit ratio."""
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is None:
+                return None
+            if self._expired_locked(entry, time.monotonic()):
+                del self._entries[key]
+                return None
+            if entry.version != key[0] or entry.infer_dtype != key[1]:
+                del self._entries[key]
+                self._stale_drops += 1
+                return None
+            self._entries.move_to_end(key)
+            self._hits += 1
+            self._hit_rows += entry.logits.shape[0]
+            return np.array(entry.logits)
+
     def insert(self, key: tuple, logits: np.ndarray,
                computed_version: Optional[str],
                computed_dtype: Optional[str],
@@ -294,7 +318,8 @@ class CacheFront:
 
     def submit(self, x, deadline_s: Optional[float] = None,
                route: Optional[str] = None,
-               route_label: Optional[str] = None) -> Future:
+               route_label: Optional[str] = None,
+               tags: Optional[dict] = None) -> Future:
         """Cache-or-collapse-or-dispatch. Returns a Future resolving to
         the request's (n, 10) logits:
 
@@ -312,7 +337,9 @@ class CacheFront:
         stage requests); `route_label` (the route by default) replaces
         the live dtype in the key, so a pinned stage's bytes are keyed,
         and only ever served, under the precision that computed them.
-        (The JAX front's `tags` belong to tenancy, ROADMAP §1 item 2.)
+        `tags` (the tenancy layer's attribution) pass through to the
+        batcher for a leading miss; hits and collapsed followers never
+        reach a queue, so they carry none.
         """
         x = self.router._as_images(x)
         n = x.shape[0]
@@ -330,7 +357,7 @@ class CacheFront:
             # warming / drained of versions: nothing to key on; the
             # pipeline's NoLiveModel 503 path is authoritative
             return self.batcher.submit(x, deadline_s=deadline_s,
-                                       **_pinned(route))
+                                       **_pinned(route, tags))
         if route_label is None:
             route_label = route
         if route_label is not None:
@@ -405,7 +432,7 @@ class CacheFront:
             return self._resolve_hit(hit, n, t0, deadline_s)
         if not leading:
             return follower.future
-        return self._lead(flight, x, deadline_s, route)
+        return self._lead(flight, x, deadline_s, route, tags)
 
     def _resolve_hit(self, entry: _Entry, n: int, t0: float,
                      deadline_s: Optional[float]) -> Future:
@@ -439,13 +466,15 @@ class CacheFront:
         return fut
 
     def _lead(self, flight: _Flight, x, deadline_s,
-              route: Optional[str] = None) -> Future:
+              route: Optional[str] = None,
+              tags: Optional[dict] = None) -> Future:
         """Dispatch the leader through the batcher. The leader's OWN
         future is the batcher's (its trace, version tag and error
         semantics are untouched); the flight resolves from it."""
         try:
             bf = self.batcher.submit(x, deadline_s=deadline_s,
-                                     key=flight.key[3], **_pinned(route))
+                                     key=flight.key[3],
+                                     **_pinned(route, tags))
         except BaseException as e:
             # Rejected / DeadlineExceeded / stopped batcher: the flight
             # never got a computation — followers that slipped in

@@ -4,15 +4,15 @@ requests/sec, the per-version, per-replica and per-dtype populations,
 the shadow comparisons, the resilience counters (deadline sheds,
 bisection, breaker trips and rollbacks), the fleet's failovers, hedges
 and replica trips, the prediction cache's served populations, dedup, the
-fast lane's split and the cascade's classes, stages and escalations — the
+fast lane's split, the cascade's classes, stages and escalations and the
+tenancy layer's per-tenant and per-model populations — the
 ServeMetrics snapshot the selftest summary, the HTTP server's /metrics and
 its heartbeat lines carry (the port of the JAX package's
 serve/metrics.py, with its key names) — and prometheus_exposition, the
 same snapshot as Prometheus text.
 
-The JAX snapshot's blocks of layers the port has not got yet
-(`by_tenant`, `by_model`, `autoscale`) and their Prometheus families come
-with those layers (ROADMAP §1 items 2 and 5).
+The JAX snapshot's `autoscale` block and its Prometheus families come with
+the autoscaler (ROADMAP §1 item 3).
 
 Occupancy is rows served per bucket slot executed: low occupancy says
 the coalescing wait is too short or the traffic too bursty for the
@@ -115,6 +115,11 @@ class ServeMetrics:
             self._cascade_escalated_requests = 0
             self._cascade_escalated_rows = 0
             self._cascade_degraded = 0
+            # the tenancy layer's populations, keyed by the RESOLVED SLO
+            # class (an unknown X-Tenant collapses into "default"), so
+            # the label set is bounded by configuration
+            self._by_tenant: dict[str, dict] = {}
+            self._by_model: dict[str, dict] = {}
 
     # -- recording hooks (called by the batcher) ---------------------------
 
@@ -363,6 +368,70 @@ class ServeMetrics:
 
     # -- reporting ---------------------------------------------------------
 
+    # -- tenancy hooks (called by the GlobalScheduler) ---------------------
+
+    def _tenant_stats(self, tenant: str) -> dict:
+        # caller holds the lock
+        return self._by_tenant.setdefault(tenant, {
+            "requests": 0, "rows": 0, "dispatched_rows": 0,
+            "quota_sheds": 0, "watermark_sheds": 0, "deadline_sheds": 0,
+            "shed_rows": 0, "cache_hits": 0, "slo_hits": 0,
+            "slo_total": 0,
+            "lat": deque(maxlen=min(self._max_samples, 10_000))})
+
+    def _model_stats(self, model: str) -> dict:
+        # caller holds the lock
+        return self._by_model.setdefault(
+            model, {"requests": 0, "rows": 0, "dispatched_rows": 0})
+
+    def record_tenant_request(self, tenant: str, model: str,
+                              rows: int = 1) -> None:
+        """One request admitted (or cache-served) for a tenant, routed
+        to a model: the demand side of by_tenant/by_model."""
+        with self._lock:
+            t = self._tenant_stats(tenant)
+            t["requests"] += 1
+            t["rows"] += rows
+            m = self._model_stats(model)
+            m["requests"] += 1
+            m["rows"] += rows
+
+    def record_tenant_shed(self, tenant: str, kind: str,
+                           rows: int = 1) -> None:
+        """One tenant request shed, kind in {"quota" (429), "watermark"
+        (503), "deadline" (504)}: the per-tenant attribution beside the
+        global counters the scheduler records separately."""
+        with self._lock:
+            t = self._tenant_stats(tenant)
+            t[f"{kind}_sheds"] += 1
+            t["shed_rows"] += rows
+
+    def record_tenant_dispatch(self, tenant: str, model: str,
+                               rows: int) -> None:
+        """Rows granted to a tenant by one scheduler decision: the
+        service side, the fairness ratio's numerator."""
+        with self._lock:
+            self._tenant_stats(tenant)["dispatched_rows"] += rows
+            self._model_stats(model)["dispatched_rows"] += rows
+
+    def record_tenant_cache_hit(self, tenant: str,
+                                rows: int = 1) -> None:
+        """A would-be quota/watermark shed served from the cache."""
+        with self._lock:
+            self._tenant_stats(tenant)["cache_hits"] += 1
+
+    def record_tenant_done(self, tenant: str, seconds: float,
+                           slo_ok=None) -> None:
+        """One tenant request resolved, admission to resolution;
+        `slo_ok` None (a best-effort class) stays out of attainment."""
+        with self._lock:
+            t = self._tenant_stats(tenant)
+            t["lat"].append(seconds)
+            if slo_ok is not None:
+                t["slo_total"] += 1
+                if slo_ok:
+                    t["slo_hits"] += 1
+
     def snapshot(self) -> dict:
         # Copy under the lock; percentile math after releasing it, so a
         # snapshot never stalls the recording hooks on the hot path.
@@ -382,6 +451,11 @@ class ServeMetrics:
             stage_rows = {st: dict(s)
                           for st, s in self._cascade_stage_rows.items()}
             shadow_raw = {pair: dict(s) for pair, s in self._shadow.items()}
+            by_tenant_raw = {
+                t: {**{k: v for k, v in s.items() if k != "lat"},
+                    "lat": list(s["lat"])}
+                for t, s in self._by_tenant.items()}
+            by_model = {m: dict(s) for m, s in self._by_model.items()}
             c = {
                 "requests": self._requests, "rows": self._rows,
                 "batches": self._batches,
@@ -435,6 +509,8 @@ class ServeMetrics:
         # traffic)
         cheap_stage_rows = sum(s["rows"] for st, s in stage_rows.items()
                                if st != "float32")
+        total_tenant_dispatched = sum(
+            s["dispatched_rows"] for s in by_tenant_raw.values())
         return {
             "window_s": round(elapsed, 3),
             "requests": c["requests"],
@@ -487,6 +563,21 @@ class ServeMetrics:
             "shadow_dropped": c["shadow_dropped"],
             "by_replica": {r: s for r, s in sorted(by_replica.items())},
             "by_dtype": {d: s for d, s in sorted(by_dtype.items())},
+            # per-tenant demand, sheds by kind, granted service (its
+            # share is the fairness ratio's numerator) and SLO
+            # attainment; per-model demand across the catalog
+            "by_tenant": {
+                t: {**{k: v for k, v in s.items() if k != "lat"},
+                    "dispatch_share": (
+                        round(s["dispatched_rows"]
+                              / total_tenant_dispatched, 4)
+                        if total_tenant_dispatched else None),
+                    "slo_attainment": (
+                        round(s["slo_hits"] / s["slo_total"], 4)
+                        if s["slo_total"] else None),
+                    "latency_ms": _ms(percentiles(s["lat"]))}
+                for t, s in sorted(by_tenant_raw.items())},
+            "by_model": {m: s for m, s in sorted(by_model.items())},
             "cache_served": {
                 "hit_requests": c["cache_hit_requests"],
                 "hit_rows": c["cache_hit_rows"],
@@ -682,6 +773,32 @@ _PROM_HELP = {
     "dmnist_serve_cascade_degraded_total":
         "Cascade-front requests served by the plain live route "
         "(no calibrated cascade on the live version).",
+    "dmnist_serve_tenant_requests_total":
+        "Requests admitted per tenant SLO class.",
+    "dmnist_serve_tenant_rows_total":
+        "Rows admitted per tenant SLO class.",
+    "dmnist_serve_tenant_dispatched_rows_total":
+        "Rows the global scheduler granted per tenant (the WFQ "
+        "service share's numerator).",
+    "dmnist_serve_tenant_sheds_total":
+        "Requests shed per tenant by kind: quota (429), watermark "
+        "(503), deadline (504 / infeasible-by-cost-model).",
+    "dmnist_serve_tenant_cache_hits_total":
+        "Would-be sheds rescued by a prediction-cache probe (the "
+        "cache-aware shed path; never quota-charged).",
+    "dmnist_serve_tenant_dispatch_share":
+        "Tenant's fraction of all scheduler-granted rows; divide by "
+        "the weight share for the WFQ fairness ratio.",
+    "dmnist_serve_tenant_slo_attainment":
+        "Fraction of a tenant's completed requests that finished "
+        "inside their SLO-class deadline.",
+    "dmnist_serve_tenant_latency_ms":
+        "Per-tenant end-to-end latency quantiles (enqueue at the "
+        "global scheduler to future resolution), milliseconds.",
+    "dmnist_serve_model_requests_total":
+        "Requests routed per catalog model.",
+    "dmnist_serve_model_dispatched_rows_total":
+        "Rows the scheduler granted per catalog model.",
 }
 
 
@@ -826,6 +943,36 @@ def prometheus_exposition(snapshot: dict, trace_stages: dict = None,
          [({}, ca.get("escalation_fraction"))])
     emit("dmnist_serve_cascade_degraded_total", "counter",
          [({}, ca.get("degraded_requests"))])
+    bt = s.get("by_tenant", {})
+    for name, key in (
+            ("dmnist_serve_tenant_requests_total", "requests"),
+            ("dmnist_serve_tenant_rows_total", "rows"),
+            ("dmnist_serve_tenant_dispatched_rows_total",
+             "dispatched_rows")):
+        emit(name, "counter",
+             [({"tenant": t}, ts.get(key)) for t, ts in bt.items()])
+    emit("dmnist_serve_tenant_sheds_total", "counter",
+         [({"tenant": t, "kind": kind}, ts.get(f"{kind}_sheds"))
+          for t, ts in bt.items()
+          for kind in ("quota", "watermark", "deadline")])
+    emit("dmnist_serve_tenant_cache_hits_total", "counter",
+         [({"tenant": t}, ts.get("cache_hits")) for t, ts in bt.items()])
+    emit("dmnist_serve_tenant_dispatch_share", "gauge",
+         [({"tenant": t}, ts.get("dispatch_share"))
+          for t, ts in bt.items()])
+    emit("dmnist_serve_tenant_slo_attainment", "gauge",
+         [({"tenant": t}, ts.get("slo_attainment"))
+          for t, ts in bt.items()])
+    emit("dmnist_serve_tenant_latency_ms", "summary",
+         [({"tenant": t, "quantile": q}, ts.get("latency_ms", {}).get(p))
+          for t, ts in bt.items()
+          for p, q in _PROM_QUANTILES.items()])
+    bm = s.get("by_model", {})
+    emit("dmnist_serve_model_requests_total", "counter",
+         [({"model": m}, ms.get("requests")) for m, ms in bm.items()])
+    emit("dmnist_serve_model_dispatched_rows_total", "counter",
+         [({"model": m}, ms.get("dispatched_rows"))
+          for m, ms in bm.items()])
     if cache:
         for name, mtype, key in (
                 ("dmnist_serve_cache_hits_total", "counter", "hits"),

@@ -154,12 +154,14 @@ class EngineFactory:
     With `replicas` > 1 on the card, replica i runs on card i when at
     least `replicas` cards are visible; otherwise every replica runs on
     the factory's card, each engine of replica i launching on replica
-    i's own CUDA stream. On the CPU the replicas are logical: separate
-    engines and staging pools on one device. `total_chips` counts the
-    distinct cards (or 1 on the CPU)."""
+    i's own CUDA stream. `own_stream` gives a single replica a stream of
+    its own too (a catalog model beside others on one card, so its
+    dispatches never queue behind another model's). On the CPU the
+    replicas are logical: separate engines and staging pools on one
+    device. `total_chips` counts the distinct cards (or 1 on the CPU)."""
 
     def __init__(self, model: str, device="cuda", max_batch: int = 512,
-                 replicas: int = 1):
+                 replicas: int = 1, own_stream: bool = False):
         if replicas < 1:
             raise ValueError(f"replicas must be >= 1, got {replicas}")
         self.model = model
@@ -171,10 +173,10 @@ class EngineFactory:
         self.n_chips = 1                    # per replica
         self.replica_devices = [self.device] * replicas
         self.replica_streams = [None] * replicas
-        if self.device.type == "cuda" and replicas > 1:
+        if self.device.type == "cuda" and (replicas > 1 or own_stream):
             import torch
 
-            if torch.cuda.device_count() >= replicas:
+            if replicas > 1 and torch.cuda.device_count() >= replicas:
                 self.replica_devices = [torch.device("cuda", i)
                                         for i in range(replicas)]
             self.replica_streams = [torch.cuda.Stream(device=d)
@@ -1000,21 +1002,24 @@ class ModelRegistry:
                 return            # everything left is routed or warming
 
 
-def build_serving(cfg, metrics=None):
+def build_serving(cfg, metrics=None, own_stream: bool = False):
     """(registry, router, factory) from a Config: `cfg.model` (mlp or
     lenet), its device, bucket ladder, checkpoint_dir and
     serve_max_versions; the router records shadow comparisons into
     `metrics` and draws its routes from cfg.seed. With serve_replicas > 1
     the router's slot holds a ReplicaSet (serve/fleet.py) of that many
     replicas, with serve_replica_inflight and serve_hedge; 1 keeps the
-    bare Router. No version is loaded yet: the caller bootstraps. Raises
-    without a card unless cfg.device is 'cpu'."""
+    bare Router. `own_stream` launches every engine on a CUDA stream of
+    the factory's own (EngineFactory). No version is loaded yet: the
+    caller bootstraps. Raises without a card unless cfg.device is
+    'cpu'."""
     from distributedmnist_tpu_torch import models
 
     models.build(cfg.model, device="meta")    # refuses unknown names
     factory = EngineFactory(cfg.model, device=cfg.device,
                             max_batch=cfg.serve_max_batch,
-                            replicas=cfg.serve_replicas)
+                            replicas=cfg.serve_replicas,
+                            own_stream=own_stream)
     if cfg.serve_replicas > 1:
         router = factory.make_fleet(
             metrics=metrics, seed=cfg.seed,

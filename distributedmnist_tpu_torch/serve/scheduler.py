@@ -15,6 +15,9 @@ threads of its own).
   max_wait; plus an arrival-rate EWMA that caps the wait at the time the
   current rate needs to fill max_batch rows.
 - **fastlane_eligible** — the fast lane's admission rule.
+- **estimate_dispatch_s, edf_pick, drr_grant, drr_charge,
+  drr_skip_bound** — the tenancy layer's pricing and grant policy
+  (serve/tenancy.py calls them under its own lock with plain dicts).
 """
 
 from __future__ import annotations
@@ -128,6 +131,105 @@ def fastlane_eligible(enabled: bool, pending_rows: int) -> bool:
     is a semaphore try-acquire the batcher makes under the same queue
     lock."""
     return enabled and pending_rows == 0
+
+
+# -- multi-tenant WFQ / EDF policy (serve/tenancy.py) -----------------------
+
+
+def estimate_dispatch_s(rows: int, buckets: Sequence[int],
+                        costs: Mapping[int, float],
+                        default_per_row_s: float = 1e-3) -> float:
+    """Price a prospective dispatch of `rows` real rows against a model's
+    measured bucket-cost ladder: the affine fit at the covering bucket
+    (padding included: the engine runs the whole bucket). With no
+    complete cost table, a row-proportional unit price, so the policy
+    stays total rather than guessing zero."""
+    if rows <= 0:
+        return 0.0
+    if costs and buckets and all(b in costs for b in buckets):
+        overhead, per_row = _fitted(costs, buckets)
+        b = next((x for x in buckets if x >= rows), buckets[-1])
+        return overhead + per_row * max(b, rows)
+    return default_per_row_s * rows
+
+
+def edf_pick(heads: Sequence[tuple], now: float) -> tuple:
+    """Earliest-feasible-deadline selection across model queues.
+
+    `heads` holds one (key, deadline, est_cost_s) per non-empty queue:
+    the head's ABSOLUTE deadline (None = best-effort) and the modeled
+    cost of dispatching it now. Returns (pick, infeasible): `pick` is the
+    key with the earliest deadline among heads that can still make it
+    (best-effort heads rank after every deadlined head; ties break by
+    input order), or None; `infeasible` lists the keys whose head cannot
+    meet its deadline even if dispatched now (shed them with 504)."""
+    infeasible = []
+    feas = []
+    for i, (key, deadline, cost_s) in enumerate(heads):
+        if deadline is not None and now + cost_s > deadline:
+            infeasible.append(key)
+        else:
+            feas.append((deadline if deadline is not None else math.inf,
+                         i, key))
+    if not feas:
+        return None, infeasible
+    feas.sort()
+    return feas[0][2], infeasible
+
+
+def drr_grant(ring: Sequence, cursor: int, deficits: dict,
+              weights: Mapping, quantum: float, head_costs: Mapping,
+              max_rounds: int = 1024) -> tuple:
+    """One weighted deficit-round-robin grant decision.
+
+    `ring` is the fixed visit order of flows (tenants), `cursor` the ring
+    index of the LAST granted flow, `deficits` the per-flow credit
+    (mutated in place; the caller holds the scheduler lock), `head_costs`
+    each BACKLOGGED flow's head cost (absent = idle). Each visit credits
+    a flow `quantum * weight` and grants the first flow whose balance
+    covers its head; idle flows' balances reset to zero. Returns (flow,
+    new_cursor, rounds_scanned), or (None, cursor, 0) when nothing is
+    backlogged. Raises RuntimeError after `max_rounds` full scans (a
+    quantum no head can ever afford)."""
+    if not ring or not head_costs:
+        return None, cursor, 0
+    n = len(ring)
+    for f in ring:
+        if f not in head_costs:
+            deficits[f] = 0.0
+    pos = cursor % n
+    for rounds in range(max_rounds):
+        for _ in range(n):
+            pos = (pos + 1) % n
+            f = ring[pos]
+            if f not in head_costs:
+                continue
+            deficits[f] = (deficits.get(f, 0.0)
+                           + quantum * weights.get(f, 1.0))
+            if deficits[f] >= head_costs[f] - 1e-12:
+                return f, pos, rounds
+    raise RuntimeError(
+        f"drr_grant: no flow affordable after {max_rounds} full scans "
+        f"(quantum={quantum}, heads={dict(head_costs)}) — quantum is "
+        "misconfigured relative to the cost model")
+
+
+def drr_charge(deficits: dict, flow, cost: float) -> None:
+    """Debit a granted flow's balance by the work dispatched, clamped at
+    zero (carrying debt forward would punish the flow twice)."""
+    deficits[flow] = max(deficits.get(flow, 0.0) - cost, 0.0)
+
+
+def drr_skip_bound(n_flows: int, max_cost: float, quantum: float,
+                   min_weight: float) -> int:
+    """Closed-form starvation bound for drr_grant: a backlogged flow is
+    granted within this many consecutive grants to other flows. Each
+    full ring scan credits it quantum*weight; it needs at most
+    ceil(max_cost / that) scans, and between scans at most n_flows-1
+    other grants interleave."""
+    per_scan = max(quantum * min_weight, 1e-12)
+    scans = max(int(math.ceil(max_cost / per_scan)), 1)
+    return max(n_flows, 1) * (scans + 1)
 
 
 class AdaptiveController:

@@ -30,11 +30,22 @@ the root serve.py's ServerState, shed_retry_after_s and _http_serve):
                            finishing, or bring it back with a fresh
                            health slate; 409 on a single-replica server
                            and on draining the last active replica
+    GET  /tenants          (--serve-tenants / --serve-models) the global
+                           scheduler's view: each tenant's class and
+                           accounting, the catalog's residency; 409
+                           without the tenancy layer
+    POST /tenants/{id}/quota
+                           {"qps"?, "burst"?} update one tenant's token
+                           bucket live; 400 on a malformed number or a
+                           value the class refuses, 404 on an unknown
+                           tenant, 409 without the tenancy layer
     GET  /metrics          the ServeMetrics record plus the queue gauges,
                            the adaptive controller, the cache's counters,
                            the breaker's windows (`resilience_policy`),
                            the tracer's counters and histograms, and
-                           compiles_total; ?format=prometheus (or a
+                           compiles_total, and under tenancy the
+                           scheduler's `tenancy` block;
+                           ?format=prometheus (or a
                            text/plain Accept) answers the same as
                            Prometheus text
     GET  /trace            (--serve-trace) the retained request traces as
@@ -60,10 +71,15 @@ or any class on a server without the cascade, is a 400. /healthz carries
 the live version's `cascade` state and, on a fleet, `replicas` and
 `failovers`; /metrics its `fleet` block.
 
-Routes whose layer the JAX server refuses on this configuration answer
-as it does: X-Tenant (400), GET /tenants and POST /tenants/... (409).
+Under tenancy every /predict goes through the global scheduler
+(serve/tenancy.py): `X-Tenant` names the SLO class (an unknown name
+falls into "default"), a quota breach is a 429 with the bucket's own
+Retry-After (capped as every Retry-After is), and the other routes read
+the catalog's default model. X-Tenant sent to a server without the
+layer is a 400, as the JAX server answers.
+
 POST /cluster/epoch needs the gateway, which the port has not got: 501
-naming it (ROADMAP §1 item 4). Signal handlers are installed by the
+naming it (ROADMAP §1 item 2). Signal handlers are installed by the
 caller (serve/__main__.py), so tests can run a server in-process.
 """
 
@@ -91,12 +107,14 @@ from distributedmnist_tpu_torch.serve.metrics import prometheus_exposition
 from distributedmnist_tpu_torch.serve.quantize import INFER_DTYPES
 from distributedmnist_tpu_torch.serve.resilience import DeadlineExceeded
 from distributedmnist_tpu_torch.serve.router import NoLiveModel
+from distributedmnist_tpu_torch.serve.tenancy import QuotaExceeded
 
 log = logging.getLogger("distributedmnist_tpu_torch")
 
 IMAGE_BYTES = 28 * 28
-TENANCY_UNPORTED = "ROADMAP §1 item 2"
-GATEWAY_UNPORTED = "ROADMAP §1 item 4"
+GATEWAY_UNPORTED = "ROADMAP §1 item 2"
+TENANCY_OFF = ("multi-tenant serving is off; --serve-tenants/"
+               "--serve-models enables it")
 
 
 class ServerState:
@@ -197,11 +215,12 @@ def shed_retry_after_s(batcher, cap_s: float = 30.0) -> int:
     return max(1, min(cap, math.ceil(wait_s + (depth + 1) * svc_s)))
 
 
-def compiles_total(factory) -> int:
-    """Kernel-library builds and loads plus engine builds in this process:
-    the count the bench holds to 0 after warmup
-    (`recompiles_after_warmup`)."""
-    return kernel_lib.load_events() + factory.engine_builds
+def compiles_total(*factories) -> int:
+    """Kernel-library builds and loads plus the factories' engine builds
+    (every catalog model's under tenancy) in this process: the count the
+    bench holds to 0 after warmup (`recompiles_after_warmup`)."""
+    return kernel_lib.load_events() + sum(f.engine_builds
+                                          for f in factories)
 
 
 class HTTPServer:
@@ -215,7 +234,8 @@ class HTTPServer:
                  retry_after_cap_s: float = 30.0,
                  infer_dtype_choice: str = "float32", front=None,
                  cache=None, cascade: bool = False,
-                 cascade_threshold: Optional[float] = None):
+                 cascade_threshold: Optional[float] = None,
+                 scheduler=None):
         self.batcher = batcher
         # the submit target: the cascade front, the cache front, or the
         # batcher itself; the queue gauges always read the batcher
@@ -230,6 +250,11 @@ class HTTPServer:
         # SIGHUP calibrates the cascade again on the new version
         self.cascade = cascade
         self.cascade_threshold = cascade_threshold
+        # the global scheduler under tenancy (every /predict goes through
+        # it; `registry` and `batcher` are then the default model's)
+        self.scheduler = scheduler
+        # set once the boot warm has ended, either way
+        self.warmed = threading.Event()
         self.state = state
         self.request_timeout = request_timeout
         self.retry_after_cap_s = retry_after_cap_s
@@ -276,8 +301,12 @@ class HTTPServer:
                 self.state.mark_failed()
                 log.exception("initial model load/warm failed; serving "
                               "503s until an admin load succeeds")
+            finally:
+                self.warmed.set()
 
-        make_thread(target=_warm, name="serve-warm", daemon=True).start()
+        warm_thread = make_thread(target=_warm, name="serve-warm",
+                                  daemon=True)
+        warm_thread.start()
         stop = threading.Event()
 
         def _beat():
@@ -291,11 +320,16 @@ class HTTPServer:
         finally:
             stop.set()
             self.httpd.server_close()
+            # a boot warm still building engines must end before the
+            # interpreter does (a thread inside torch at exit aborts it)
+            warm_thread.join(timeout=self.request_timeout)
         summary = {"metric": "serve_summary", "port": self.port,
                    "live_version": self.registry.live_version(),
                    **self.metrics.snapshot()}
         if self.cache is not None:
             summary["cache"] = self.cache.stats()
+        if self.scheduler is not None:
+            summary["tenancy"] = self.scheduler.snapshot()
         return summary
 
     def shutdown(self) -> None:
@@ -347,10 +381,10 @@ class HTTPServer:
     def metrics_payload(self) -> dict:
         """GET /metrics: the metrics record plus the pipeline's gauges,
         the adaptive controller's state, the cache's counters, the
-        breaker's windows, the fleet's snapshot, the tracer's snapshot
-        and compiles_total; a block is None when its layer is off (the
-        fleet's on one replica), and tenancy's until that layer lands
-        (ROADMAP §1 item 2)."""
+        breaker's windows, the fleet's snapshot, the tracer's snapshot,
+        the scheduler's snapshot and compiles_total; a block is None when
+        its layer is off (the fleet's on one replica, tenancy's on a
+        single-model server)."""
         b = self.batcher
         payload = self.metrics.record()
         payload["queue"] = {
@@ -371,8 +405,11 @@ class HTTPServer:
         tracer = trace_lib.active()
         payload["trace"] = (tracer.snapshot() if tracer is not None
                             else None)
-        payload["tenancy"] = None
-        payload["compiles_total"] = compiles_total(self.registry.factory)
+        payload["tenancy"] = (self.scheduler.snapshot()
+                              if self.scheduler is not None else None)
+        payload["compiles_total"] = compiles_total(*(
+            [e.factory for e in self.scheduler.catalog.entries()]
+            if self.scheduler is not None else [self.registry.factory]))
         return payload
 
 
@@ -443,6 +480,12 @@ def _handler_class(server: HTTPServer):
         def do_GET(self):
             if self.path == "/healthz":
                 code, payload = server.state.healthz(registry, batcher)
+                if (server.scheduler is not None
+                        and not server.warmed.is_set()):
+                    # under tenancy the default model can be live while
+                    # the boot warms the others: 200 waits for them all
+                    code, payload["ok"] = 503, False
+                    payload["state"] = "warming"
                 self._send(code, payload)
             elif self.path == "/trace" or self.path.startswith("/trace?"):
                 tracer = trace_lib.active()
@@ -462,8 +505,10 @@ def _handler_class(server: HTTPServer):
             elif self.path == "/models":
                 self._send(200, registry.describe())
             elif self.path == "/tenants":
-                self._send(409, {"error": "multi-tenant serving is off "
-                                          f"({TENANCY_UNPORTED})"})
+                if server.scheduler is None:
+                    self._send(409, {"error": TENANCY_OFF})
+                else:
+                    self._send(200, server.scheduler.snapshot())
             else:
                 self._send(404, {"error": f"unknown path {self.path}"})
 
@@ -481,15 +526,55 @@ def _handler_class(server: HTTPServer):
             elif self.path.startswith("/replicas/"):
                 self._replicas_admin()
             elif self.path.startswith("/tenants/"):
-                parts = self.path.strip("/").split("/")
-                if len(parts) != 3 or parts[2] != "quota":
-                    self._send(404, {"error": "want POST /tenants/{id}/"
-                                              "quota"})
-                else:
-                    self._send(409, {"error": "multi-tenant serving is "
-                                              f"off ({TENANCY_UNPORTED})"})
+                self._tenants_admin()
             else:
                 self._send(404, {"error": f"unknown path {self.path}"})
+
+        # -- admin: tenant quotas -----------------------------------------
+
+        def _tenants_admin(self):
+            """POST /tenants/{id}/quota {"qps", "burst"}: 404 on another
+            shape or an unknown tenant, 409 without the tenancy layer,
+            400 on a malformed number or one the class refuses."""
+            parts = self.path.strip("/").split("/")
+            if len(parts) != 3 or parts[2] != "quota":
+                self._send(404, {"error": "want POST /tenants/{id}/"
+                                          "quota"})
+                return
+            scheduler = server.scheduler
+            if scheduler is None:
+                self._send(409, {"error": TENANCY_OFF})
+                return
+            _, tenant, _ = parts
+            try:
+                body = self._json_body()
+            except (ValueError, json.JSONDecodeError) as e:
+                self._send(400, {"error": f"bad JSON body: {e}"})
+                return
+            for k in ("qps", "burst"):
+                v = body.get(k)
+                if v is not None and (not isinstance(v, (int, float))
+                                      or isinstance(v, bool)
+                                      or not math.isfinite(v)):
+                    self._send(400, {"error": f"{k!r} must be a finite "
+                                              f"number, got {v!r}"})
+                    return
+            try:
+                with server.admin_lock:
+                    cls = scheduler.set_quota(tenant,
+                                              qps=body.get("qps"),
+                                              burst=body.get("burst"))
+                self._send(200, {"tenant": tenant, "qps": cls.qps,
+                                 "burst": cls.burst,
+                                 "weight": cls.weight,
+                                 "deadline_ms": cls.deadline_ms})
+            except KeyError as e:
+                self._send(404, {"error": str(e)})
+            except ValueError as e:
+                # the class refused the values (e.g. qps <= 0)
+                self._send(400, {"error": str(e)})
+            except Exception as e:
+                self._send(500, {"error": f"{type(e).__name__}: {e}"})
 
         # -- admin: the replica fleet -------------------------------------
 
@@ -694,10 +779,14 @@ def _handler_class(server: HTTPServer):
                                  "confidence cascade; restart with "
                                  "--serve-cascade"})
                     return
-            if self.headers.get("X-Tenant") is not None:
+            # X-Tenant names the request's SLO class; sent to a
+            # single-model server it is a client's error, as loud as an
+            # X-Accuracy-Class the server cannot honour
+            tenant_hdr = self.headers.get("X-Tenant")
+            if tenant_hdr is not None and server.scheduler is None:
                 self._send(400, {
-                    "error": "X-Tenant requires multi-tenant serving, "
-                             f"not ported yet ({TENANCY_UNPORTED})"})
+                    "error": "X-Tenant requires multi-tenant serving; "
+                             "restart with --serve-tenants"})
                 return
             raw = self.rfile.read(length)
             x = np.frombuffer(raw, np.uint8).reshape(-1, IMAGE_BYTES)
@@ -726,7 +815,10 @@ def _handler_class(server: HTTPServer):
                 # through the cascade and cache fronts when there are
                 # any: a hit comes back resolved, a collapsed miss shares
                 # its leader's
-                if accuracy_class is not None:
+                if server.scheduler is not None:
+                    fut = server.scheduler.submit(x, tenant=tenant_hdr,
+                                                  deadline_s=deadline_s)
+                elif accuracy_class is not None:
                     fut = front.submit(x, deadline_s=deadline_s,
                                        accuracy_class=accuracy_class)
                 else:
@@ -736,6 +828,14 @@ def _handler_class(server: HTTPServer):
                 logits = fut.result(timeout=(
                     server.request_timeout if budget_s is None
                     else min(server.request_timeout, budget_s)))
+            except QuotaExceeded as e:
+                # over the tenant's token bucket: the bucket's own refill
+                # time, capped like every Retry-After this server sends
+                self._send(429, {"error": str(e)}, extra={
+                    "Retry-After": str(max(1, min(
+                        int(math.ceil(e.retry_after_s)),
+                        int(server.retry_after_cap_s))))})
+                return
             except Rejected:
                 self._send(503, {"error": "overloaded; retry"},
                            extra=server.retry_after())

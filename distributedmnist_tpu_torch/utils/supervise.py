@@ -41,7 +41,8 @@ def mark(msg: str) -> None:
 def run_supervised(command: list[str],
                    accept: Callable[[list[str]], Optional[str]],
                    stall_timeout: float = 300.0,
-                   attempts: int = 3) -> int:
+                   attempts: int = 3,
+                   final_codes: tuple = ()) -> int:
     """Run `python -u *command` as a worker (marked via env); kill +
     retry if it produces no output for stall_timeout seconds. `accept`
     maps worker stdout lines to the result to forward (or None if they
@@ -53,6 +54,8 @@ def run_supervised(command: list[str],
     boundary is split across chunks. As a safety net for acceptors that
     do need cross-line context, after the worker exits with no chunk
     result the whole buffer is re-scanned in ONE final accept() call.
+    A worker that exits without a result on one of `final_codes` (a
+    deterministic refusal) is not retried: its code is returned.
     Returns the exit code; the accepted result is written to stdout."""
     env = dict(os.environ, **{_WORKER_ENV: "1"})
     for attempt in range(1, attempts + 1):
@@ -141,6 +144,10 @@ def run_supervised(command: list[str],
             sys.stdout.write(result)
             sys.stdout.flush()
             return 0
+        if not stalled and proc.returncode in final_codes:
+            mark(f"worker refused (exit code {proc.returncode}); not "
+                 "retried")
+            return proc.returncode
         reason = stall_reason if stalled else f"exit code {proc.returncode}"
         mark(f"worker failed ({reason}), attempt {attempt}/{attempts}")
     mark("all attempts failed")

@@ -8,10 +8,13 @@ throughput, time-to-accuracy, serve, sweep and smoke modes, bfloat16
 throughput, and --data-dir on IDX files through the supervised worker;
 the serve mode's request-path legs (--lowlat, --zipf, --zipf-cache-off,
 --chaos, --chaos --serve-cache, --trace), the fleet's (--serve-replicas 2
---serve-hedge, with the chaos leg's replica kill) and --dtype-sweep and
---cascade, each leg's keys those of the root bench's records (and of its
-code, for keys newer than its last committed record) and its bars
-computed alike; plus the guards: no card
+--serve-hedge, with the chaos leg's replica kill), --dtype-sweep and
+--cascade, --multimodel and --swap-during-load, each leg's keys those of
+the root bench's records (and of its code, for keys newer than its last
+committed record) and its bars computed alike; the serve records
+(BENCH_torch_serve_rNN.json, numbered apart from the JAX package's),
+--baseline's delta rows equal to the root bench's on the same pair of
+records and its refusals before any load phase; plus the guards: no card
 without --device cpu raises, an unported flag exits 2 naming its
 ROADMAP item, a misplaced flag exits 2, and a supervised bench whose
 every attempt fails exits 1 with no CPU re-run.
@@ -46,10 +49,9 @@ from distributedmnist_tpu_torch.data import packing as tpacking
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the serve legs of the root bench that the port has not ported yet
-# (ROADMAP.md section 1 items 2, 3 and 5); every other key of its record
-# is carried
-UNPORTED_SERVE_KEYS = {"compile_surface", "trace_replay", "swap",
-                       "multimodel"}
+# (ROADMAP.md section 1 items 3 and 4: workload replay, and the static
+# compile-surface audit); every other key of its record is carried
+UNPORTED_SERVE_KEYS = {"compile_surface", "trace_replay"}
 # the root bench's records of each request-path leg
 LEG_RECORDS = {"lowlat": "BENCH_serve_r09.json",
                "zipf": "BENCH_serve_r08.json",
@@ -57,7 +59,9 @@ LEG_RECORDS = {"lowlat": "BENCH_serve_r09.json",
                "trace": "BENCH_serve_r07.json",
                "replicas": "BENCH_serve_r07.json",
                "dtype_sweep": "BENCH_serve_r06.json",
-               "cascade": "BENCH_serve_r10.json"}
+               "cascade": "BENCH_serve_r10.json",
+               "multimodel": "BENCH_serve_r11.json",
+               "swap": "BENCH_serve_r02.json"}
 RECORD_KEYS = {"metric", "value", "unit", "vs_baseline", "detail"}
 
 
@@ -77,9 +81,14 @@ def _jax_detail_keys(record: str) -> set:
         return set(json.load(f)["detail"])
 
 
-def _run(*argv, timeout=300):
+def _run(*argv, timeout=300, rc=0):
     """The bench in a fresh interpreter: (its one JSON record, the modules
-    of jax and of the JAX package it imported, stderr)."""
+    of jax and of the JAX package it imported, stderr). A serve run
+    writes no record file unless the test names a directory for it; a
+    run expected to exit `rc` != 0 returns (None, modules, stderr)."""
+    if (argv and argv[0] == "serve" and "--artifact-dir" not in argv
+            and "--no-artifact" not in argv):
+        argv = argv + ("--no-artifact",)
     code = (
         "import json, sys\n"
         "from distributedmnist_tpu_torch.bench import main\n"
@@ -96,12 +105,12 @@ def _run(*argv, timeout=300):
     env["OMP_NUM_THREADS"] = "1"
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=timeout)
-    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.returncode == rc, proc.stderr[-3000:]
     lines = proc.stdout.strip().splitlines()
     records = [json.loads(ln) for ln in lines if ln.startswith("{")]
-    assert len(records) == 1, proc.stdout
+    assert len(records) == (1 if rc == 0 else 0), proc.stdout
     modules = json.loads(lines[-1].split(" ", 1)[1])
-    return records[0], modules, proc.stderr
+    return (records[0] if records else None), modules, proc.stderr
 
 
 # -- the recipe -----------------------------------------------------------------
@@ -413,19 +422,188 @@ def test_serve_dtype_sweep_and_cascade_record(tmp_path):
     assert d["recompiles_after_warmup"] == 0
 
 
-def test_unported_table_shrank_by_the_fleet_and_cascade_flags():
-    """The fleet's and the cascade's four flags left UNPORTED; each is a
-    flag of the port's bench now, and the rest still exit 2."""
-    assert set(tbench.UNPORTED) == {
-        "--multimodel", "--gateway", "--trace-replay", "--autoscale",
-        "--swap-during-load", "--baseline", "--artifact-dir"}
+def test_serve_multimodel_swap_artifact_and_baseline_records(tmp_path):
+    """--multimodel --swap-during-load with --artifact-dir: both legs with
+    the root bench's keys (its r11 and r02 records) and bars computed as
+    it computes them; the swap built nothing after the candidate's warm
+    and left it live; no build after warmup in the whole run (the
+    catalog's and the candidate's warmups excluded). The record lands as
+    BENCH_torch_serve_r01.json with its commit, and a second run with
+    --baseline on it embeds the delta with the root bench's rows and
+    lands as r02."""
+    out = str(tmp_path)
+    rec, modules, err = _run(*SERVE_ARGS, "--multimodel",
+                             "--swap-during-load", "--artifact-dir", out,
+                             timeout=600)
+    assert modules == []
+    d = rec["detail"]
+    assert set(d) == (_jax_detail_keys("BENCH_serve_r13.json")
+                      - UNPORTED_SERVE_KEYS)
+    for leg in ("multimodel", "swap"):
+        _leg_keys_are_the_root_benchs(leg, d[leg])
+    with open(os.path.join(REPO, LEG_RECORDS["multimodel"])) as f:
+        assert set(d["multimodel"]) == set(json.load(f)["detail"]
+                                           ["multimodel"])
+    mm = d["multimodel"]
+    assert mm["models"] == ["mlp", "lenet"]
+    assert mm["recompiles_after_warmup"] == 0
+    assert mm["warmup_compile_events"] >= 2      # two engines at least
+    assert set(mm["fairness"]) == {"light", "heavy"}
+    total = sum(f["granted_rows"] for f in mm["fairness"].values())
+    for t, f in mm["fairness"].items():
+        assert f["granted_rows"] > 0
+        w = mm["weights"][t] / sum(mm["weights"].values())
+        assert f["ratio"] == round(f["granted_rows"] / total / w, 3)
+    assert mm["fairness_ok"] == all(0.8 <= f["ratio"] <= 1.25
+                                    for f in mm["fairness"].values())
+    assert mm["light_p99_ok"] == (mm["light_p99_degradation_x"] <= 1.5)
+    assert mm["light_p99_bar_reachable"] == (mm["host_contention_x"]
+                                             <= 1.5)
+    assert mm["slo_attainment"]["light"] is not None
+    assert mm["slo_attainment"]["heavy"] is None     # best-effort class
+    assert mm["max_skip_observed"] >= 0
+    sw = d["swap"]
+    assert sw["recompiles_after_swap"] == 0 and sw["load_warm_s"] > 0
+    assert sw["warmup_compile_events"] >= 1
+    assert sw["swap_window"]["by_version"]["v-swap"]["requests"] > 0
+    assert d["live_version_final"] == "v-swap"
+    assert d["recompiles_after_warmup"] == 0
+    first = tmp_path / "BENCH_torch_serve_r01.json"
+    with open(first) as f:
+        saved = json.load(f)
+    assert saved == rec
+    assert len(saved["detail"]["host"]["git_commit"]) == 40
+    assert f"artifact: {first}" in err
+    rec2, _, err2 = _run(*SERVE_ARGS, "--baseline", str(first),
+                         "--artifact-dir", out)
+    delta = rec2["detail"]["baseline"]
+    root_rows = _root_bench()._baseline_delta(rec2, rec, str(first))
+    assert set(delta) == set(root_rows)
+    assert delta["baseline_device_kind"] == "cpu"
+    assert delta["recompiles_after_warmup"] == {
+        "current": 0, "baseline": 0, "delta_pct": None}
+    assert delta["compile_surface"]["match"] is None
+    assert "baseline delta vs BENCH_torch_serve_r01.json" in err2
+    assert sorted(os.listdir(out)) == ["BENCH_torch_serve_r01.json",
+                                       "BENCH_torch_serve_r02.json"]
+
+
+@pytest.mark.parametrize("cur,base", [
+    ("BENCH_serve_r13.json", "BENCH_serve_r12.json"),
+    ("BENCH_serve_r11.json", "BENCH_serve_r10.json"),
+    ("BENCH_serve_r08.json", "BENCH_serve_r06.json"),
+    ("BENCH_serve_r09.json", "BENCH_serve_r13.json")])
+def test_baseline_delta_rows_equal_the_root_benchs(cur, base):
+    """Exact: the same pair of the JAX package's records through both
+    benches' _baseline_delta gives the same rows, values and
+    percentages."""
+    with open(os.path.join(REPO, cur)) as f:
+        c = json.load(f)
+    with open(os.path.join(REPO, base)) as f:
+        b = json.load(f)
+    assert tbench._baseline_delta(c, b, base) == \
+        _root_bench()._baseline_delta(c, b, base)
+
+
+def _edited_baseline(tmp_path, edit) -> str:
+    """The JAX package's last CPU record with one field edited."""
+    with open(os.path.join(REPO, "BENCH_serve_r13.json")) as f:
+        rec = json.load(f)
+    edit(rec["detail"])
+    path = tmp_path / "base.json"
+    path.write_text(json.dumps(rec))
+    return str(path)
+
+
+@pytest.mark.parametrize("case,edit,extra", [
+    ("device_kind",
+     lambda d: d["host"].update(device_kind="NVIDIA H100 80GB HBM3"), ()),
+    ("infer_dtype", lambda d: d["host"].update(infer_dtype="int8"), ()),
+    ("zipf cache", lambda d: d.update(zipf={"cache_enabled": False}),
+     ("--zipf",)),
+    ("gateway", lambda d: d.update(gateway={"workers": 2}), ())])
+def test_baseline_refused_before_any_load_phase(tmp_path, case, edit,
+                                                extra):
+    """A baseline of another card, precision, zipf cache setting, or a
+    gateway record: exit 4 with the reason, no record, no file, and no
+    load phase run (the root bench's refusals)."""
+    path = _edited_baseline(tmp_path, edit)
+    out = tmp_path / "records"
+    _, _, err = _run(*SERVE_ARGS, *extra, "--baseline", path,
+                     "--artifact-dir", str(out), rc=tbench.REFUSED)
+    assert f"REFUSING --baseline {path}" in err, case
+    assert "closed loop" not in err
+    assert os.listdir(out) == []
+
+
+def test_refused_baseline_is_not_retried_by_the_supervisor(tmp_path):
+    """The refusal is deterministic: the supervised bench exits 4 after
+    one attempt."""
+    path = _edited_baseline(
+        tmp_path, lambda d: d["host"].update(device_kind="TPU v4"))
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-m", "distributedmnist_tpu_torch.bench",
+         *SERVE_ARGS, "--baseline", path, "--no-artifact"], cwd=REPO,
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == tbench.REFUSED, proc.stderr[-3000:]
+    assert "not retried" in proc.stderr and "attempt 2" not in proc.stderr
+    assert not [ln for ln in proc.stdout.splitlines()
+                if ln.startswith("{")]
+
+
+def test_serve_artifacts_are_numbered_under_the_ports_prefix(tmp_path):
+    """The port counts only BENCH_torch_serve_rNN.json: the JAX package's
+    BENCH_serve_rNN.json records (r01-r13 in the repository) never move
+    its count, its records never move the root bench's, and asking for
+    the next path writes nothing."""
+    d = str(tmp_path)
+    (tmp_path / "BENCH_serve_r05.json").write_text("{}")
+    assert tbench._next_serve_artifact(d) == os.path.join(
+        d, "BENCH_torch_serve_r01.json")
+    (tmp_path / "BENCH_torch_serve_r02.json").write_text("{}")
+    (tmp_path / "BENCH_torch_serve_r02_trace.json").write_text("{}")
+    assert tbench._next_serve_artifact(d) == os.path.join(
+        d, "BENCH_torch_serve_r03.json")
+    assert _root_bench()._next_serve_artifact(d) == os.path.join(
+        d, "BENCH_serve_r06.json")
+    before = sorted(os.listdir(REPO))
+    jax_records = [f for f in before if f.startswith("BENCH_serve_r")]
+    assert {f"BENCH_serve_r{i:02d}.json" for i in range(1, 14)} <= set(
+        jax_records)
+    nxt = os.path.basename(tbench._next_serve_artifact(REPO))
+    assert nxt.startswith("BENCH_torch_serve_r") and nxt not in before
+    assert sorted(os.listdir(REPO)) == before
+
+
+def test_unported_table_shrank_by_the_fleet_and_cascade_flags(tmp_path):
+    """The fleet's, the cascade's, tenancy's and the records' flags left
+    UNPORTED; each is a flag of the port's bench now (serve mode only),
+    and the rest still exit 2."""
+    assert set(tbench.UNPORTED) == {"--gateway", "--trace-replay",
+                                    "--autoscale"}
     args = tbench._parse(["serve", "--serve-replicas", "2", "--serve-hedge",
                           "--dtype-sweep", "--cascade"])
     assert (args.serve_replicas, args.serve_hedge, args.dtype_sweep,
             args.cascade) == (2, True, True, True)
+    out = tmp_path / "records"
+    args = tbench._parse(["serve", "--multimodel", "--swap-during-load",
+                          "--baseline",
+                          os.path.join(REPO, "BENCH_serve_r13.json"),
+                          "--artifact-dir", str(out)])
+    assert (args.multimodel, args.swap_during_load) == (True, True)
+    assert out.is_dir()              # made at parse, before any phase
+    assert tbench._parse(["serve", "--no-artifact"]).no_artifact is True
+    (tmp_path / "bad.json").write_text('{"detail": {}}')
     for argv in (["throughput", "--serve-replicas", "2"],
                  ["serve", "--serve-replicas", "0"],
-                 ["time-to-accuracy", "--cascade"]):
+                 ["time-to-accuracy", "--cascade"],
+                 ["throughput", "--multimodel"],
+                 ["throughput", "--no-artifact"],
+                 ["serve", "--baseline", str(tmp_path / "none.json")],
+                 ["serve", "--baseline", str(tmp_path / "bad.json")],
+                 ["serve", "--artifact-dir", ""]):
         with pytest.raises(SystemExit) as exc:
             tbench._parse(argv)
         assert exc.value.code == 2
@@ -456,14 +634,16 @@ def test_bench_raises_without_a_card(argv):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["serve", "--autoscale"], "item 5"),
-    (["serve", "--swap-during-load"], "item 3"),
-    (["serve", "--multimodel"], "item 2"),
-    (["serve", "--trace-replay", "square:qps=10"], "item 5"),
-    (["serve", "--gateway", "2"], "item 4"),
+    (["serve", "--autoscale"], "item 3"),
+    (["serve", "--swap-during-load", "--autoscale"], "item 3"),
+    (["throughput", "--autoscale"], "item 3"),
+    (["serve", "--trace-replay", "square:qps=10"], "item 3"),
+    (["serve", "--gateway", "2"], "item 2"),
     (["serve", "--multimodel", "--gateway", "2"], "item 2"),
-    (["serve", "--baseline", "BENCH_serve_r13.json"], "item 3"),
-    (["serve", "--artifact-dir", "out"], "item 3")])
+    (["serve", "--baseline", "BENCH_serve_r13.json", "--gateway", "3"],
+     "item 2"),
+    (["serve", "--artifact-dir", "out", "--trace-replay", "square:qps=10"],
+     "item 3")])
 def test_unported_flag_exits_2(argv, item, capsys):
     with pytest.raises(SystemExit) as exc:
         tbench.main(argv + ["--inline"])

@@ -22,7 +22,10 @@ the device-resident one (losses within 1e-6). Then the fast lane: each
 serving engine's exact-fit route, directly and through a batcher with
 the lane on, bit for bit the pooled dispatch at bucket 1, and the
 row-staged route on a dirty resident buffer bit for bit the pooled
-dispatch. Every test is marked `gpu` and skips without a card.
+dispatch. Then tenancy: the MLP and LeNet-5 in one catalog behind the
+global scheduler, each model's engines on a CUDA stream of their own,
+every batch bit for bit its model's own router's dispatch and the skip
+bound held. Every test is marked `gpu` and skips without a card.
 
 This file imports no jax (the card's machine has none), and
 tests/conftest.py does, so on the card run it without the conftest:
@@ -937,3 +940,99 @@ def test_cascade_on_the_trained_lenet_on_card(tmp_path):
     block = metrics.snapshot()["cascade"]
     assert block["by_class"] == {"balanced": 1, "exact": 1, "fast": 1}
     assert block["escalated_rows"] == int(esc.sum())
+
+
+@pytest.mark.gpu
+def test_two_catalog_models_on_card_are_each_routers_dispatch():
+    """The MLP (fitted, at int8 and then megakernel) and LeNet-5 (seeded,
+    float32) from build_tenancy on the card, each model's engines on a
+    stream of its own (never the default stream): 96 mixed requests a
+    tenant through the scheduler, every batch bit for bit its model's
+    own router's dispatch of the same rows on the engine that computed
+    it, every answer its slice, nothing built after warmup, the observed
+    skip maximum within drr_skip_bound, and both kernels of the MLP's
+    precisions launched."""
+    _need_card()
+    from distributedmnist_tpu_torch.config import Config
+    from distributedmnist_tpu_torch.ops import kernel_lib
+    from distributedmnist_tpu_torch.serve import build_tenancy
+    from distributedmnist_tpu_torch.serve import scheduler as policy
+
+    catalog, sched = build_tenancy(Config(
+        model="mlp", device="cuda", serve_models="mlp,lenet",
+        serve_tenants=("light:weight=2,deadline_ms=5000,model=mlp;"
+                       "heavy:weight=1,model=lenet"),
+        serve_max_batch=64, serve_queue_depth=8192))
+    seen = []
+    try:
+        mlp, lenet = catalog.get("mlp"), catalog.get("lenet")
+        mlp.registry.add(_fit_mlp(), version="v1")
+        mlp.registry.promote("v1")
+        lenet.registry.add(models.init_params("lenet", 3), version="v1")
+        lenet.registry.promote("v1")
+        for dt in ("int8", "megakernel"):
+            mlp.registry.add_variant("v1", dt)
+        streams = [e.factory.replica_streams[0] for e in (mlp, lenet)]
+        assert streams[0].cuda_stream != streams[1].cuda_stream
+        for st in streams:
+            assert st.cuda_stream != torch.cuda.default_stream(
+                st.device).cuda_stream
+        for entry in (mlp, lenet):
+            dispatch, fetch = entry.router.dispatch, entry.router.fetch
+
+            def rec_dispatch(x, *a, _d=dispatch, **kw):
+                rh = _d(x, *a, **kw)
+                rh.parts = x
+                return rh
+
+            def rec_fetch(rh, _f=fetch, _name=entry.name):
+                out = _f(rh)
+                seen.append((_name, rh.engine, rh.parts, out))
+                return out
+
+            entry.router.dispatch, entry.router.fetch = rec_dispatch, \
+                rec_fetch
+
+        def builds():
+            return kernel_lib.load_events() + sum(
+                e.factory.engine_builds for e in catalog.entries())
+
+        rng = _rng(12)
+        reqs = [(t, rng.integers(0, 256, (int(n), 28, 28, 1),
+                                 dtype=np.uint8))
+                for n in rng.integers(1, 17, 96) for t in ("light", "heavy")]
+        before, steady = dict(fused.LAUNCHES), builds()
+        runs = []          # (the run's batches, its answers) a precision
+        for dt in ("int8", "megakernel"):
+            mlp.registry.promote("v1", infer_dtype=dt)
+            start = len(seen)
+            futs = [(x, sched.submit(x, tenant=t)) for t, x in reqs]
+            outs = [(x, f.result(timeout=120)) for x, f in futs]
+            runs.append((seen[start:], outs))
+        assert builds() == steady
+        launched = {k: fused.LAUNCHES[k] - before[k] for k in before}
+        snap = sched.snapshot()
+        bound = policy.drr_skip_bound(
+            len(snap["tenants"]), sched._max_head_cost_s, sched.quantum_s,
+            min(c.weight for c in sched.classes().values()))
+        assert snap["max_skip_observed"] <= bound
+    finally:
+        sched.stop()
+    singles = {}
+    for batches, outs in runs:
+        rows = {}
+        for name, engine, parts, out in batches:
+            if id(engine) not in singles:
+                r = catalog.get(name).factory.make_router()
+                r.set_live(engine, "v1")
+                singles[id(engine)] = r
+            assert singles[id(engine)].infer(parts).tobytes() == \
+                out.tobytes(), name
+            off = 0
+            for p in parts:
+                rows[id(p)] = out[off:off + p.shape[0]]
+                off += p.shape[0]
+        for x, got in outs:
+            assert got.tobytes() == rows[id(x)].tobytes()
+        assert {name for name, _, _, _ in batches} == {"mlp", "lenet"}
+    assert launched["quant_dense"] > 0 and launched["mlp_megakernel"] > 0

@@ -589,6 +589,11 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         build_serving(tconfig.Config(model="mlp", serve_replicas=2,
                                      serve_cascade=True))
+    from distributedmnist_tpu_torch.serve import build_tenancy
+
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        build_tenancy(tconfig.Config(serve_models="mlp,lenet",
+                                     serve_tenants="a:model=lenet"))
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         InferenceEngine("mlp", models.init_params("mlp"))
     registry, _, factory = build_serving(
@@ -614,8 +619,8 @@ def test_lenet_builds_but_is_not_served_yet():
 
 def test_selftest_cli_imports_no_jax():
     """The selftest, end to end in a fresh interpreter, with the bench
-    module, the HTTP server's modules, the fleet and the cascade imported
-    too: one serve_selftest line with nothing rejected, and neither jax
+    module, the HTTP server's modules, the fleet, the cascade and tenancy
+    imported too: one serve_selftest line with nothing rejected, and neither jax
     nor the JAX package in sys.modules afterwards."""
     code = (
         "import json, sys\n"
@@ -625,6 +630,7 @@ def test_selftest_cli_imports_no_jax():
         "import distributedmnist_tpu_torch.serve.server\n"
         "import distributedmnist_tpu_torch.serve.fleet\n"
         "import distributedmnist_tpu_torch.serve.cascade\n"
+        "import distributedmnist_tpu_torch.serve.tenancy\n"
         "from distributedmnist_tpu_torch.serve.__main__ import main\n"
         "rc = main(['--device', 'cpu', '--model', 'mlp', '--selftest', "
         "'48', '--serve-max-batch', '16', '--serve-infer-dtype', "

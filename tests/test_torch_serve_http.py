@@ -31,6 +31,14 @@ and the serving pieces it needs, against the JAX package, on the CPU.
   and exact, an unknown class, promote's cascade_threshold 400s and 409):
   the same codes and bodies' keys; ServerState on a fleet against the
   JAX one.
+- Tenancy over HTTP: root serve.py and the port's server with
+  `--serve-models mlp,lenet --serve-tenants ...` on the same script
+  (X-Tenant to a class, an unknown tenant, a free tenant's burst into
+  429 with Retry-After, a passed deadline 504, GET /tenants, the quota
+  route's 200/400/404, X-Accuracy-Class refused): equal codes and
+  bodies' keys, /metrics' tenancy, by_tenant and by_model blocks of
+  JAX's keys, the tenant and model families, and the summary's tenancy
+  block; the serve CLI's tenancy refusals with the root serve.py's text.
 """
 
 import importlib.util
@@ -81,9 +89,7 @@ MAX_BATCH = 16
 # /metrics keys of the JAX server that belong to layers the port has not
 # got yet, each with its ROADMAP.md §1 item
 UNPORTED_METRICS_KEYS = {
-    "by_tenant": "item 2: tenancy",
-    "by_model": "item 2: tenancy",
-    "autoscale": "item 5: autoscaling",
+    "autoscale": "item 3: autoscaling",
 }
 
 
@@ -838,7 +844,7 @@ def test_server_metrics_payload_shape(inproc_layers):
     assert m["metric"] == "serve_stats" and m["requests"] >= 1
     assert m["queue"]["max_inflight"] == inproc.batcher.max_inflight
     assert m["adaptive"]["aimd_wait_us"] > 0
-    # the blocks of layers the port has not got yet
+    # the blocks of layers off on this server (one replica, one model)
     for k in ("fleet", "tenancy"):
         assert m[k] is None, k
     assert m["cache"]["misses"] >= 1 and m["cache"]["capacity"] == 4096
@@ -1661,3 +1667,199 @@ def test_conformance_cascade_with_jax_serve(tmp_path):
     cascade_fams = {f for f in _families_of(jp)
                     if f.startswith("dmnist_serve_cascade_")}
     assert cascade_fams and cascade_fams <= _families_of(tp)
+
+
+# -- (g) tenancy over HTTP, against root serve.py -----------------------------
+
+TENANTS = ("gold:qps=1000,burst=64,deadline_ms=30000,weight=2,model=mlp;"
+           "free:qps=0.05,burst=2,model=lenet")
+
+
+def _tenancy_script():
+    x2 = _images(2, seed=709).reshape(2, 784).tobytes()
+
+    def quota(tenant, body):
+        return _post_json(f"/tenants/{tenant}/quota", body)
+
+    return [
+        ("gold", "POST", "/predict", x2, {"X-Tenant": "gold"}),
+        ("unknown tenant", "POST", "/predict", x2, {"X-Tenant": "nobody"}),
+        ("no tenant", "POST", "/predict", x2, {}),
+        ("free 1", "POST", "/predict", x2, {"X-Tenant": "free"}),
+        ("free 2", "POST", "/predict", x2, {"X-Tenant": "free"}),
+        ("free over quota", "POST", "/predict", x2, {"X-Tenant": "free"}),
+        ("deadline passed", "POST", "/predict", x2,
+         {"X-Tenant": "gold", "X-Deadline-Ms": "0.001"}),
+        ("accuracy class", "POST", "/predict", x2,
+         {"X-Accuracy-Class": "fast"}),
+        ("tenants", "GET", "/tenants", None, {}),
+        ("quota not a number", *quota("free", {"qps": "x"})),
+        ("quota a bool", *quota("free", {"burst": True})),
+        ("quota refused", *quota("free", {"qps": -1})),
+        ("quota bad json", "POST", "/tenants/free/quota", b"{",
+         {"Content-Type": "application/json"}),
+        ("quota unknown tenant", *quota("nobody", {"qps": 5})),
+        ("quota bad shape", *_post_json("/tenants/free", {})),
+        ("quota loosened", *quota("free", {"qps": 100, "burst": 10})),
+        ("free after", "POST", "/predict", x2, {"X-Tenant": "free"}),
+        ("replica drain", *_post_json("/replicas/r0/drain", {})),
+    ]
+
+
+def test_conformance_tenancy_with_jax_serve():
+    """`--serve-models mlp,lenet --serve-tenants ...` on both servers
+    (fresh-init weights, so the classes are not compared): equal codes
+    and bodies' keys for the whole script, the 429 with a Retry-After of
+    the same value, /metrics' tenancy, by_tenant and by_model blocks, the
+    tenant and model Prometheus families, and a SIGTERM summary with the
+    tenancy block in each."""
+    from conftest import worker_env
+
+    jenv, _ = worker_env()
+    common = ["--model", "mlp", "--device", "cpu", "--serve-max-batch",
+              str(MAX_BATCH), "--port", "0", "--metrics-every", "60",
+              "--serve-models", "mlp,lenet", "--serve-tenants", TENANTS]
+    servers = {
+        "jax": ServerProcess([sys.executable,
+                              os.path.join(REPO, "serve.py"), *common],
+                             env=jenv, cwd=REPO),
+        "port": ServerProcess([sys.executable, "-m",
+                               "distributedmnist_tpu_torch.serve", *common],
+                              env=_port_env(), cwd=REPO),
+    }
+    out, done = {}, {}
+    try:
+        for name, srv in servers.items():
+            _wait_healthy(srv.base, timeout=240)
+            answers = _run_script(srv.base, _tenancy_script())
+            out[name] = (answers, _request(f"{srv.base}/metrics")[1],
+                         _text(f"{srv.base}/metrics?format=prometheus")[1])
+    finally:
+        for name, srv in servers.items():
+            done[name] = srv.stop()
+    # the port exits 0. Root serve.py answers /healthz 200 once its
+    # default model is live, while its boot thread still warms LeNet, and
+    # a SIGTERM then can abort it at exit, after its summary, with that
+    # thread inside XLA (SIGABRT): the reference's; its summary is still
+    # checked below
+    assert done["port"].rc == 0, done["port"].stderr[-3000:]
+    (ja, jm, jp), (ta, tm, tp) = out["jax"], out["port"]
+    codes = {name: (ja[name][0], ta[name][0]) for name in ja}
+    assert all(a == b for a, b in codes.values()), codes
+    for name in ("gold", "unknown tenant", "no tenant", "free 1", "free 2",
+                 "tenants", "quota loosened", "free after"):
+        assert codes[name] == (200, 200), name
+    assert codes["free over quota"] == (429, 429)
+    assert codes["deadline passed"] == (504, 504)
+    for name in ("accuracy class", "quota not a number", "quota a bool",
+                 "quota refused", "quota bad json"):
+        assert codes[name] == (400, 400), name
+    assert codes["quota unknown tenant"] == (404, 404)
+    assert codes["quota bad shape"] == (404, 404)
+    assert codes["replica drain"] == (409, 409)
+    for name in ja:
+        assert set(ta[name][1]) == set(ja[name][1]), name
+    # the bucket's refill time at 0.05 qps, whole seconds: its value
+    # depends on how long each server took since the last token
+    for answers in (ta, ja):
+        assert 1 <= int(answers["free over quota"][2]["Retry-After"]) <= 20
+    assert ta["quota loosened"][1] == ja["quota loosened"][1]
+    for name in ("gold", "unknown tenant", "free after"):
+        # the scheduler's future carries no version tag, in both
+        assert ta[name][1]["n"] == 2
+        assert ta[name][1]["version"] == ja[name][1]["version"]
+    tt, jt = ta["tenants"][1], ja["tenants"][1]
+    assert set(tt["tenants"]) == set(jt["tenants"]) == {"gold", "free",
+                                                        "default"}
+    for t in tt["tenants"]:
+        assert set(tt["tenants"][t]) == set(jt["tenants"][t]), t
+    assert set(tt["models"]) == set(jt["models"]) == {"mlp", "lenet"}
+    assert set(tt["models"]["lenet"]) == set(jt["models"]["lenet"])
+    assert set(tm) == set(jm) - set(UNPORTED_METRICS_KEYS)
+    assert set(tm["tenancy"]) == set(jm["tenancy"])
+    assert set(tm["by_tenant"]) == set(jm["by_tenant"]) == {
+        "gold", "free", "default"}
+    for t in tm["by_tenant"]:
+        assert set(tm["by_tenant"][t]) == set(jm["by_tenant"][t]), t
+        for k in ("requests", "rows", "quota_sheds", "deadline_sheds"):
+            assert tm["by_tenant"][t][k] == jm["by_tenant"][t][k], (t, k)
+    assert tm["by_model"] == jm["by_model"]
+    assert tm["by_tenant"]["free"]["quota_sheds"] == 1
+    fams = {f for f in _families_of(jp)
+            if f.startswith(("dmnist_serve_tenant_",
+                             "dmnist_serve_model_"))}
+    assert fams and fams == {f for f in _families_of(tp)
+                             if f.startswith(("dmnist_serve_tenant_",
+                                              "dmnist_serve_model_"))}
+    for name, d in done.items():
+        summary = [r for r in d.records
+                   if r.get("metric") == "serve_summary"]
+        assert summary and set(summary[-1]["tenancy"]) == set(
+            jm["tenancy"]), name
+
+
+@pytest.mark.parametrize("argv", [
+    ["--serve-tenants", "a:nope=1"],
+    ["--serve-tenants", "gold:qps=1", "--serve-tenant-quantum-us", "0"],
+    ["--serve-models", "mlp,resnet"],
+    ["--serve-models", "mlp,lenet", "--serve-cascade"],
+    ["--serve-tenants", "gold:qps=1", "--serve-replicas", "2"],
+    ["--serve-models", "mlp", "--serve-fastlane"]])
+def test_server_cli_tenancy_refusals_match_jax_serve(capsys, argv):
+    """The serve CLI refuses a malformed tenant spec, a quantum of 0, an
+    unknown model, and tenancy with the cascade, a fleet or the fast
+    lane: exit 2 with the root serve.py's message, word for word."""
+    errors = []
+    for main in (_load_jax_serve().main, serve_cli.main):
+        with pytest.raises(SystemExit) as ei:
+            main(["--device", "cpu", "--model", "mlp"] + argv)
+        assert ei.value.code == 2
+        errors.append(capsys.readouterr().err.strip().splitlines()[-1]
+                      .split("error: ", 1)[1])
+    assert errors[0] == errors[1]
+
+
+def test_tenancy_server_in_process_routes_and_summary():
+    """The HTTPServer in-process over a two-model catalog: X-Tenant routes
+    to each model's batcher, /metrics counts every catalog factory's
+    builds in compiles_total and carries the scheduler's snapshot, and
+    the summary its tenancy block."""
+    from distributedmnist_tpu_torch.serve import build_tenancy
+
+    cfg = tconfig.Config(model="mlp", device="cpu", serve_max_batch=8,
+                         serve_models="mlp,lenet",
+                         serve_tenants="a:model=mlp;b:model=lenet")
+    metrics = ServeMetrics()
+    catalog, sched = build_tenancy(cfg, metrics=metrics)
+    entry = catalog.get(catalog.default())
+    server = tserver.HTTPServer(entry.batcher, metrics, entry.registry,
+                                tserver.ServerState(), request_timeout=30,
+                                front=sched, scheduler=sched)
+    base = f"http://127.0.0.1:{server.port}"
+    result = {}
+    t = threading.Thread(target=lambda: result.update(server.serve(
+        lambda: serve_cli.warm_catalog(catalog, cfg), metrics_every=60)),
+        daemon=True)
+    t.start()
+    try:
+        _wait_healthy(base, timeout=60)
+        for tenant in ("a", "b", "b"):
+            code, body, _ = _request(f"{base}/predict",
+                                     data=_images(3).tobytes(),
+                                     headers={"X-Tenant": tenant},
+                                     method="POST")
+            assert code == 200 and body["n"] == 3
+        _, m, _ = _request(f"{base}/metrics")
+        assert m["by_model"]["mlp"]["requests"] == 1
+        assert m["by_model"]["lenet"]["requests"] == 2
+        assert m["tenancy"]["tenants"]["b"]["granted_rows"] == 6
+        assert m["compiles_total"] == kernel_lib.load_events() + sum(
+            e.factory.engine_builds for e in catalog.entries())
+        assert all(e.factory.engine_builds >= 1
+                   for e in catalog.entries())
+    finally:
+        server.shutdown()
+        t.join(30)
+        sched.stop()
+    assert result["tenancy"]["models"]["lenet"]["resident"] is True
+    assert set(result["by_tenant"]) == {"a", "b"}

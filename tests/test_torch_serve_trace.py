@@ -31,10 +31,9 @@ from distributedmnist_tpu_torch.serve import (DeadlineExceeded,
 from tests.test_serve_batcher import StubEngine
 
 # the JAX snapshot's blocks of layers the port has not got yet
-DEFERRED_KEYS = {"by_tenant", "by_model", "autoscale"}
+DEFERRED_KEYS = {"autoscale"}
 # their Prometheus families (prefixes)
-DEFERRED_FAMILIES = ("dmnist_serve_tenant_", "dmnist_serve_model_",
-                     "dmnist_serve_autoscale_")
+DEFERRED_FAMILIES = ("dmnist_serve_autoscale_",)
 
 
 @pytest.fixture(autouse=True)
@@ -158,6 +157,17 @@ def _record_history(m):
                        collapsed=True)
     m.record_dedup(2, 3)
     m.record_fastpath(1)
+    # the tenancy layer's hooks
+    m.record_tenant_request("gold", "mlp", 2)
+    m.record_tenant_request("free", "lenet", 1)
+    m.record_tenant_shed("free", "quota", 1)
+    m.record_tenant_shed("gold", "deadline", 3)
+    m.record_tenant_dispatch("gold", "mlp", 2)
+    m.record_tenant_dispatch("free", "lenet", 1)
+    m.record_tenant_cache_hit("free", 1)
+    m.record_tenant_done("gold", 0.003, True)
+    m.record_tenant_done("gold", 0.009, False)
+    m.record_tenant_done("free", 0.001, None)
 
 
 def test_snapshot_keys_equal_jax_but_the_deferred_layers():
@@ -173,6 +183,9 @@ def test_snapshot_keys_equal_jax_but_the_deferred_layers():
                 assert v == sr[block][k], (block, k)
     assert so["by_dtype"] == sr["by_dtype"]
     assert so["by_version"] == sr["by_version"]
+    assert so["by_tenant"] == sr["by_tenant"]
+    assert so["by_model"] == sr["by_model"]
+    assert so["by_tenant"]["gold"]["slo_attainment"] == 0.5
     assert so["requests"] == sr["requests"] == 4
     assert so["fastpath"]["lane_fraction"] == 0.25
 
