@@ -70,7 +70,7 @@ under the concurrency sanitizer) on one CUDA card.
 8. Drives the port's HTTP server, `python -m distributedmnist_tpu_torch.serve
    --port 0`, one subprocess a server, each on its own launch counts.
    The MLP server boots the fitted weights from a checkpoint at
-   --serve-infer-dtype megakernel: /healthz polled to 200, 200
+   --serve-infer-dtype megakernel: /healthz polled to 200, 100
    sequential 1-row /predict calls timed (p50/p99 printed with the
    card's name and power limit), a 512-row /predict held against the
    float32 model on the CPU at the megakernel gate's agreement, a fresh
@@ -79,7 +79,7 @@ under the concurrency sanitizer) on one CUDA card.
    comparisons), a later checkpoint rolled in by SIGHUP (live at
    megakernel again), and SIGTERM (rc 0, a serve_summary line). The
    LeNet-5 server boots config 2's checkpoint at int8: /healthz 200,
-   int8 live, 200 timed 1-row calls, a 512-row /predict against the
+   int8 live, 100 timed 1-row calls, a 512-row /predict against the
    float32 engine on the CPU at the int8 gate's agreement, SIGTERM rc 0.
    Each server prints its launch counts on stderr at exit: the MLP
    server must have launched dense_relu and mlp_megakernel, the LeNet
@@ -186,7 +186,7 @@ under the concurrency sanitizer) on one CUDA card.
    workers are live at int8): the gateway holds no CUDA context
    (nvidia-smi's compute-app pids where they are this PID namespace's,
    the processes' /dev/nvidia mappings, and its own
-   torch.cuda.is_initialized() line at exit), 200 timed sequential 1-row
+   torch.cuda.is_initialized() line at exit), 100 timed sequential 1-row
    calls, 256 sequential requests of 1-16 rows whose classes are those
    of an in-process int8 router on the card for the same rows (each
    request alone in its worker's batch; the HTTP answer carries classes,
@@ -228,13 +228,28 @@ under the concurrency sanitizer) on one CUDA card.
    distributedmnist_tpu_torch.analysis.explore --smoke` exits 0. Prints
    an `analysis_phases` line: the sanitized and unsanitized rows/s of
    each burst, the explorer's wall time, the audited keys, the card.
-16. Prints a `kernels` JSON line (launches on each path, with the
-   `fleet`, `cascade`, `tenancy`, `gateway`, `replay_autoscale` and
-   `sanitized` paths also as columns of their own, error,
-   times, bound; dense_relu's entry lists the new shapes, dense_relu's
-   and quant_dense's LeNet's serving shapes; each entry's `fastlane` its
-   b = 1 case and fast-route launches) and, last, {"ok": true,
-   "device": {...}}.
+16. The multichip dry run, the training fingerprints and the
+   calibration, each on launch counts of its own:
+   `dryrun.dryrun_multichip(2)` on the card (every leg, JAX's names, the
+   2 ranks sharing the card over gloo; serve-reload's float32 MLP engines
+   launch dense_relu after warmup, counted as differences over its
+   served rounds, and dp:2proc's ranks report theirs);
+   torchcheck's CLI, `main(["--device", "cuda", "--models", "lenet"])`
+   in this process, returns 0 (LeNet-5's served forwards and both
+   training steps on the card, each fingerprint the CPU snapshot's), and
+   the training steps recorded again launch dense_relu; and
+   the calibration at the set's own point (noise 0.44, jitter 3), both
+   models at CALIBRATION_EPOCHS on 60,000 / 10,000 images, each accuracy
+   in (0.1, 1]. Prints a `dryrun_phases` line: the legs and each leg's
+   seconds, the audit, the calibration row, the launches.
+17. Prints a `kernels` JSON line (launches on each path, with the
+   `fleet`, `cascade`, `tenancy`, `gateway`, `replay_autoscale`,
+   `sanitized`, `dryrun`, `train_audit` and `calibration` paths also as
+   columns of their own, error, times, bound; dense_relu's entry lists
+   the new shapes, dense_relu's and quant_dense's LeNet's serving
+   shapes; each entry's `fastlane` its b = 1 case and fast-route
+   launches), a `phase_seconds` line (each phase's wall seconds) and,
+   last, {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero before the last line. Without a
 card, or without the rest of the repository beside this file, it exits
@@ -265,6 +280,11 @@ TPU_KERNELS = {
     "quant_dense": "distributedmnist_tpu/ops/fused.py:160",
     "mlp_megakernel": "distributedmnist_tpu/ops/fused.py:222",
 }
+# The multichip phase: the dry run's ranks, and the calibration's epochs
+# at the set's own point (the JAX script's default depth)
+DRYRUN_RANKS = 2
+CALIBRATION_POINT = (0.44, 3)
+CALIBRATION_EPOCHS = 6
 # kernels whose K is split over a thread-block cluster: held to give the
 # same bits on two calls
 SPLIT_K_KERNELS = ("dense_relu", "mlp_megakernel", "quant_dense")
@@ -340,7 +360,9 @@ DP_TIMEOUT_S = 300
 COMPARE_STEPS = 50
 COMPARE_TOL = dict(loss_rtol=1e-4, param_atol=1e-4)
 # The bench phase: each run's arguments, with windows cut short (the
-# default windows take minutes on the card) and one-second serve phases.
+# default windows take minutes on the card) and half-second serve phases;
+# the supervised worker (the bench's default) runs the first, the rest
+# run --inline (each run's process boot is most of its time).
 # The serve runs of LeNet-5 boot from a copy of config 2's last
 # checkpoint, the one whose gates the LeNet serving phase held.
 # The rest-of-training phase. Tensor parallelism: model_parallel 2 as 2
@@ -358,7 +380,7 @@ COMPARE_TOL = dict(loss_rtol=1e-4, param_atol=1e-4)
 # model_parallel).
 TP_STEPS = {"mlp": 200, "lenet": 20}
 TP_TOL = 1e-4
-TP_CLI_STEPS = 500
+TP_CLI_STEPS = 200
 TP_LAYOUTS = ((2, 2), (4, 2), (4, 4))
 REST_STEPS = 1000
 # measured on an H100 (PERF.md §6): 0.9729 and 0.9910 in bf16, 0.9713 and
@@ -367,30 +389,31 @@ BF16_ACCURACY_FLOOR = {"mlp-sgd": 0.96, "lenet-adam": 0.98}
 STREAM_TOL = 1e-6
 BENCH_RUNS = (
     ("throughput", "--model", "mlp", "--global-batch", "64",
-     "--steps-per-call", "256", "--warmup-steps", "256", "--bench-steps",
-     "512", "--repeats", "3"),
-    ("throughput", "--model", "lenet", "--global-batch", "512",
-     "--steps-per-call", "128", "--warmup-steps", "128", "--bench-steps",
-     "256", "--repeats", "3"),
-    ("time-to-accuracy", "--model", "lenet", "--global-batch", "512",
-     "--trials", "1", "--target-accuracy", "0.99"),
-    ("serve", "--model", "mlp", "--serve-duration", "1", "--no-artifact"),
-    ("serve", "--model", "lenet", "--serve-infer-dtype", "bfloat16",
-     "--serve-duration", "1", "--checkpoint-dir", "{ckpt}",
-     "--no-artifact"),
-    ("serve", "--model", "lenet", "--serve-infer-dtype", "int8",
-     "--serve-duration", "1", "--checkpoint-dir", "{ckpt}",
-     "--no-artifact"),
-    ("sweep", "--model", "lenet", "--sweep-batches", "64,512",
      "--steps-per-call", "128", "--warmup-steps", "128", "--bench-steps",
      "256", "--repeats", "2"),
-    ("smoke", "--model", "mlp", "--dtype", "bfloat16"),
+    ("throughput", "--model", "lenet", "--global-batch", "512",
+     "--steps-per-call", "128", "--warmup-steps", "128", "--bench-steps",
+     "128", "--repeats", "2", "--inline"),
+    ("time-to-accuracy", "--model", "lenet", "--global-batch", "512",
+     "--trials", "1", "--target-accuracy", "0.99", "--inline"),
+    ("serve", "--model", "mlp", "--serve-duration", "0.5", "--no-artifact",
+     "--inline"),
+    ("serve", "--model", "lenet", "--serve-infer-dtype", "bfloat16",
+     "--serve-duration", "0.5", "--checkpoint-dir", "{ckpt}",
+     "--no-artifact", "--inline"),
+    ("serve", "--model", "lenet", "--serve-infer-dtype", "int8",
+     "--serve-duration", "0.5", "--checkpoint-dir", "{ckpt}",
+     "--no-artifact", "--inline"),
+    ("sweep", "--model", "lenet", "--sweep-batches", "64,512",
+     "--steps-per-call", "128", "--warmup-steps", "128", "--bench-steps",
+     "128", "--repeats", "1", "--inline"),
+    ("smoke", "--model", "mlp", "--dtype", "bfloat16", "--inline"),
 )
 BENCH_TIMEOUT_S = 300
 # The HTTP phase: sequential 1-row /predict calls timed per server, the
 # rows of the large /predict held against the CPU's float32 model, and
 # how long a server may take to turn /healthz 200 or to roll a SIGHUP.
-HTTP_TIMED_CALLS = 200
+HTTP_TIMED_CALLS = 100
 HTTP_CHECK_ROWS = 512
 HTTP_READY_S = 300
 # The request-path phase: the fast lane's engines' ladder (its smallest
@@ -400,7 +423,7 @@ HTTP_READY_S = 300
 # older committed records predate some of them)
 REQUEST_MAX_BATCH = 16
 FASTLANE_ROWS = 16
-FASTLANE_TIMED = 200
+FASTLANE_TIMED = 100
 REQUEST_LEG_KEYS = {
     "lowlat": {
         "attribution", "batched", "clients", "coalesce_wait_us",
@@ -450,10 +473,10 @@ FLEET_FAULT_REQUESTS = 128
 FLEET_BALANCE_BAR = 1.25
 FLEET_SLOW_MS = 20
 FLEET_BENCH_RUNS = (
-    ("serve", "--model", "mlp", "--serve-duration", "1",
+    ("serve", "--model", "mlp", "--serve-duration", "0.5",
      "--serve-replicas", "2", "--serve-hedge", "--chaos", "--inline",
      "--no-artifact"),
-    ("serve", "--model", "lenet", "--serve-duration", "1",
+    ("serve", "--model", "lenet", "--serve-duration", "0.5",
      "--dtype-sweep", "--cascade", "--checkpoint-dir", "{ckpt}",
      "--inline", "--no-artifact"),
 )
@@ -535,16 +558,16 @@ GATEWAY_MAX_ROWS = 16
 GATEWAY_HOT_KEYS = 8
 GATEWAY_HOT_REQUESTS = 64
 GATEWAY_KILL_CLIENTS = 32
-GATEWAY_KILL_AFTER = 200
-GATEWAY_AFTER_KILL_S = 2.0
+GATEWAY_KILL_AFTER = 100
+GATEWAY_AFTER_KILL_S = 1.0
 GATEWAY_BENCH_RUN = ("serve", "--model", "mlp", "--gateway", "2",
                      "--serve-infer-dtype", "megakernel",
-                     "--serve-duration", "3", "--serve-clients", "8",
+                     "--serve-duration", "1.5", "--serve-clients", "8",
                      "--inline", "--no-artifact")
 REPLAY_ROWS = 4
 REPLAY_MAX_BATCH = 32
 REPLAY_RATE_CLIENTS = 8
-REPLAY_RATE_S = 2.0
+REPLAY_RATE_S = 1.0
 PEAK_OVER_STATIC = 2.0
 REPLAY_BURST = 8
 # The tenancy phase: the in-process catalog's tenants (the root bench's
@@ -559,7 +582,7 @@ TENANCY_HTTP_TENANTS = ("gold:qps=1000,burst=64,model=mlp;"
 TENANCY_MAX_BATCH = 64
 TENANCY_MAX_ROWS = 16
 TENANCY_REQUESTS = 256
-TENANCY_BENCH_RUN = ("serve", "--model", "mlp", "--serve-duration", "1",
+TENANCY_BENCH_RUN = ("serve", "--model", "mlp", "--serve-duration", "0.5",
                      "--multimodel", "--swap-during-load", "--inline")
 # the root bench's r11 record's `multimodel` keys and r02's `swap` keys
 TENANCY_RECORD_KEYS = {
@@ -2313,7 +2336,7 @@ def drive_request_bench() -> tuple[dict, dict]:
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ)
     env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
-    argv = ["serve", "--model", "mlp", "--serve-duration", "1",
+    argv = ["serve", "--model", "mlp", "--serve-duration", "0.5",
             "--serve-qps", "200", "--serve-clients", "8", "--lowlat",
             "--zipf", "--chaos", "--trace", "--inline", "--no-artifact"]
     t0 = time.perf_counter()
@@ -3433,7 +3456,7 @@ def drive_tenancy_bench(card: str) -> tuple[dict, dict]:
         figures["took_s"] = time.perf_counter() - t0
         # a second run diffs against the first record
         rc, rec2, err2 = _bench_run(
-            ["serve", "--model", "mlp", "--serve-duration", "1",
+            ["serve", "--model", "mlp", "--serve-duration", "0.5",
              "--inline", "--baseline", path, "--artifact-dir", out], env,
             here)
         if (rc != 0 or rec2 is None or "baseline" not in rec2["detail"]
@@ -3926,7 +3949,7 @@ def drive_replay_bench(card: str) -> tuple[dict, dict]:
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ)
     env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
-    run = ("serve", "--model", "mlp", "--serve-duration", "1",
+    run = ("serve", "--model", "mlp", "--serve-duration", "0.5",
            "--serve-qps", "1000", "--serve-clients", "8",
            "--serve-max-batch", str(REPLAY_MAX_BATCH), "--trace-replay",
            spec, "--autoscale", "--inline", "--no-artifact")
@@ -4183,7 +4206,7 @@ def drive_analysis(params: dict, card: str) -> tuple[dict, dict]:
     # 3. the compile surface on the card, against the CPU snapshot
     t0 = time.perf_counter()
     targets = [t for t in tc.default_targets() if t.model == "mlp"]
-    audit = tc.run_audit(targets, partial=True, device="cuda")
+    audit = tc.run_audit(targets, "cuda", with_train=False, partial=True)
     if audit["findings"] or audit["warnings"]:
         raise RuntimeError("torchcheck on the card: " + "; ".join(
             [f.format() for f in audit["findings"]] + audit["warnings"]))
@@ -4216,6 +4239,76 @@ def drive_analysis(params: dict, card: str) -> tuple[dict, dict]:
     return figures, {"analysis": counts}
 
 
+def drive_multichip(card: str) -> tuple[dict, dict]:
+    """Phase 16: the multichip dry run, torchcheck's training audit on
+    the card and one calibration point, each on launch counts of its
+    own."""
+    from distributedmnist_tpu_torch import calibrate_synthetic, dryrun
+    from distributedmnist_tpu_torch.analysis import torchcheck as tc
+    from distributedmnist_tpu_torch.ops import fused
+
+    t_phase = time.perf_counter()
+    figures: dict = {"card": card}
+    launches: dict = {}
+
+    # 1. the dry run: every leg, JAX's names
+    t0 = time.perf_counter()
+    rec = dryrun.dryrun_multichip(DRYRUN_RANKS)
+    if rec["legs"] != dryrun.dryrun_legs(DRYRUN_RANKS):
+        raise RuntimeError(f"dry run legs {rec['legs']}")
+    if rec["launches"]["serve-reload"]["dense_relu"] <= 0:
+        raise RuntimeError("serve-reload launched no dense_relu: "
+                           f"{rec['launches']}")
+    launches["dryrun"] = {k: sum(n.get(k, 0)
+                                 for n in rec["launches"].values())
+                          for k in fused.LAUNCHES}
+    figures["dryrun"] = {k: rec[k] for k in ("legs", "seconds", "losses",
+                                             "launches", "backend")}
+    figures["dryrun"]["s"] = time.perf_counter() - t0
+
+    # 2. torchcheck on the card: LeNet-5's served forwards (phase 15 holds
+    # the MLP's) and both training steps, against the CPU snapshot
+    t0 = time.perf_counter()
+    argv = ["--device", "cuda", "--models", "lenet"]
+    rc = tc.main(argv)
+    if rc != 0:
+        raise RuntimeError(f"torchcheck {' '.join(argv)} exited {rc} (its "
+                           "findings are printed above)")
+    fused.reset_launches()
+    fps, findings = tc.train_step_fingerprints("cuda")
+    launches["train_audit"] = dict(fused.LAUNCHES)
+    snap = tc.load_snapshot()["fingerprints"][tc.TRAIN_LABEL]
+    if findings or fps != snap:
+        raise RuntimeError(f"train fingerprints on the card {fps} against "
+                           f"{snap}: {[f.format() for f in findings]}")
+    if launches["train_audit"]["dense_relu"] <= 0:
+        raise RuntimeError("the MLP's train step launched no dense_relu")
+    figures["torchcheck"] = {"cli": argv, "rc": rc,
+                             "train_fingerprints": fps,
+                             "s": time.perf_counter() - t0}
+
+    # 3. the calibration at the set's own constants
+    t0 = time.perf_counter()
+    fused.reset_launches()
+    rows = calibrate_synthetic.calibrate(
+        [CALIBRATION_POINT], ["mlp", "lenet"], CALIBRATION_EPOCHS, 60_000,
+        10_000, "cuda")
+    launches["calibration"] = dict(fused.LAUNCHES)
+    print(calibrate_synthetic.format_table(rows, ["mlp", "lenet"]),
+          flush=True)
+    accs = rows[0]["accuracy"]
+    if not all(0.1 < a <= 1.0 for a in accs.values()):
+        raise RuntimeError(f"calibration accuracies {accs}")
+    if launches["calibration"]["dense_relu"] <= 0:
+        raise RuntimeError("the MLP's calibration fit launched no "
+                           "dense_relu")
+    figures["calibration"] = {"row": rows[0], "s": time.perf_counter() - t0}
+    figures["launches"] = launches
+    figures["phase_s"] = time.perf_counter() - t_phase
+    print("dryrun_phases " + json.dumps(figures), flush=True)
+    return figures, launches
+
+
 def main() -> int:
     import torch
 
@@ -4241,6 +4334,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    phase_s: dict = {}
+    t_mark = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name] = now - t_mark[0]
+        t_mark[0] = now
+
     t0 = time.perf_counter()
     reports = kernel_lib.build_all(force=True)
     print(f"built {len(reports)} kernel libraries in "
@@ -4250,6 +4351,7 @@ def main() -> int:
             if ("ptxas" in line or "spill" in line
                     or "error" in line.lower()):
                 print(f"{source}: {line.strip()}", flush=True)
+    lap("1 build")
 
     params = fit_params(FIT_SEED)
     images = synthetic_mnist(seed=SEED, train_n=16,
@@ -4267,6 +4369,7 @@ def main() -> int:
     time_forwards("mlp", params, np.asarray(images),
                   ("float32", "bfloat16", "int8", "megakernel"))
     compare_training_step(data)
+    lap("2 kernels")
 
     fused.reset_launches()
     phases = drive_serving_path(params)
@@ -4276,6 +4379,7 @@ def main() -> int:
     if missing:
         raise RuntimeError(f"kernels never launched on the serving path: "
                            f"{missing}")
+    lap("3 serving")
 
     with tempfile.TemporaryDirectory() as lenet_ckpt:
         fused.reset_launches()
@@ -4285,6 +4389,7 @@ def main() -> int:
         if launches["training"]["dense_relu"] <= 0:
             raise RuntimeError("dense_relu never launched on the training "
                                "path")
+        lap("4 training")
 
         fused.reset_launches()
         phases, launches["dp_training"] = drive_dp_path(card)
@@ -4292,6 +4397,7 @@ def main() -> int:
         if launches["dp_training"]["dense_relu"] <= 0:
             raise RuntimeError("dense_relu never launched on the "
                                "data-parallel training path")
+        lap("5 data parallel")
 
         fused.reset_launches()
         t0 = time.perf_counter()
@@ -4303,6 +4409,7 @@ def main() -> int:
         if launches["rest_training"]["dense_relu"] <= 0:
             raise RuntimeError("dense_relu never launched on the rest of "
                                "the training path")
+        lap("10 rest of training")
 
         lenet_params, _ = checkpoint.restore_latest_params(lenet_ckpt)
         held = synthetic_mnist(seed=LENET_SEED, train_n=16,
@@ -4310,6 +4417,7 @@ def main() -> int:
         records += check_kernels(lenet_kernel_cases(lenet_params, held))
         time_forwards("lenet", lenet_params, held,
                       ("float32", "bfloat16", "int8"))
+        lap("6 lenet kernels")
 
         fused.reset_launches()
         phases = drive_lenet_serving_path(lenet_ckpt, lenet_data)
@@ -4320,11 +4428,13 @@ def main() -> int:
         if missing:
             raise RuntimeError(f"kernels never launched on the LeNet "
                                f"serving path: {missing}")
+        lap("7 lenet serving")
 
         http_phases, http_launches = drive_http_path(params, lenet_ckpt,
                                                      card)
         launches.update(http_launches)
         print("http_phases " + json.dumps(http_phases), flush=True)
+        lap("8 http")
 
         fused.reset_launches()
         launches["bench"] = drive_bench_path(lenet_ckpt)
@@ -4333,6 +4443,7 @@ def main() -> int:
         if missing:
             raise RuntimeError(f"kernels never launched on the bench "
                                f"path: {missing}")
+        lap("9 bench")
 
         from distributedmnist_tpu_torch.serve.quantize import PARITY_SEED
 
@@ -4349,20 +4460,29 @@ def main() -> int:
         launches.update(http_launches)
         request_phases["phase_s"] = time.perf_counter() - t0
         print("request_phases " + json.dumps(request_phases), flush=True)
+        lap("11 request path")
 
         _, fleet_launches = drive_fleet_and_cascade(params, lenet_ckpt,
                                                     card)
         launches.update(fleet_launches)
+        lap("12 fleet and cascade")
 
         _, tenancy_launches = drive_tenancy(params, lenet_ckpt, card)
         launches.update(tenancy_launches)
+        lap("13 tenancy")
 
         _, gateway_launches = drive_gateway(
             params, card, http_phases["mlp"]["predict_1row"])
         launches.update(gateway_launches)
+        lap("14 gateway")
 
     _, analysis_launches = drive_analysis(params, card)
     launches.update(analysis_launches)
+    lap("15 analysis")
+
+    _, multichip_launches = drive_multichip(card)
+    launches.update(multichip_launches)
+    lap("16 multichip")
 
     line = []
     for name in ("dense_relu", "quant_dense", "mlp_megakernel"):
@@ -4381,6 +4501,9 @@ def main() -> int:
             "gateway": launches["gateway"][name],
             "replay_autoscale": launches["replay_autoscale"][name],
             "sanitized": launches["analysis"][name],
+            "dryrun": launches["dryrun"][name],
+            "train_audit": launches["train_audit"][name],
+            "calibration": launches["calibration"][name],
             "max_abs_err": max(r["max_abs_err"] for r in records
                                if r["name"] == name),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
@@ -4410,6 +4533,8 @@ def main() -> int:
         for r in records if r["case"].startswith(("f32 tp", "bf16 train",
                                                   "bf16 bench"))]
     print(json.dumps({"kernels": line}), flush=True)
+    phase_s["total"] = sum(phase_s.values())
+    print("phase_seconds " + json.dumps(phase_s), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -39,13 +39,21 @@ allocator growth on the hot path. Five rules, mirroring JX001-JX005:
    launches the kernel. Refresh the snapshot with
    `--update-snapshots --reason '...'`.
 
+The training step is audited too (train_step_fingerprints, the
+counterpart of jaxcheck's): one call of trainer.make_train_step for each
+model's preset optimizer at JAX's canonical geometry, its forward,
+backward and optimizer update recorded by the same dispatch mode under
+TX003-TX005, in the snapshot's `train` label.
+
 (JX004's weak-type half has no eager counterpart: a Python scalar is a
 value, not a cache key — see lint.INAPPLICABLE.)
 
 CLI: `python -m distributedmnist_tpu_torch.analysis.torchcheck` — exit 0
 on a closed, clean, snapshot-matching surface; 1 on findings; 2 on an
 internal error. `--emit` writes an ANALYSIS_torch_r*.json round record.
-It audits on the CPU unless `--device cuda` is given.
+It audits on the card unless given `--device cpu`, the snapshot's basis
+(and the only device `--update-snapshots` writes from); without a card
+and without `--device cpu` it exits 2.
 """
 
 from __future__ import annotations
@@ -104,6 +112,12 @@ _KERNEL_WRAPPERS = {"dense_relu_inference": "kernel.dense_relu",
                     "quant_dense": "kernel.quant_dense",
                     "mlp_megakernel": "kernel.mlp_megakernel"}
 _KEY_COMPONENTS = ("model", "infer_dtype", "bucket")
+# the training audit: each model's preset optimizer and rate (configs 1
+# and 2), and JAX's canonical geometry (a device-resident set of
+# TRAIN_N packed rows, one index block of TRAIN_BATCH, one step a call)
+TRAIN_PRESETS = {"mlp": ("sgd", 0.1), "lenet": ("adam", 1e-3)}
+TRAIN_N, TRAIN_BATCH = 2048, 512
+TRAIN_LABEL = "train"
 
 
 def snapshot_path() -> str:
@@ -335,7 +349,8 @@ class _Recording:
     """One forward's record: the canonical op lines and the hazards seen
     (TX003/TX004), fed by the dispatch mode and the kernel wrappers."""
 
-    def __init__(self, known, device_type: str, staging=()):
+    def __init__(self, known, device_type: str, staging=(),
+                 host_scalars_ok: bool = False):
         self.lines: list = []
         self.hazards: list = []        # (rule, message)
         self.known = {id(t) for t in known}
@@ -345,11 +360,28 @@ class _Recording:
         self.staging = {id(t) for t in staging}
         self.known |= self.staging
         self.device_type = device_type
+        # a training step's host scalars: torch's non-capturable Adam
+        # keeps its step counts on the host and lifts its increment with
+        # torch.tensor each step; a 0-d CPU tensor reaches a CUDA kernel
+        # as a value, never as a copy
+        self.host_scalars_ok = host_scalars_ok
         self.suspended = 0
+
+    def host_scalar(self, t) -> bool:
+        return (self.host_scalars_ok and t.dim() == 0
+                and t.device.type == "cpu")
 
     def note(self, name: str, args, kwargs, out) -> None:
         ins = _tensors((args, kwargs))
+        if (name == "aten::_local_scalar_dense"
+                and any(t.device.type != "cpu" for t in ins)):
+            self.hazards.append((
+                "TX003", f"{name} reads a value back from the "
+                f"{self.device_type} (a device->host sync)"))
         for t in ins:
+            if id(t) not in self.known and self.host_scalar(t):
+                self.known.add(id(t))
+                self._keep.append(t)
             if id(t) not in self.known:
                 self.hazards.append((
                     "TX003",
@@ -389,9 +421,12 @@ def _dispatch_mode(rec: _Recording):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
             out = func(*args, **kwargs)
-            if not rec.suspended:
-                name = func.name()
-                if name.startswith("aten::lift_fresh"):
+            name = func.name()
+            # the optimizer's profiler ranges carry no computation (and
+            # print an address)
+            if not rec.suspended and not name.startswith("profiler::"):
+                if (name.startswith("aten::lift_fresh")
+                        and not rec.host_scalar(args[0])):
                     rec.hazards.append((
                         "TX003", "a tensor made from host data inside "
                         "the forward (torch.tensor -> lift_fresh)"))
@@ -515,7 +550,7 @@ def fingerprint_set_hash(fps: dict) -> str:
 
 
 def build_engine(model: str, infer_dtype: str, buckets: Sequence[int],
-                 device="cpu"):
+                 device):
     """A real InferenceEngine of this (model, dtype, ladder) over the
     seed-0 fresh-init weights (fingerprints never depend on values)."""
     from distributedmnist_tpu_torch import models
@@ -526,7 +561,7 @@ def build_engine(model: str, infer_dtype: str, buckets: Sequence[int],
                            infer_dtype=infer_dtype, buckets=buckets)
 
 
-def audit_target(target: AuditTarget, device="cpu") -> dict:
+def audit_target(target: AuditTarget, device) -> dict:
     """The audit of one deployment shape: record every (dtype, rung)
     forward through a real engine, scan and fingerprint it, and cross-
     check the reachable key universe against the warmup-derived one."""
@@ -571,6 +606,67 @@ def audit_target(target: AuditTarget, device="cpu") -> dict:
     }
 
 
+# -- the training step -----------------------------------------------------
+
+
+def train_step_key(model: str) -> str:
+    opt = TRAIN_PRESETS[model][0]
+    return f"{model}/train/{opt}/packed-b{TRAIN_BATCH}x1"
+
+
+def record_train_step(model_name: str, device) -> _Recording:
+    """Record one call of trainer.make_train_step for `model_name` with
+    its preset optimizer: a fresh model (seed-0 init) and optimizer at a
+    constant rate, the first step, packed pixels, float32 with TF32 off,
+    as fit runs it. Its forward, backward and optimizer update are
+    recorded; the set, its labels and the index block are the step's
+    inputs, the parameters its state."""
+    import torch
+
+    from distributedmnist_tpu_torch import models, optim, trainer
+    from distributedmnist_tpu_torch.utils.device import float32_numerics
+
+    opt, lr = TRAIN_PRESETS[model_name]
+    device = torch.device(device)
+    model = models.build(model_name, device=device)
+    model.load_state_dict(models.init_params(model_name, seed=0))
+    optimizer, scheduler = optim.build(opt, model.parameters(),
+                                       optim.make_schedule(lr), flat=True)
+    step = trainer.make_train_step(model, optimizer, scheduler, "packed")
+    train_x = torch.zeros((TRAIN_N, 196), dtype=torch.int32, device=device)
+    train_y = torch.zeros((TRAIN_N,), dtype=torch.int64, device=device)
+    idx = torch.zeros((TRAIN_BATCH,), dtype=torch.int64, device=device)
+    rec = _Recording(list(model.parameters()) + [train_x, train_y, idx],
+                     device.type, host_scalars_ok=True)
+    with float32_numerics(), _kernels_as_ops(rec), _dispatch_mode(rec):
+        step(train_x, train_y, idx)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return rec
+
+
+def train_step_fingerprints(device) -> tuple:
+    """({key: fp}, findings): the training steps configs 1 and 2 run —
+    the MLP with SGD, LeNet-5 with Adam — recorded at JAX's canonical
+    geometry under jaxcheck's keys, so a training-step edit shows up in
+    the snapshot gate exactly like a served forward's."""
+    fps: dict = {}
+    findings: list = []
+    for model_name in TRAIN_PRESETS:
+        k = train_step_key(model_name)
+        try:
+            fp, fnd = audit_recording(record_train_step(model_name, device),
+                                      k)
+        except Exception as e:
+            findings.append(Finding(
+                "TX003", k, "recording the train step failed: "
+                f"{type(e).__name__}: {e}"))
+            continue
+        fps[k] = fp
+        findings.extend(fnd)
+    return fps, findings
+
+
 # -- snapshot gate ---------------------------------------------------------
 
 
@@ -599,7 +695,7 @@ def diff_fingerprints(current: dict, snapshot: dict) -> list:
     for k in sorted(set(current) - set(snapshot)):
         findings.append(Finding(
             "TX005", k,
-            "new serving key not in the snapshot"
+            "new key not in the snapshot"
             + _describe_key_delta(k, sorted(snapshot))
             + " — regenerate with --update-snapshots --reason '...'"))
     for k in sorted(set(snapshot) - set(current)):
@@ -643,13 +739,16 @@ def write_snapshot(all_fps: dict, reason: str,
 # -- the whole audit -------------------------------------------------------
 
 
-def run_audit(targets: Optional[list] = None, snapshot: str = "compare",
-              snapshot_file: Optional[str] = None, partial: bool = False,
-              device="cpu") -> dict:
-    """The full gate pass. `snapshot` in {'compare', 'skip'}: a missing
-    snapshot file is a warning (first bootstrap); a present one that
-    diverges is TX005 findings. `partial` marks a deliberately narrowed
-    audit (a --models subset): snapshot labels it never produced are
+def run_audit(targets: Optional[list], device, with_train: bool = True,
+              snapshot: str = "compare",
+              snapshot_file: Optional[str] = None,
+              partial: bool = False) -> dict:
+    """The full gate pass on `device`. `targets` None audits
+    default_targets(); `with_train` adds the training steps under the
+    `train` label. `snapshot` in {'compare', 'skip'}: a missing snapshot
+    file is a warning (first bootstrap); a present one that diverges is
+    TX005 findings. `partial` marks a deliberately narrowed audit (a
+    --models subset, --no-train): snapshot labels it never produced are
     then skipped instead of read as removed keys."""
     import torch
 
@@ -657,6 +756,10 @@ def run_audit(targets: Optional[list] = None, snapshot: str = "compare",
     per_target = [audit_target(t, device=device) for t in targets]
     findings = [f for r in per_target for f in r["findings"]]
     all_fps = {r["label"]: r["fingerprints"] for r in per_target}
+    if with_train:
+        train_fps, train_findings = train_step_fingerprints(device)
+        all_fps[TRAIN_LABEL] = train_fps
+        findings.extend(train_findings)
     warnings: list = []
     if snapshot == "compare":
         snap = load_snapshot(snapshot_file)
@@ -702,7 +805,8 @@ def compile_surface_summary(model: str, buckets: Sequence[int],
 
     r = audit_target(AuditTarget(
         model=model, serve_max_batch=max_batch,
-        serve_infer_dtype=infer_dtype, buckets=tuple(buckets)))
+        serve_infer_dtype=infer_dtype, buckets=tuple(buckets)),
+        device="cpu")
     return {
         "static_keys": r["static_keys"],
         "fingerprint_set_hash": fingerprint_set_hash(r["fingerprints"]),
@@ -727,14 +831,16 @@ def main(argv=None) -> int:
                     "0 clean, 1 findings, 2 internal error.")
     p.add_argument("--models", default="mlp,lenet",
                    help="comma-separated models to audit (default both)")
-    p.add_argument("--device", default="cpu",
-                   help="where the forwards run (default cpu: the "
-                        "snapshot's basis, an audit of the served op "
-                        "sequences rather than a run on the card; cuda "
-                        "audits the card's engines against the same "
-                        "snapshot)")
+    p.add_argument("--device", default="cuda",
+                   help="where the forwards and train steps run "
+                        "(default cuda: the card's engines and steps "
+                        "against the committed snapshot; cpu is the "
+                        "snapshot's basis, the one --update-snapshots "
+                        "writes from)")
     p.add_argument("--list-rules", action="store_true",
                    help="print the TX rule table and exit")
+    p.add_argument("--no-train", action="store_true",
+                   help="skip the training-step fingerprints")
     p.add_argument("--no-snapshot", action="store_true",
                    help="skip the fingerprint snapshot gate")
     p.add_argument("--update-snapshots", action="store_true",
@@ -757,19 +863,28 @@ def main(argv=None) -> int:
               "the silent drift the gate exists to catch",
               file=sys.stderr)
         return 2
+    if args.update_snapshots and args.device != "cpu":
+        print("torchcheck: --update-snapshots requires --device cpu — the "
+              "snapshot's basis; the card's fingerprints are held to it, "
+              "never written into it", file=sys.stderr)
+        return 2
     models = [m.strip() for m in args.models.split(",") if m.strip()]
     unknown = [m for m in models if m not in ("mlp", "lenet")]
     if unknown:
         print(f"torchcheck: unknown model(s) {unknown}", file=sys.stderr)
         return 2
     targets = [t for t in default_targets() if t.model in models]
-    partial = set(models) != {"mlp", "lenet"}
-    try:
-        from distributedmnist_tpu_torch.utils.device import resolve_device
+    partial = args.no_train or set(models) != {"mlp", "lenet"}
+    from distributedmnist_tpu_torch.utils.device import resolve_device
 
+    try:
         device = resolve_device(args.device)
+    except (RuntimeError, ValueError) as e:
+        print(f"torchcheck: {e}", file=sys.stderr)
+        return 2
+    try:
         report = run_audit(
-            targets, partial=partial, device=device,
+            targets, device, with_train=not args.no_train, partial=partial,
             snapshot="skip" if (args.no_snapshot
                                 or args.update_snapshots) else "compare")
     except Exception as e:     # a broken auditor must never read clean
@@ -792,9 +907,11 @@ def main(argv=None) -> int:
     for f in sorted(report["findings"], key=lambda f: (f.rule, f.key)):
         print(f.format())
     n = len(report["findings"])
+    n_train = len(report["fingerprints"].get(TRAIN_LABEL, {}))
     print(f"torchcheck: {len(report['targets'])} target(s) on "
           f"{report['device']}, {report['static_keys_total']} static "
-          f"keys / {report['warmed_keys_total']} warmed, fingerprint "
+          f"keys / {report['warmed_keys_total']} warmed, {n_train} train "
+          f"step(s), fingerprint "
           f"set {report['fingerprint_set_hash']} — "
           f"{'CLOSED, 0 findings' if n == 0 else f'{n} finding(s)'}",
           file=sys.stderr)

@@ -90,11 +90,12 @@ def _pump(stream, out, prefix: str, tail: collections.deque,
     stream.close()
 
 
-def launch(argv: list[str], n: int) -> int:
-    """Run `argv` as ranks 0..n-1 and wait for all of them. Returns 0 when
-    every rank exits 0, 1 when one fails (the rest are killed). After a
-    forwarded SIGTERM that ended the ranks by that signal, re-delivers it
-    to this process once their output is through."""
+def launch(argv: list[str], n: int, cwd: Optional[str] = None) -> int:
+    """Run `argv` as ranks 0..n-1 (in directory `cwd`, default this
+    process's) and wait for all of them. Returns 0 when every rank exits
+    0, 1 when one fails (the rest are killed). After a forwarded SIGTERM
+    that ended the ranks by that signal, re-delivers it to this process
+    once their output is through."""
     port = free_port()
     lock = threading.Lock()
     procs, tails, pumps = [], [], []
@@ -104,7 +105,7 @@ def launch(argv: list[str], n: int) -> int:
                    LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(n))
         env.setdefault("OMP_NUM_THREADS", "1")
         proc = subprocess.Popen(argv, env=env, stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True)
+                                stderr=subprocess.PIPE, text=True, cwd=cwd)
         tail: collections.deque = collections.deque(maxlen=TAIL_LINES)
         for stream, out, prefix in (
                 (proc.stdout, sys.stdout if r == 0 else None, ""),

@@ -71,7 +71,7 @@ def test_dtype_universe_refuses_an_unknown_setting_like_jaxcheck():
 
 def test_small_audit_is_closed_with_one_fingerprint_a_key():
     r = tc.audit_target(tc.AuditTarget(model="mlp", serve_max_batch=16,
-                                       buckets=(8, 16)))
+                                       buckets=(8, 16)), device="cpu")
     assert r["findings"] == []
     assert r["infer_dtypes"] == ["float32", "bfloat16", "int8",
                                  "megakernel"]
@@ -80,20 +80,22 @@ def test_small_audit_is_closed_with_one_fingerprint_a_key():
     assert len(r["fingerprints"]) == 12
     assert "mlp/int8/b8-row" in r["fingerprints"]
     lenet = tc.audit_target(tc.AuditTarget(model="lenet",
-                                           serve_max_batch=4))
+                                           serve_max_batch=4), device="cpu")
     assert "megakernel" not in lenet["infer_dtypes"]
     assert lenet["findings"] == []
 
 
 def test_fingerprints_are_stable_and_key_sensitive():
-    a = tc.audit_target(tc.AuditTarget(model="mlp", serve_max_batch=4))
-    b = tc.audit_target(tc.AuditTarget(model="mlp", serve_max_batch=4))
+    a = tc.audit_target(tc.AuditTarget(model="mlp", serve_max_batch=4),
+                        device="cpu")
+    b = tc.audit_target(tc.AuditTarget(model="mlp", serve_max_batch=4),
+                        device="cpu")
     assert a["fingerprints"] == b["fingerprints"]
     fps = a["fingerprints"]
     assert fps["mlp/float32/b1"] != fps["mlp/float32/b2"]
     assert fps["mlp/float32/b4"] != fps["mlp/int8/b4"]
     # each kernel wrapper is one op named after its kernel
-    eng = tc.build_engine("mlp", "int8", (4,))
+    eng = tc.build_engine("mlp", "int8", (4,), "cpu")
     lines = tc.record_forward(eng, 4).lines
     assert sum(ln.startswith("kernel.quant_dense(") for ln in lines) == 2
     # ... whose plain version's float64 accumulator is not recorded
@@ -112,7 +114,8 @@ def test_planted_warmup_that_skips_a_rung_is_tx001(monkeypatch):
             self.buckets = full
 
     monkeypatch.setattr(tengine.InferenceEngine, "warmup", skipping)
-    r = tc.audit_target(tc.AuditTarget(model="mlp", serve_max_batch=8))
+    r = tc.audit_target(tc.AuditTarget(model="mlp", serve_max_batch=8),
+                        device="cpu")
     assert {f.rule for f in r["findings"]} == {"TX001"}
     assert all(f.key.endswith("/b8") for f in r["findings"])
     assert len(r["findings"]) == len(r["infer_dtypes"])
@@ -120,13 +123,13 @@ def test_planted_warmup_that_skips_a_rung_is_tx001(monkeypatch):
 
 def test_planted_dead_rung_is_tx002():
     r = tc.audit_target(tc.AuditTarget(model="mlp", serve_max_batch=8,
-                                       buckets=(4, 8, 64)))
+                                       buckets=(4, 8, 64)), device="cpu")
     assert {f.rule for f in r["findings"]} == {"TX002"}
     assert all(f.key.endswith("/b64") for f in r["findings"])
 
 
 def _planted(forward):
-    eng = tc.build_engine("mlp", "float32", (4,))
+    eng = tc.build_engine("mlp", "float32", (4,), "cpu")
     eng._forward = forward
     return tc.audit_recording(tc.record_forward(eng, 4), "mlp/planted/b4")
 
@@ -164,12 +167,14 @@ def test_planted_float64_is_tx004():
 def test_planted_forward_edit_is_tx005_against_the_snapshot(tmp_path):
     target = tc.AuditTarget(model="mlp", serve_max_batch=2)
     snap = tmp_path / "snap.json"
-    report = tc.run_audit([target], snapshot="skip")
+    report = tc.run_audit([target], "cpu", with_train=False,
+                          snapshot="skip")
     tc.write_snapshot(report["fingerprints"], "test", path=str(snap))
-    assert tc.run_audit([target], snapshot_file=str(snap))["closed"]
+    assert tc.run_audit([target], "cpu", with_train=False,
+                        snapshot_file=str(snap))["closed"]
     real = tc.build_engine
 
-    def edited(model, infer_dtype, buckets, device="cpu"):
+    def edited(model, infer_dtype, buckets, device):
         eng = real(model, infer_dtype, buckets, device)
         fwd = eng._forward
         eng._forward = lambda x: torch.relu(fwd(x))
@@ -177,7 +182,8 @@ def test_planted_forward_edit_is_tx005_against_the_snapshot(tmp_path):
 
     tc.build_engine = edited
     try:
-        r = tc.run_audit([target], snapshot_file=str(snap))
+        r = tc.run_audit([target], "cpu", with_train=False,
+                         snapshot_file=str(snap))
     finally:
         tc.build_engine = real
     assert {f.rule for f in r["findings"]} == {"TX005"}
@@ -204,7 +210,8 @@ def test_compile_surface_summary_is_stable_and_geometry_sensitive():
 def test_cli_exits_0_at_head_against_the_committed_snapshot():
     assert tc.load_snapshot() is not None
     r = subprocess.run([sys.executable, "-m",
-                        "distributedmnist_tpu_torch.analysis.torchcheck"],
+                        "distributedmnist_tpu_torch.analysis.torchcheck",
+                        "--device", "cpu"],
                        capture_output=True, text=True, timeout=300,
                        cwd=REPO)
     assert r.returncode == 0, r.stdout + r.stderr
@@ -214,3 +221,61 @@ def test_cli_exits_0_at_head_against_the_committed_snapshot():
                          "--update-snapshots"], capture_output=True,
                         text=True, timeout=120, cwd=REPO)
     assert r2.returncode == 2 and "--reason" in r2.stderr
+
+
+# -- the training step (jaxcheck's train_step_fingerprints) ---------------
+
+
+def test_train_fingerprints_are_stable_under_jaxchecks_keys():
+    a, fa = tc.train_step_fingerprints("cpu")
+    b, fb = tc.train_step_fingerprints("cpu")
+    assert fa == fb == []
+    assert a == b
+    assert set(a) == set(jc.load_snapshot()["fingerprints"]["train"])
+    snap = tc.load_snapshot()["fingerprints"]
+    assert snap[tc.TRAIN_LABEL] == a
+    # the MLP's hidden layer is the dense_relu kernel, forward recorded
+    # as one op; its plain-matmul backward and the update are aten ops
+    lines = tc.record_train_step("mlp", "cpu").lines
+    assert sum(ln.startswith("kernel.dense_relu(") for ln in lines) == 1
+    assert any(ln.startswith("aten::_foreach_add_") for ln in lines)
+    assert not any(ln.startswith("profiler::") for ln in lines)
+
+
+def test_planted_extra_op_in_the_train_step_is_tx005(monkeypatch):
+    from distributedmnist_tpu_torch import trainer
+
+    real = trainer.make_train_step
+
+    def edited(*args, **kwargs):
+        step = real(*args, **kwargs)
+        return lambda x, y, idx: step(x, y, idx) * 1.0
+
+    monkeypatch.setattr(trainer, "make_train_step", edited)
+    r = tc.run_audit([], "cpu", partial=True)
+    assert {(f.rule, f.key) for f in r["findings"]} == {
+        ("TX005", tc.train_step_key(m)) for m in tc.TRAIN_PRESETS}
+    assert all("changed (fingerprint" in f.message for f in r["findings"])
+
+
+def test_no_train_skips_the_train_label_without_reading_it_removed(capsys):
+    assert tc.main(["--device", "cpu", "--no-train"]) == 0
+    err = capsys.readouterr().err
+    assert "0 train step(s)" in err and "CLOSED, 0 findings" in err
+    # the full audit without the train label reads it as removed
+    r = tc.run_audit(None, "cpu", with_train=False)
+    assert {f.key for f in r["findings"]} == {
+        tc.train_step_key(m) for m in tc.TRAIN_PRESETS}
+    assert all("no longer produced" in f.message for f in r["findings"])
+
+
+def test_bare_cli_without_a_card_exits_nonzero_and_names_device_cpu():
+    assert not torch.cuda.is_available()
+    r = subprocess.run([sys.executable, "-m",
+                        "distributedmnist_tpu_torch.analysis.torchcheck"],
+                       capture_output=True, text=True, timeout=120,
+                       cwd=REPO)
+    assert r.returncode == 2 and "--device cpu" in r.stderr, r.stderr
+    with pytest.raises(TypeError):
+        tc.run_audit(None)          # no device default
+    assert tc.main(["--update-snapshots", "--reason", "x"]) == 2

@@ -29,8 +29,12 @@ bound held. Then the gateway: two int8 workers of the serve CLI behind
 `--gateway 2`, every answer the argmax of an in-process int8 router's
 logits for the same rows, no CUDA context in the gateway; and the
 autoscaler's WindowActuator stepping a batcher over the card's engines
-with nothing built after warmup. Every test is marked `gpu` and skips
-without a card.
+with nothing built after warmup. Last, the gate entry points: the
+multichip dry run's every leg on the card (serve-reload and dp:2proc
+launching dense_relu), the training steps' fingerprints on the card
+equal to the CPU snapshot's, and one calibration point whose accuracies
+on the card are within 0.01 of the CPU's in the same call. Every test
+is marked `gpu` and skips without a card.
 
 This file imports no jax (the card's machine has none), and
 tests/conftest.py does, so on the card run it without the conftest:
@@ -1141,3 +1145,51 @@ def test_window_actuator_steps_a_card_batcher_without_builds():
     finally:
         b.stop()
     assert kernel_lib.load_events() + factory.engine_builds == steady
+
+
+@pytest.mark.gpu
+def test_dryrun_multichip_2_on_the_card():
+    """Every leg of the multichip dry run on the card: 2 ranks sharing
+    it over gloo (or a card each over NCCL), serve-reload's float32 MLP
+    engines launching dense_relu."""
+    _need_card()
+    from distributedmnist_tpu_torch import dryrun
+
+    rec = dryrun.dryrun_multichip(2)
+    assert rec["legs"] == dryrun.dryrun_legs(2)
+    assert rec["launches"]["serve-reload"]["dense_relu"] > 0
+    assert rec["launches"]["dp:2proc"]["dense_relu"] > 0
+
+
+@pytest.mark.gpu
+def test_train_fingerprints_on_the_card_equal_the_snapshot():
+    """The training steps recorded on the card (dense_relu.cu, cuDNN's
+    convolutions, the foreach updates) give the CPU snapshot's
+    fingerprints, with no transfer, float64 or sync finding."""
+    _need_card()
+    from distributedmnist_tpu_torch.analysis import torchcheck as tc
+
+    fps, findings = tc.train_step_fingerprints("cuda")
+    assert [f.format() for f in findings] == []
+    assert fps == tc.load_snapshot()["fingerprints"][tc.TRAIN_LABEL]
+
+
+@pytest.mark.gpu
+def test_calibration_point_on_the_card_matches_the_cpu():
+    """One calibration point (the set's own 0.44:3, cut to 8,192 train
+    images and 2 epochs) on the card and on the CPU in the same call:
+    each model's test accuracy within 0.01, the MLP fits launching
+    dense_relu."""
+    _need_card()
+    from distributedmnist_tpu_torch import calibrate_synthetic as cal
+
+    def point(device):
+        return cal.calibrate([(0.44, 3)], ["mlp", "lenet"], 2, 8192, 2048,
+                             device)[0]["accuracy"]
+
+    before = fused.LAUNCHES["dense_relu"]
+    card = point("cuda")
+    assert fused.LAUNCHES["dense_relu"] > before
+    cpu = point("cpu")
+    for model in ("mlp", "lenet"):
+        assert abs(card[model] - cpu[model]) <= 0.01, (card, cpu)

@@ -625,7 +625,9 @@ def test_new_modules_import_no_jax():
             "distributedmnist_tpu_torch.allreduce_bw",
             "distributedmnist_tpu_torch.trainer",
             "distributedmnist_tpu_torch.bench",
-            "distributedmnist_tpu_torch.train"]
+            "distributedmnist_tpu_torch.train",
+            "distributedmnist_tpu_torch.dryrun",
+            "distributedmnist_tpu_torch.calibrate_synthetic"]
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
