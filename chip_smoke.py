@@ -258,7 +258,6 @@ nonzero and prints no result.
 
 from __future__ import annotations
 
-import contextlib
 import itertools
 import json
 import os
@@ -951,7 +950,7 @@ def compare_training_step(data) -> dict:
     from distributedmnist_tpu_torch.data import DeviceDataset, IndexStream
     from distributedmnist_tpu_torch.models.mlp import MLP
     from distributedmnist_tpu_torch.ops import fused
-    from distributedmnist_tpu_torch.utils.device import float32_numerics
+    from distributedmnist_tpu_torch.utils.device import training_numerics
 
     class PlainMLP(MLP):
         def forward(self, x):
@@ -966,7 +965,7 @@ def compare_training_step(data) -> dict:
     idx = IndexStream(ds.train_n, cfg.batch_size, cfg.seed).next_block(
         COMPARE_STEPS, dev)
     runs = {}
-    with float32_numerics():
+    with training_numerics():
         for name, net in (("kernel", models.build("mlp", device=dev)),
                           ("plain", PlainMLP(device=dev))):
             net.load_state_dict(models.init_params("mlp", cfg.seed))
@@ -995,19 +994,6 @@ def compare_training_step(data) -> dict:
         raise RuntimeError(f"{COMPARE_STEPS} steps did not lower the "
                            f"loss: {rec}")
     return rec
-
-
-@contextlib.contextmanager
-def deterministic_cudnn():
-    """cuDNN's deterministic algorithms for the block."""
-    import torch
-
-    prev = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = prev
 
 
 def lenet_recipe(checkpoint_dir: str):
@@ -1045,9 +1031,7 @@ def drive_training_path(data, lenet_data, lenet_checkpoint_dir) -> dict:
     phases = {}
     for name, (cfg, recipe_data) in recipes.items():
         before = fused.LAUNCHES["dense_relu"]
-        with (deterministic_cudnn() if cfg.model == "lenet"
-              else contextlib.nullcontext()):
-            out = trainer.fit(cfg, data=recipe_data)
+        out = trainer.fit(cfg, data=recipe_data)
         launched = fused.LAUNCHES["dense_relu"] - before
         keep = ("images_per_sec", "step_ms", "test_accuracy",
                 "wall_clock_s", "elapsed_s", "steps_timed", "steps",
@@ -1561,8 +1545,7 @@ def drive_rest_of_training(card: str, data: dict) -> tuple[dict, dict]:
             seed=SEED, target_accuracy=None, device="cuda",
             data_pipeline=pipe, steps_per_call=100, log_every=100)
         mlog = MetricsLogger()
-        with deterministic_cudnn():
-            out = trainer.fit(cfg, data=data, log=mlog)
+        out = trainer.fit(cfg, data=data, log=mlog)
         losses[pipe] = [r["loss"] for r in mlog.history if "loss" in r]
         phases[f"lenet-adam_{pipe}"] = _fit_record(f"lenet-adam {pipe}",
                                                    out, 0)
@@ -1831,8 +1814,7 @@ def drive_lenet_serving_path(checkpoint_dir: str, lenet_data) -> dict:
         # loads and promotes it, then rolls back from it
         more = lenet_recipe(checkpoint_dir).replace(
             steps=TRAIN_STEPS["lenet-adam"] + LIFECYCLE_STEPS)
-        with deterministic_cudnn():
-            trained = trainer.fit(more, data=lenet_data)
+        trained = trainer.fit(more, data=lenet_data)
         second = registry.load_latest()
         if second.step != more.steps or second.version == first.version:
             raise RuntimeError(f"load_latest did not load step "

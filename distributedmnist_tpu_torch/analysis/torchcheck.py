@@ -617,14 +617,14 @@ def train_step_key(model: str) -> str:
 def record_train_step(model_name: str, device) -> _Recording:
     """Record one call of trainer.make_train_step for `model_name` with
     its preset optimizer: a fresh model (seed-0 init) and optimizer at a
-    constant rate, the first step, packed pixels, float32 with TF32 off,
-    as fit runs it. Its forward, backward and optimizer update are
+    constant rate, the first step, packed pixels, in fit's numerics
+    (float32 with TF32 off, cuDNN's deterministic algorithms). Its forward, backward and optimizer update are
     recorded; the set, its labels and the index block are the step's
     inputs, the parameters its state."""
     import torch
 
     from distributedmnist_tpu_torch import models, optim, trainer
-    from distributedmnist_tpu_torch.utils.device import float32_numerics
+    from distributedmnist_tpu_torch.utils.device import training_numerics
 
     opt, lr = TRAIN_PRESETS[model_name]
     device = torch.device(device)
@@ -638,7 +638,7 @@ def record_train_step(model_name: str, device) -> _Recording:
     idx = torch.zeros((TRAIN_BATCH,), dtype=torch.int64, device=device)
     rec = _Recording(list(model.parameters()) + [train_x, train_y, idx],
                      device.type, host_scalars_ok=True)
-    with float32_numerics(), _kernels_as_ops(rec), _dispatch_mode(rec):
+    with training_numerics(), _kernels_as_ops(rec), _dispatch_mode(rec):
         step(train_x, train_y, idx)
     if device.type == "cuda":
         torch.cuda.synchronize(device)

@@ -675,7 +675,7 @@ class _Runner:
         import torch
 
         from distributedmnist_tpu_torch.utils import StepTimer
-        from distributedmnist_tpu_torch.utils.device import float32_numerics
+        from distributedmnist_tpu_torch.utils.device import training_numerics
 
         if args.steps_per_call is not None:
             spc = max(1, args.steps_per_call)
@@ -713,7 +713,7 @@ class _Runner:
                    else (1 if self.on_cpu else 3))
         windows = []
         n_run = 0
-        with float32_numerics():
+        with training_numerics():
             run_block = self.stepper(gb)
             _mark(f"b={gb}: warmup, spc={spc}")
             run(run_block, args.warmup_steps)
@@ -2465,7 +2465,11 @@ def _serve_chaos_leg(registry, router, factory, metrics, make_batcher,
             "rescued_exactly": kill_fires > 0 and n_replica == 0,
             "failovers": dict(snap["fleet"]["failovers"]),
             "replica_trips": snap["fleet"]["replica_trips"],
-            "fleet_after": fleet.snapshot(),
+            # the fleet's snapshot, and the replica failures its hedge
+            # races absorbed: a kill fire that lands in a race is
+            # rescued without a failover
+            "fleet_after": {**fleet.snapshot(),
+                            "hedge_absorbed": fleet.hedge_absorbed()},
         }
     _mark(f"chaos: {n} requests — {n_ok} ok, {n_poison} poison culprits "
           f"(unique {len(poisoned)}, exact isolation "

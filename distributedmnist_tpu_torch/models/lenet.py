@@ -11,7 +11,8 @@ fc1 its rows in another order.
 
 Float32 means float32 on the card too: cuDNN runs a float32
 convolution in TF32 unless told otherwise, so the trainer runs with
-TF32 off for convolutions and matmuls (utils/device.float32_numerics).
+TF32 off for convolutions and matmuls, and with cuDNN's deterministic
+algorithms (utils/device.training_numerics).
 The dense layers are plain matmuls, as in the JAX model (nn.Dense, no
 Pallas kernel). Parameters are float32 whatever the compute dtype: the
 convolutions and dense layers compute in `dtype`, as flax's

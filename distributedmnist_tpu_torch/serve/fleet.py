@@ -191,6 +191,9 @@ class ReplicaSet:
         self._failovers_fetch = 0
         self._hedges = 0
         self._hedge_wins = 0
+        # replica failures a hedge race absorbed (the arm failed, its
+        # twin answered): neither a failover nor a client's error
+        self._hedge_absorbed: dict = {}
         self._replica_trips = 0
 
     # engine-shape parity (the Router borrows the same two)
@@ -533,10 +536,20 @@ class ReplicaSet:
         cv = make_condition("fleet.hedge")
         results: dict = {}            # tag -> (ok, value), arrival order
         winner: dict = {}             # the hedge span's winner tag
+        arm_rid = {"primary": rep.rid, "hedge": sib.rid}
+
+        def absorbed(tag):
+            # caller holds cv: a failed arm of a race that answered
+            with self._cond:
+                rid = arm_rid[tag]
+                self._hedge_absorbed[rid] = (
+                    self._hedge_absorbed.get(rid, 0) + 1)
 
         def finish(tag, ok, value):
             with cv:
                 results[tag] = (ok, value)
+                if not ok and "who" in winner:
+                    absorbed(tag)     # the loser failed after the answer
                 cv.notify_all()
 
         # the arms run on threads of their own, so they take an explicit
@@ -609,6 +622,9 @@ class ReplicaSet:
                         if ok:
                             hedge_won = tag == "hedge"
                             winner["who"] = tag
+                            for lost, (lost_ok, _) in results.items():
+                                if not lost_ok:
+                                    absorbed(lost)
                             if hedge_won:
                                 with self._cond:
                                     self._hedge_wins += 1
@@ -688,6 +704,16 @@ class ReplicaSet:
             "dispatched_rows": rep.dispatched_rows,
             "failures": rep.failures,
         }
+
+    def hedge_absorbed(self) -> dict:
+        """{replica id: failures a hedge race absorbed}: a replica's
+        dispatch or fetch that failed inside a hedge race whose other arm
+        answered. Such a failure is rescued, but counts as neither a
+        failover nor a client's error, so a chaos run's replica kill can
+        leave no failover behind. Kept out of snapshot(), whose keys are
+        the JAX fleet's."""
+        with self._cond:
+            return dict(self._hedge_absorbed)
 
     def snapshot(self) -> dict:
         """The /healthz and /metrics fleet block: per-replica state and

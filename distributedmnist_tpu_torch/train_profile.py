@@ -45,7 +45,7 @@ from distributedmnist_tpu_torch.kernel_profile import card_line
 from distributedmnist_tpu_torch.ops import kernel_lib
 from distributedmnist_tpu_torch.parallel import (distributed, get_device,
                                                  launch)
-from distributedmnist_tpu_torch.utils.device import float32_numerics
+from distributedmnist_tpu_torch.utils.device import training_numerics
 
 WARMUP = 50
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -166,7 +166,7 @@ def main(argv=None) -> int:
         trace_dir = args.trace_dir / f"rank{distributed.process_index()}"
         trace_dir.mkdir(parents=True, exist_ok=True)
         data = synthetic_mnist(seed=0)
-        with float32_numerics():
+        with training_numerics():
             for name in ((args.recipe,) if args.recipe
                          else ("mlp-sgd", "lenet-adam")):
                 print(json.dumps(profile_recipe(name, data, args.steps,

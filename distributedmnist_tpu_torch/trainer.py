@@ -82,8 +82,8 @@ from distributedmnist_tpu_torch.parallel.mesh import (Groups, make_mesh,
                                                       process_groups)
 from distributedmnist_tpu_torch.utils import (MetricsLogger, StepTimer,
                                               round_up)
-from distributedmnist_tpu_torch.utils.device import (float32_numerics,
-                                                     resolve_device)
+from distributedmnist_tpu_torch.utils.device import (resolve_device,
+                                                     training_numerics)
 
 SPMD_MODES = ("auto", "explicit")
 DATA_PIPELINES = ("device", "stream")
@@ -270,14 +270,15 @@ def fit(cfg: Config, data: Optional[dict] = None, *,
     force-saves a resumable checkpoint; the absorbed signal is reported
     as summary["preempted"], not re-delivered. Under data parallelism
     the ranks agree at eval and checkpoint boundaries, so all of them
-    stop at the same step. Float32 runs with TF32 off
-    (utils/device.float32_numerics)."""
+    stop at the same step. Float32 runs with TF32 off, and cuDNN on its
+    deterministic algorithms, so that a run at a seed repeats itself bit
+    for bit on the card (utils/device.training_numerics)."""
     device_type = resolve_device(cfg.device).type
     multihost = distributed.maybe_initialize(
         cfg.coordinator_address, cfg.num_processes, cfg.process_id,
         device_type)
     device = get_device(cfg.device, cfg.num_devices)
-    with float32_numerics():
+    with training_numerics():
         return _fit(cfg, data, device, multihost,
                     log if log is not None else MetricsLogger(), init_params)
 

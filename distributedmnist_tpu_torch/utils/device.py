@@ -26,24 +26,36 @@ def pin_float32_numerics() -> None:
     """Turn TF32 off for matmuls and cuDNN convolutions for the rest of
     the process, so that float32 on the card is float32 as on the CPU.
     For a process whose threads all need float32 at once (a server);
-    a single run of work uses float32_numerics()."""
+    a run of training uses training_numerics()."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
 
 @contextlib.contextmanager
-def float32_numerics():
-    """Run the block with TF32 off for matmuls and cuDNN convolutions, so
-    that float32 on the card is float32 as on the CPU (cuDNN's default
-    is TF32, about three decimal digits), and restore both settings
-    after. The settings are process-wide: a backward pass run inside the
-    block sees them too."""
-    matmul = torch.backends.cuda.matmul.allow_tf32
-    conv = torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def training_numerics():
+    """Run the block as training runs on the card: float32 with TF32 off
+    for matmuls and cuDNN convolutions (cuDNN's default is TF32, about
+    three decimal digits), and cuDNN restricted to its deterministic
+    algorithms with its autotuner off, so that a run at a seed repeats
+    itself bit for bit, as the JAX reference does (cuDNN's fastest
+    weight-gradient algorithms sum with atomics, in an order that
+    changes from run to run). Every setting is restored after the block,
+    on an exception too. (This scope was float32_numerics until it also
+    pinned cuDNN's algorithms.)
+
+    The settings are process-wide: a backward pass run inside the block
+    sees them, and so does any other thread of the process while the
+    block runs (a server's forward convolutions then choose among
+    cuDNN's deterministic algorithms only)."""
+    settings = ((torch.backends.cuda.matmul, "allow_tf32", False),
+                (torch.backends.cudnn, "allow_tf32", False),
+                (torch.backends.cudnn, "deterministic", True),
+                (torch.backends.cudnn, "benchmark", False))
+    saved = [getattr(mod, name) for mod, name, _ in settings]
+    for mod, name, value in settings:
+        setattr(mod, name, value)
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = matmul
-        torch.backends.cudnn.allow_tf32 = conv
+        for (mod, name, _), value in zip(settings, saved):
+            setattr(mod, name, value)

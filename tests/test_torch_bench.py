@@ -330,11 +330,14 @@ def test_serve_zipf_cache_off_and_chaos_through_the_cache():
     assert ch["breaker_trips"] == 1 and d["lowlat"] is None
 
 
-def _fields_hold(rec: dict, checks: dict) -> None:
+def _fields_hold(rec: dict, checks: dict, causes=None) -> None:
     """Assert every named check of a record at once: a failure names
-    each field that failed and dumps the whole record."""
+    each field that failed, what `causes` says of it, and dumps the
+    whole record."""
     failed = [name for name, ok in checks.items() if not ok]
-    assert not failed, (f"failed fields: {failed}\nrecord:\n"
+    why = "".join(f"{name}: {(causes or {})[name]}\n" for name in failed
+                  if name in (causes or {}))
+    assert not failed, (f"failed fields: {failed}\n{why}record:\n"
                         + json.dumps(rec, indent=1, default=str))
 
 
@@ -363,6 +366,8 @@ def test_serve_fleet_record_with_hedge_and_replica_kill():
         root["chaos"]["replica_kill"])
     rep, ch = d["replicas"], d["chaos"]
     fl = rep["fleet_leg"]
+    kill = ch["replica_kill"]
+    absorbed = kill["fleet_after"]["hedge_absorbed"]
     _fields_hold(rec, {
         "replicas.count": rep["count"] == 2,
         "replicas.disjoint_devices": rep["disjoint_devices"] is False,
@@ -388,6 +393,16 @@ def test_serve_fleet_record_with_hedge_and_replica_kill():
             d["trace"]["chaos"]["failover_rescue_ok"] is True,
         "recompiles_after_warmup": d["recompiles_after_warmup"] == 0,
         "n_chips": d["n_chips"] == 1,
+        "chaos.replica_kill.fleet_after.hedge_absorbed":
+            isinstance(absorbed, dict) and all(
+                isinstance(n, int) and n > 0 for n in absorbed.values()),
+    }, causes={
+        "chaos.failovers": (
+            f"a hedge race absorbed {absorbed.get(kill['target'], 0)} of "
+            f"the {kill['fires']} kill fires on {kill['target']} "
+            f"(fleet_after.hedge_absorbed {absorbed}; {ch['hedges']} "
+            f"hedges fired), failover rescued the rest: "
+            f"{ch['failovers']}"),
     })
 
 

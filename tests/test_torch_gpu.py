@@ -70,7 +70,7 @@ from distributedmnist_tpu_torch.data import mnist, packing
 from distributedmnist_tpu_torch.models.mlp import MLP
 from distributedmnist_tpu_torch.ops import fused
 from distributedmnist_tpu_torch.ops.loss import cross_entropy
-from distributedmnist_tpu_torch.utils.device import float32_numerics
+from distributedmnist_tpu_torch.utils.device import training_numerics
 
 K, HIDDEN, CLASSES = 784, 128, 10
 
@@ -353,7 +353,7 @@ def test_mlp_training_step_kernel_against_plain_on_card():
     data = mnist.synthetic_mnist(seed=1, train_n=1024, test_n=16)
     idx = np.random.default_rng(0).integers(0, 1024, (5, 64))
     runs = []
-    with float32_numerics():
+    with training_numerics():
         for net in (models.build("mlp", device="cuda"),
                     _PlainMLP(device="cuda")):
             net.load_state_dict(models.init_params("mlp", 0))
@@ -375,7 +375,7 @@ def test_lenet_training_step_on_card_against_cpu():
     x = packing.unpack_rows(_t(packing.pack_rows(data["train_x"]))[idx[0]])
     y = _t(data["train_y"]).long()[idx[0]]
     grads, runs = [], []
-    with float32_numerics():
+    with training_numerics():
         for dev in ("cuda", "cpu"):
             net = models.build("lenet", device=dev)
             net.load_state_dict(models.init_params("lenet", 0))
@@ -606,7 +606,7 @@ def test_tensor_parallel_ranks_share_the_card(tmp_path, model):
         assert rec["losses"] == recs[0][0]["losses"]
         if model == "mlp":
             assert rec["launches"]["dense_relu"] >= steps + 1
-    with float32_numerics():
+    with training_numerics():
         one = mh_smoke.run(mh_smoke.smoke_config(
             "mlp-dp2", device="cuda", steps=steps, **spec),
             mh_smoke.smoke_data())
@@ -890,8 +890,8 @@ def test_fleet_replicas_on_their_own_cards():
 
 @pytest.mark.gpu
 def test_cascade_on_the_trained_lenet_on_card(tmp_path):
-    """Config 2 trained for its 10 epochs at seed 709 (cuDNN's
-    deterministic algorithms, as chip_smoke.py trains it), served from
+    """Config 2 trained for its 10 epochs at seed 709 (fit runs cuDNN's
+    deterministic algorithms: chip_smoke.py's checkpoint), served from
     its checkpoint with the cascade enabled: the gate passes; `exact` is
     the float32 engine's bytes, `fast` the int8 engine's, `balanced`
     composes the two row by row (an escalated row is the float32
@@ -909,12 +909,7 @@ def test_cascade_on_the_trained_lenet_on_card(tmp_path):
         synthetic=True, steps=4680, eval_every=1000, seed=709,
         target_accuracy=None, device="cuda", checkpoint_dir=str(tmp_path),
         checkpoint_every=4680)
-    prev = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        out = trainer.fit(cfg, data=mnist.synthetic_mnist(seed=709))
-    finally:
-        torch.backends.cudnn.deterministic = prev
+    out = trainer.fit(cfg, data=mnist.synthetic_mnist(seed=709))
     assert out["test_accuracy"] >= 0.98
     metrics = ServeMetrics()
     registry, router, _ = build_serving(Config(
@@ -1193,3 +1188,120 @@ def test_calibration_point_on_the_card_matches_the_cpu():
     cpu = point("cpu")
     for model in ("mlp", "lenet"):
         assert abs(card[model] - cpu[model]) <= 0.01, (card, cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_config2_repeats_itself_bit_for_bit_on_card(tmp_path, dtype):
+    """Config 2 at seed 709 for one epoch (468 steps), fit twice in this
+    process and once in each of two child processes: every logged loss,
+    the test accuracy and every parameter (torch.equal) the same."""
+    _need_card()
+    from torch_repro_util import differences, fit_record, run_child
+
+    data = mnist.synthetic_mnist(seed=709)
+    runs = [fit_record("lenet-adam", steps=468, seed=709, device="cuda",
+                       dtype=dtype, data=data) for _ in range(2)]
+    for i in range(2):
+        out = str(tmp_path / f"child{i}.pt")
+        rc, err = run_child(out, "--dtype", dtype, "--steps", "468",
+                            "--seed", "709")
+        assert rc == 0, err[-3000:]
+        runs.append(torch.load(out))
+    for i, run in enumerate(runs[1:], 1):
+        assert differences(runs[0], run) == [], i
+    assert runs[0]["test_accuracy"] >= 0.9
+    assert all(v.device.type == "cpu" for v in runs[0]["params"].values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("preset", ("mlp-dp2", "lenet-dp8"))
+def test_two_ranks_sharing_the_card_repeat_bit_for_bit(tmp_path, preset):
+    """Config 3's MLP and config 4's LeNet-5 as 2 ranks sharing the card
+    over gloo (each rank its own process, each entering the training
+    scope through fit), launched twice with two fits a launch: every
+    rank's logged losses (a block's last on the card), final loss and
+    test accuracy the same in all four fits."""
+    _need_card()
+    from torch_dp_util import collect, spawn_smoke
+
+    fits = []
+    for launch in range(2):
+        d = tmp_path / f"launch{launch}"
+        d.mkdir()
+        recs, logs = collect(spawn_smoke(
+            2, str(d), [{}, {}],
+            ("--device", "cuda", "--preset", preset, "--steps", "30"),
+            env_extra={"CUDA_VISIBLE_DEVICES": "0"}), 2)
+        assert "dist: backend gloo, 2 ranks on 1 card(s)" in logs[0]
+        fits.extend(rec for rank in recs for rec in rank)
+    assert len(fits) == 8
+    for rec in fits:
+        assert rec["steps"] == 30 and rec["backend"] == "gloo"
+        assert (rec["losses"], rec["final_loss"], rec["test_accuracy"]) \
+            == (fits[0]["losses"], fits[0]["final_loss"],
+                fits[0]["test_accuracy"])
+    assert fits[0]["losses"][-1] == fits[0]["final_loss"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("preset,dtype,pipeline", (
+    ("lenet-adam", "float32", "device"), ("lenet-adam", "bfloat16", "device"),
+    ("lenet-adam", "float32", "stream"), ("lenet-adam", "bfloat16", "stream"),
+    ("mlp-sgd", "float32", "device")))
+def test_training_runs_under_deterministic_algorithms_on_card(
+        tmp_path, preset, dtype, pipeline):
+    """Configs 1 and 2 in a fresh child process that sets
+    CUBLAS_WORKSPACE_CONFIG before torch is imported and calls
+    torch.use_deterministic_algorithms(True): no op of the training path
+    (forward, backward, update, eval) is refused."""
+    _need_card()
+    from torch_repro_util import run_child
+
+    out = str(tmp_path / "run.pt")
+    rc, err = run_child(out, "--preset", preset, "--dtype", dtype,
+                        "--pipeline", pipeline, "--steps", "200",
+                        deterministic_algorithms=True)
+    assert rc == 0, err[-3000:]
+    rec = torch.load(out)
+    assert np.isfinite(rec["final_loss"]) and len(rec["losses"]) >= 1
+
+
+@pytest.mark.gpu
+def test_bench_time_to_accuracy_repeats_its_steps_on_card(capsys):
+    """The bench's time-to-accuracy mode for LeNet-5 at its defaults (3
+    seeds), run twice: the same steps and evals to the target, and the
+    same final accuracy, seed by seed."""
+    _need_card()
+    from distributedmnist_tpu_torch import bench
+
+    runs = []
+    for _ in range(2):
+        assert bench.main(["time-to-accuracy", "--inline"]) == 0
+        rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        d = rec["detail"]
+        runs.append((d["steps_to_target"], d["evals_to_target"],
+                     [(t["seed"], t["steps"], t["reached"],
+                       t["final_accuracy"]) for t in d["trial_results"]]))
+    assert runs[0] == runs[1]
+    assert len(runs[0][2]) == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("infer_dtype", ("float32", "bfloat16", "int8"))
+def test_lenet_serving_is_unmoved_by_the_training_scope_on_card(
+        infer_dtype):
+    """The training scope's settings are process-wide, so a server
+    thread running beside a fit sees them: LeNet-5's serving engine
+    answers the same bytes inside the scope as outside it."""
+    _need_card()
+    from distributedmnist_tpu_torch.serve import InferenceEngine
+
+    eng = InferenceEngine("lenet", models.init_params("lenet", 5),
+                          device="cuda", max_batch=128,
+                          infer_dtype=infer_dtype)
+    x = mnist.synthetic_mnist(seed=5, train_n=16, test_n=128)["test_x"]
+    outside = [eng.infer(x[:b]) for b in (1, 7, 128)]
+    with training_numerics():
+        inside = [eng.infer(x[:b]) for b in (1, 7, 128)]
+    assert [o.tobytes() for o in inside] == [o.tobytes() for o in outside]

@@ -349,6 +349,76 @@ def test_fleet_decisions_equal_jax_on_one_clock(scenario, clock):
     assert ours == ref
 
 
+def _until(fn, timeout=10.0):
+    """Poll fn() until it returns a truthy value; that value."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        got = fn()
+        if got:
+            return got
+        time.sleep(0.005)
+    raise AssertionError(f"condition never held: {fn}")
+
+
+def _hedge_with_a_dead_arm(pkg, clock, dead_arm):
+    """An overdue fetch hedged onto the twin, one arm dying (the primary
+    at fetch, or the duplicate at dispatch) and the other answering:
+    (the fleet, the dead replica's id, [the answer right, failovers,
+    the snapshot once the dead arm's failure is recorded])."""
+    fleet, routers = _fleet(pkg, n=2, hedge=True, hedge_factor=1.0)
+    x = _req(1, 5)
+    h = fleet.dispatch(x)
+    primary = next(r for r in routers if r.replica == h.replica)
+    twin = next(r for r in routers if r is not primary)
+    if dead_arm == "primary":
+        dead, primary.fail_fetch = primary, True
+    else:
+        dead, twin.fail_dispatch = twin, True
+    clock.t += 0.01                  # past bucket 8's 3 ms p95
+    out = fleet.fetch(h)
+    snap = _until(lambda: next(
+        (s for s in [fleet.snapshot()]
+         if all(r["inflight"] == 0 for r in s["replicas"])
+         and sum(r["failures"] for r in s["replicas"]) == 1), None))
+    return fleet, dead.replica, [
+        out.tobytes() == x.reshape(5, -1)[:, :10].astype(
+            np.float32).tobytes(),
+        snap["failovers"], snap]
+
+
+@pytest.mark.parametrize("dead_arm", ("primary", "duplicate"))
+def test_hedge_absorbed_counts_the_dead_arm_of_an_answered_race(
+        clock, dead_arm):
+    """A replica failure inside a hedge race whose other arm answered is
+    neither a failover nor a client's error: the port counts it by
+    replica in hedge_absorbed() (what the bench's replica kill reports),
+    and its snapshot stays JAX's."""
+    (_, _, ref), (fleet, dead, ours) = [
+        _hedge_with_a_dead_arm(pkg, clock, dead_arm)
+        for pkg in PKGS.values()]
+    assert ours == ref
+    assert ours[0] is True and ours[1] == {"dispatch": 0, "fetch": 0}
+    assert ours[2]["hedges"]["fired"] == 1
+    assert _until(fleet.hedge_absorbed) == {dead: 1}
+    assert "hedge_absorbed" not in ours[2]
+
+
+def test_hedge_absorbed_is_empty_without_a_failed_arm(clock):
+    """A hedge whose arms both answer absorbs nothing; a fleet without
+    hedging reports an empty count."""
+    fleet, routers = _fleet(PKGS["torch"], n=2, hedge=True,
+                            hedge_factor=1.0)
+    h = fleet.dispatch(_req(2, 5))
+    clock.t += 0.01
+    fleet.fetch(h)
+    _wait_idle(fleet)
+    assert fleet.snapshot()["hedges"]["fired"] == 1
+    assert fleet.hedge_absorbed() == {}
+    plain, _ = _fleet(PKGS["torch"], n=2)
+    plain.fetch(plain.dispatch(_req(3)))
+    assert plain.hedge_absorbed() == {}
+
+
 def test_fleet_refusals_and_engine_shape_equal_jax():
     seen = []
     for pkg in PKGS.values():

@@ -308,12 +308,14 @@ def _by_tenant_counts(snap: dict) -> dict:
 def test_quota_shed_raises_429_with_retry_after():
     """One token then a 429 in each package: the port's Retry-After is the
     bucket's exact refill time on its frozen clock (1/qps), JAX's at most
-    that on its own; the same per-tenant counts."""
+    that on its own; the same per-tenant counts. The quota refills in
+    100 s, longer than the test, so JAX's wall clock cannot refill the
+    token before the second request however loaded the host is."""
     out = {}
     for which, pkg in PKGS.items():
         rng = np.random.default_rng(0)
         metrics = pkg.Metrics()
-        sched = _stub_sched(which, "gold:qps=10,burst=1", metrics=metrics)
+        sched = _stub_sched(which, "gold:qps=0.01,burst=1", metrics=metrics)
         try:
             fut = sched.submit(_rows(rng, 2), tenant="gold")
             assert fut.result(timeout=30).shape == (2, 10)
@@ -324,8 +326,8 @@ def test_quota_shed_raises_429_with_retry_after():
         assert ei.value.status == 429
         out[which] = (ei.value.retry_after_s,
                       _by_tenant_counts(metrics.snapshot()))
-    assert out["port"][0] == pytest.approx(0.1, abs=1e-12)
-    assert 0.0 < out["jax"][0] <= 0.1
+    assert out["port"][0] == pytest.approx(100.0, abs=1e-12)
+    assert 0.0 < out["jax"][0] <= 100.0
     assert out["port"][1] == out["jax"][1]
     assert out["port"][1]["gold"]["quota_sheds"] == 1
 
@@ -431,7 +433,7 @@ def test_cache_aware_shed_serves_hit_instead_of_429():
         rng = np.random.default_rng(0)
         cache = pkg.cache.PredictionCache(capacity=16)
         metrics = pkg.Metrics()
-        sched = _stub_sched(which, "gold:qps=10,burst=1",
+        sched = _stub_sched(which, "gold:qps=0.01,burst=1",
                             caches={"mlp": cache}, metrics=metrics)
         x = _rows(rng, 2)
         logits = np.arange(20.0).reshape(2, 10)
@@ -477,7 +479,7 @@ def test_admin_set_quota_live_and_snapshot_shape():
     out = {}
     for which, pkg in PKGS.items():
         rng = np.random.default_rng(0)
-        sched = _stub_sched(which, "gold:qps=10,burst=1;free:weight=2")
+        sched = _stub_sched(which, "gold:qps=0.01,burst=1;free:weight=2")
         try:
             sched.submit(_rows(rng, 1), tenant="gold").result(timeout=30)
             with pytest.raises(pkg.tenancy.QuotaExceeded):
@@ -586,7 +588,7 @@ def test_prometheus_tenant_and_model_series():
     for which, pkg in PKGS.items():
         rng = np.random.default_rng(0)
         metrics = pkg.Metrics()
-        sched = _stub_sched(which, "gold:qps=10,burst=1,deadline_ms=5000",
+        sched = _stub_sched(which, "gold:qps=0.01,burst=1,deadline_ms=5000",
                             metrics=metrics)
         try:
             sched.submit(_rows(rng, 2), tenant="gold").result(timeout=30)
