@@ -1599,6 +1599,7 @@ def drive_serving_path(params: dict) -> dict:
     import torch
 
     from distributedmnist_tpu_torch import models
+    from distributedmnist_tpu_torch.bench import _drain_or_die
     from distributedmnist_tpu_torch.config import Config
     from distributedmnist_tpu_torch.ops import fused
     from distributedmnist_tpu_torch.data import synthetic_mnist
@@ -1658,6 +1659,9 @@ def drive_serving_path(params: dict) -> dict:
             before = dict(fused.LAUNCHES)
             futs = [batcher.submit(burst[i:i + 4]) for i in range(0, 64, 4)]
             out = np.concatenate([f.result(timeout=120) for f in futs])
+            # futures resolve before their batch's metrics land: drain,
+            # so `batches` counts every batch of the burst
+            _drain_or_die(batcher, timeout=120)
             snap = metrics.snapshot()
             if out.shape != (64, 10) or not np.all(np.isfinite(out)):
                 raise RuntimeError(f"{dt}: bad logits {out.shape}")
@@ -2349,6 +2353,15 @@ def drive_request_bench() -> tuple[dict, dict]:
         bad.append(f"{d['recompiles_after_warmup']} builds after warmup")
     if d["zipf"]["parity_ok"] is not True:
         bad.append("cached bytes differ from computed ones")
+    # every lone request of the lowlat leg took the lane, and its window
+    # counts each lane dispatch with its request
+    lane = d["lowlat"]["fastlane"]
+    if d["lowlat"]["fastpath_lane_fraction"] != 1.0:
+        bad.append(f"lowlat lane fraction "
+                   f"{d['lowlat']['fastpath_lane_fraction']}, not 1.0")
+    if lane["fastpath"]["dispatches"] != lane["requests"]:
+        bad.append(f"fastlane phase: {lane['fastpath']['dispatches']} lane "
+                   f"dispatches for {lane['requests']} requests")
     if bad:
         raise RuntimeError(f"bench {' '.join(argv)}: {bad}: "
                            f"{lines[-1][:3000]}")
@@ -2358,7 +2371,8 @@ def drive_request_bench() -> tuple[dict, dict]:
         "took_s": took,
         "lowlat": {k: low[k] for k in (
             "p50_batched_ms", "p50_fastlane_ms", "p50_best_ms",
-            "p50_improvement_x", "p50_ok", "p99_ok", "recompiles")},
+            "p50_improvement_x", "p50_ok", "p99_ok", "recompiles",
+            "fastpath_dispatches", "fastpath_lane_fraction")},
         "lowlat_p99_ms": {
             "batched": low["batched"]["latency_ms"]["p99"],
             "fastlane": low["fastlane"]["latency_ms"]["p99"],

@@ -695,15 +695,16 @@ class DynamicBatcher:
             self._finish_trace(req, t_end=t_end)
             req.future.set_result(logits[:req.n])
             if self.metrics is not None:
-                self.metrics.record_fastpath(req.n)
-                self.metrics.record_fetch(t_done - t_fetch)
-                self.metrics.record_batch(
-                    rows=req.n, bucket=handle.bucket,
-                    queue_depth=self.pending_rows(), version=version,
+                # one record: a reset() between the lane split and the
+                # request would skew the lane fraction
+                self.metrics.record_served(
+                    t_done - t_fetch, rows=req.n, bucket=handle.bucket,
+                    queue_depth=self.pending_rows(),
+                    latencies=((t_done - req.t_enqueue, req.n),),
+                    version=version,
                     replica=getattr(handle, "replica", None),
-                    infer_dtype=getattr(handle, "infer_dtype", None))
-                self.metrics.record_latency(t_done - req.t_enqueue,
-                                            rows=req.n, version=version)
+                    infer_dtype=getattr(handle, "infer_dtype", None),
+                    fastpath=True)
             with self._inflight_lock:
                 self._inflight -= 1
                 self._dispatched -= 1
@@ -783,9 +784,7 @@ class DynamicBatcher:
                         and len(seg) == 1):
                     # a singleton failing at dispatch IS an isolated
                     # culprit; its riders fail as plain dispatch errors
-                    self.metrics.record_poison_isolated(seg[0].n)
-                    if ndups:
-                        self.metrics.record_dispatch_error(ndups)
+                    self.metrics.record_isolated_culprit(seg[0].n, ndups)
                 else:
                     self.metrics.record_dispatch_error(len(seg) + ndups)
             for r in seg:
@@ -824,10 +823,8 @@ class DynamicBatcher:
             if sub_err is not None:
                 if len(sub) == 1:
                     if self.metrics is not None:
-                        self.metrics.record_poison_isolated(sub[0].n)
-                        if sub[0].dups:
-                            self.metrics.record_dispatch_error(
-                                len(sub[0].dups))
+                        self.metrics.record_isolated_culprit(
+                            sub[0].n, len(sub[0].dups))
                     self._fail_fanout(sub[0], sub_err)
                     if res is not None:
                         res.record_outcome(self._live_version(), ok=False)
@@ -924,21 +921,18 @@ class DynamicBatcher:
                     d.future.set_result(logits[off:off + r.n].copy())
                 off += r.n
             if self.metrics is not None:
-                self.metrics.record_fetch(t_done - t0)
-                # the replica tag names the replica that COMPUTED the
-                # batch: after a failover, the sibling
-                self.metrics.record_batch(
-                    rows=sum(r.n for r in batch), bucket=handle.bucket,
-                    queue_depth=self.pending_rows(), version=version,
+                # one record for the batch and all its requests, riders
+                # included: a reset() window never splits them. The
+                # replica tag names the replica that COMPUTED the batch:
+                # after a failover, the sibling
+                self.metrics.record_served(
+                    t_done - t0, rows=sum(r.n for r in batch),
+                    bucket=handle.bucket, queue_depth=self.pending_rows(),
+                    latencies=[(t_done - q.t_enqueue, q.n)
+                               for r in batch for q in (r, *r.dups)],
+                    version=version,
                     replica=getattr(handle, "replica", None),
                     infer_dtype=getattr(handle, "infer_dtype", None))
-                for r in batch:
-                    self.metrics.record_latency(t_done - r.t_enqueue,
-                                                rows=r.n, version=version)
-                    for d in r.dups:
-                        self.metrics.record_latency(
-                            t_done - d.t_enqueue, rows=d.n,
-                            version=version)
             # a batch leaves the in-flight count only after its futures
             # resolved and its metrics landed (the drain invariant)
             with self._inflight_lock:

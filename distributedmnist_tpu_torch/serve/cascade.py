@@ -237,12 +237,10 @@ class CascadeFront:
             raise ValueError(
                 f"unknown accuracy class {cls!r} (expected one of "
                 f"{ACCURACY_CLASSES})")
-        if self.metrics is not None:
-            self.metrics.record_cascade_class(cls)
         plan = self._plan()
+        if self.metrics is not None:
+            self.metrics.record_cascade_submit(cls, degraded=plan is None)
         if plan is None:
-            if self.metrics is not None:
-                self.metrics.record_cascade_degraded()
             return self.inner.submit(x, deadline_s=deadline_s)
         version, state = plan
         if cls == "exact":
@@ -319,8 +317,8 @@ class CascadeFront:
                        stage=state.cheap_dtype, rows=ctx["n"],
                        escalated=n_esc)
         if self.metrics is not None:
-            self.metrics.record_cascade_stage(state.cheap_dtype,
-                                              ctx["n"])
+            self.metrics.record_cascade_first_stage(state.cheap_dtype,
+                                                    ctx["n"], n_esc)
         v1 = getattr(f1, "version", None)
         if n_esc == 0:
             self._finish(ctx, logits=np.asarray(logits1), v1=v1, v2=v1)
@@ -328,8 +326,6 @@ class CascadeFront:
         trace.add_span("cascade.escalate", t1, t1, rids=(rid,),
                        rows=n_esc, threshold=round(threshold_of(state),
                                                    6))
-        if self.metrics is not None:
-            self.metrics.record_cascade_escalation(n_esc)
         idx = np.nonzero(esc)[0]
         try:
             # the escalation keeps the request's deadline: under deadline

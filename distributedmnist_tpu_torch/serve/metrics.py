@@ -136,17 +136,104 @@ class ServeMetrics:
             "requests": 0, "rows": 0, "batches": 0,
             "lat": deque(maxlen=min(self._max_samples, 10_000))})
 
+    # The bodies of the hooks one event may combine, each run with the
+    # lock held (it is not reentrant): the public hooks take the lock
+    # around one, the combined hooks around several, so a reset() window
+    # holds all of one event's records or none of them.
+
+    def _add_latency(self, seconds: float, rows: int, version: str) -> None:
+        self._lat_s.append(seconds)
+        self._requests += 1
+        self._rows += rows
+        if version is not None:
+            v = self._version_stats(version)
+            v["requests"] += 1
+            v["rows"] += rows
+            v["lat"].append(seconds)
+
+    def _add_batch(self, rows: int, bucket: int, queue_depth: int,
+                   version: str, replica: str, infer_dtype: str) -> None:
+        self._batches += 1
+        occ = self._occupancy.setdefault(bucket, [0, 0])
+        occ[0] += 1
+        occ[1] += rows
+        self._dispatched_rows += bucket
+        self._padded_rows += max(bucket - rows, 0)
+        self._depth_sum += queue_depth
+        self._depth_max = max(self._depth_max, queue_depth)
+        if version is not None:
+            self._version_stats(version)["batches"] += 1
+        if replica is not None:
+            s = self._by_replica.setdefault(replica,
+                                            {"batches": 0, "rows": 0})
+            s["batches"] += 1
+            s["rows"] += rows
+        if infer_dtype is not None:
+            s = self._by_dtype.setdefault(infer_dtype,
+                                          {"batches": 0, "rows": 0})
+            s["batches"] += 1
+            s["rows"] += rows
+
+    def _add_fastpath(self, rows: int) -> None:
+        self._fastpath_dispatches += 1
+        self._fastpath_rows += rows
+
+    def _add_deadline_shed(self, rows: int) -> None:
+        self._deadline_shed_requests += 1
+        self._deadline_shed_rows += rows
+
+    def _add_reject(self, rows: int) -> None:
+        self._rejected_requests += 1
+        self._rejected_rows += rows
+
+    def _add_poison_isolated(self, rows: int) -> None:
+        self._poison_isolated_requests += 1
+        self._poison_isolated_rows += rows
+
+    def _add_tenant_request(self, tenant: str, model: str,
+                            rows: int) -> None:
+        t = self._tenant_stats(tenant)
+        t["requests"] += 1
+        t["rows"] += rows
+        m = self._model_stats(model)
+        m["requests"] += 1
+        m["rows"] += rows
+
+    def _add_tenant_shed(self, tenant: str, kind: str, rows: int) -> None:
+        t = self._tenant_stats(tenant)
+        t[f"{kind}_sheds"] += 1
+        t["shed_rows"] += rows
+
+    def _add_cascade_stage(self, stage: str, rows: int) -> None:
+        s = self._cascade_stage_rows.setdefault(
+            stage, {"rows": 0, "dispatches": 0})
+        s["rows"] += rows
+        s["dispatches"] += 1
+
+    def record_served(self, fetch_seconds: float, rows: int, bucket: int,
+                      queue_depth: int, latencies, version: str = None,
+                      replica: str = None, infer_dtype: str = None,
+                      fastpath: bool = False) -> None:
+        """One served dispatch's completion records under one
+        acquisition: its fetch, its batch (`rows` real rows in `bucket`
+        slots), each request's (seconds, rows) in `latencies` (riders
+        included) and, for the fast lane, its lane split. The same
+        records record_fetch, record_batch, record_latency and
+        record_fastpath make one by one, but a reset() window now holds
+        all of them or none."""
+        with self._lock:
+            if fastpath:
+                self._add_fastpath(rows)
+            self._fetch_s.append(fetch_seconds)
+            self._add_batch(rows, bucket, queue_depth, version, replica,
+                            infer_dtype)
+            for seconds, n in latencies:
+                self._add_latency(seconds, n, version)
+
     def record_latency(self, seconds: float, rows: int = 1,
                        version: str = None) -> None:
         with self._lock:
-            self._lat_s.append(seconds)
-            self._requests += 1
-            self._rows += rows
-            if version is not None:
-                v = self._version_stats(version)
-                v["requests"] += 1
-                v["rows"] += rows
-                v["lat"].append(seconds)
+            self._add_latency(seconds, rows, version)
 
     def record_cache_hit(self, seconds: float, rows: int = 1,
                          version: str = None, infer_dtype: str = None,
@@ -179,8 +266,7 @@ class ServeMetrics:
         and version land through the usual hooks; this is the lane
         split)."""
         with self._lock:
-            self._fastpath_dispatches += 1
-            self._fastpath_rows += rows
+            self._add_fastpath(rows)
 
     def record_cascade_class(self, accuracy_class: str) -> None:
         """One request entered the cascade front under this class,
@@ -189,14 +275,21 @@ class ServeMetrics:
             self._cascade_class[accuracy_class] = \
                 self._cascade_class.get(accuracy_class, 0) + 1
 
+    def record_cascade_submit(self, accuracy_class: str,
+                              degraded: bool) -> None:
+        """One cascade-front request's submit under one acquisition: its
+        class and, when no calibrated cascade serves it, its degrade."""
+        with self._lock:
+            self._cascade_class[accuracy_class] = \
+                self._cascade_class.get(accuracy_class, 0) + 1
+            if degraded:
+                self._cascade_degraded += 1
+
     def record_cascade_stage(self, stage: str, rows: int) -> None:
         """Rows a cascade stage answered: the cheap dtype counts every
         stage-1 row, 'float32' only the escalated ones."""
         with self._lock:
-            s = self._cascade_stage_rows.setdefault(
-                stage, {"rows": 0, "dispatches": 0})
-            s["rows"] += rows
-            s["dispatches"] += 1
+            self._add_cascade_stage(stage, rows)
 
     def record_cascade_escalation(self, rows: int) -> None:
         """A balanced request sent `rows` rows under the threshold on to
@@ -204,6 +297,18 @@ class ServeMetrics:
         with self._lock:
             self._cascade_escalated_requests += 1
             self._cascade_escalated_rows += rows
+
+    def record_cascade_first_stage(self, stage: str, rows: int,
+                                   escalated_rows: int) -> None:
+        """A balanced request's cheap stage under one acquisition: its
+        `rows` on `stage` and, when any fell under the threshold, the
+        escalation of `escalated_rows` of them, so the escalation
+        fraction's two terms share every window."""
+        with self._lock:
+            self._add_cascade_stage(stage, rows)
+            if escalated_rows:
+                self._cascade_escalated_requests += 1
+                self._cascade_escalated_rows += escalated_rows
 
     def record_cascade_degraded(self) -> None:
         """A cascade-front request served by the plain live route (no
@@ -237,26 +342,8 @@ class ServeMetrics:
                      version: str = None, replica: str = None,
                      infer_dtype: str = None) -> None:
         with self._lock:
-            self._batches += 1
-            occ = self._occupancy.setdefault(bucket, [0, 0])
-            occ[0] += 1
-            occ[1] += rows
-            self._dispatched_rows += bucket
-            self._padded_rows += max(bucket - rows, 0)
-            self._depth_sum += queue_depth
-            self._depth_max = max(self._depth_max, queue_depth)
-            if version is not None:
-                self._version_stats(version)["batches"] += 1
-            if replica is not None:
-                s = self._by_replica.setdefault(replica,
-                                                {"batches": 0, "rows": 0})
-                s["batches"] += 1
-                s["rows"] += rows
-            if infer_dtype is not None:
-                s = self._by_dtype.setdefault(infer_dtype,
-                                              {"batches": 0, "rows": 0})
-                s["batches"] += 1
-                s["rows"] += rows
+            self._add_batch(rows, bucket, queue_depth, version, replica,
+                            infer_dtype)
 
     def record_wait(self, seconds: float) -> None:
         """The effective coalescing wait one drain used."""
@@ -267,8 +354,7 @@ class ServeMetrics:
 
     def record_reject(self, rows: int = 1) -> None:
         with self._lock:
-            self._rejected_requests += 1
-            self._rejected_rows += rows
+            self._add_reject(rows)
 
     def rejected_total(self) -> int:
         """The rejection count alone, for the autoscaler's shed signal:
@@ -307,8 +393,7 @@ class ServeMetrics:
         """One request shed on an expired client deadline before dispatch
         (504, zero device work)."""
         with self._lock:
-            self._deadline_shed_requests += 1
-            self._deadline_shed_rows += rows
+            self._add_deadline_shed(rows)
 
     def record_bisect_split(self) -> None:
         """One failed segment split in two for retry."""
@@ -318,8 +403,14 @@ class ServeMetrics:
     def record_poison_isolated(self, rows: int = 1) -> None:
         """One culprit isolated to its singleton dispatch, failed alone."""
         with self._lock:
-            self._poison_isolated_requests += 1
-            self._poison_isolated_rows += rows
+            self._add_poison_isolated(rows)
+
+    def record_isolated_culprit(self, rows: int, riders: int) -> None:
+        """One isolated culprit and its `riders` (failed as plain
+        dispatch errors) under one acquisition."""
+        with self._lock:
+            self._add_poison_isolated(rows)
+            self._dispatch_error_requests += riders
 
     def record_bisect_rescued(self, requests: int, rows: int) -> None:
         """One sub-segment of a bisected batch dispatched clean."""
@@ -430,12 +521,7 @@ class ServeMetrics:
         """One request admitted (or cache-served) for a tenant, routed
         to a model: the demand side of by_tenant/by_model."""
         with self._lock:
-            t = self._tenant_stats(tenant)
-            t["requests"] += 1
-            t["rows"] += rows
-            m = self._model_stats(model)
-            m["requests"] += 1
-            m["rows"] += rows
+            self._add_tenant_request(tenant, model, rows)
 
     def record_tenant_shed(self, tenant: str, kind: str,
                            rows: int = 1) -> None:
@@ -443,9 +529,27 @@ class ServeMetrics:
         (503), "deadline" (504)}: the per-tenant attribution beside the
         global counters the scheduler records separately."""
         with self._lock:
-            t = self._tenant_stats(tenant)
-            t[f"{kind}_sheds"] += 1
-            t["shed_rows"] += rows
+            self._add_tenant_shed(tenant, kind, rows)
+
+    def record_tenant_refusal(self, tenant: str, kind: str,
+                              rows: int = 1) -> None:
+        """One tenant request shed, under one acquisition with the
+        global counter of its kind: "deadline" the deadline sheds,
+        "watermark" the rejections, "quota" none."""
+        with self._lock:
+            self._add_tenant_shed(tenant, kind, rows)
+            if kind == "deadline":
+                self._add_deadline_shed(rows)
+            elif kind == "watermark":
+                self._add_reject(rows)
+
+    def record_tenant_cache_served(self, tenant: str, model: str,
+                                   rows: int = 1) -> None:
+        """A would-be quota/watermark shed served from the cache: its
+        cache hit and its request under one acquisition."""
+        with self._lock:
+            self._tenant_stats(tenant)["cache_hits"] += 1
+            self._add_tenant_request(tenant, model, rows)
 
     def record_tenant_dispatch(self, tenant: str, model: str,
                                rows: int) -> None:

@@ -431,8 +431,7 @@ class GlobalScheduler:
             deadline_s = now + cls.deadline_ms / 1e3
         if deadline_s is not None and now >= deadline_s:
             if self.metrics is not None:
-                self.metrics.record_deadline_shed(n)
-                self.metrics.record_tenant_shed(name, "deadline", n)
+                self.metrics.record_tenant_refusal(name, "deadline", n)
             raise DeadlineExceeded(
                 "deadline already expired at admission "
                 f"({(now - deadline_s) * 1e3:.1f} ms ago)")
@@ -475,16 +474,13 @@ class GlobalScheduler:
         hit = self._cache_probe(entry, x)
         if hit is not None:
             if self.metrics is not None:
-                self.metrics.record_tenant_cache_hit(name, n)
-                self.metrics.record_tenant_request(name, model, n)
+                self.metrics.record_tenant_cache_served(name, model, n)
             req.future.set_result(hit)
             return req.future
         if self.metrics is not None:
             kind = ("quota" if isinstance(shed_exc, QuotaExceeded)
                     else "watermark")
-            self.metrics.record_tenant_shed(name, kind, n)
-            if isinstance(shed_exc, Rejected):
-                self.metrics.record_reject(n)
+            self.metrics.record_tenant_refusal(name, kind, n)
         raise shed_exc
 
     def _cache_probe(self, entry: CatalogEntry, x) -> Optional[np.ndarray]:
@@ -662,9 +658,8 @@ class GlobalScheduler:
     def _shed(self, req: _Pending, cost_s: float) -> None:
         """Fail one infeasible request now (504), off the lock."""
         if self.metrics is not None:
-            self.metrics.record_deadline_shed(req.n)
-            self.metrics.record_tenant_shed(req.tenant, "deadline",
-                                            req.n)
+            self.metrics.record_tenant_refusal(req.tenant, "deadline",
+                                               req.n)
         req.future.set_exception(DeadlineExceeded(
             f"infeasible: modeled {req.model} dispatch of {req.n} rows "
             f"needs {cost_s * 1e3:.1f} ms but the deadline is "

@@ -12,7 +12,10 @@ metrics report. Held against the port's own coalesced path bit for bit
 logits on the MLP at float32, bfloat16, int8 and megakernel and LeNet-5
 at float32, bfloat16 and int8 (their plain versions on the CPU), and
 the row-staged route on a dirty resident buffer against the pooled
-dispatch.
+dispatch. Explored with the port's schedule explorer: a metrics.reset()
+racing the lane or the coalesced path never opens a window that holds
+part of one dispatch's records, and the explorer finds that split when
+the records are made one at a time, as the JAX package makes them.
 """
 
 import threading
@@ -26,6 +29,8 @@ from distributedmnist_tpu.serve import engine as jengine
 from distributedmnist_tpu.serve import metrics as jmetrics
 from distributedmnist_tpu.serve import scheduler as jscheduler
 from distributedmnist_tpu_torch import models
+from distributedmnist_tpu_torch.analysis import explore as texplore
+from distributedmnist_tpu_torch.analysis import harnesses as tharnesses
 from distributedmnist_tpu_torch.serve import batcher as tbatcher
 from distributedmnist_tpu_torch.serve import engine as tengine
 from distributedmnist_tpu_torch.serve import metrics as tmetrics
@@ -373,3 +378,106 @@ def test_lane_through_the_registry_serves_the_live_version(rng):
         assert snap["by_dtype"] == {"float32": {"batches": 1, "rows": 1}}
     finally:
         b.stop()
+
+
+# -- a reset() window never splits one dispatch's records (explored) ---------
+
+# Schedules per machine, and the metrics.reset() calls the resetter makes,
+# spread across the client's requests by its sleeps (each a schedule step).
+RESET_SCHEDULES = 50
+RESETS = 16
+
+
+class _SplitRecords(ServeMetrics):
+    """A served dispatch's records one acquisition at a time, in the
+    order the JAX package makes them: the split the machines must find
+    when it is planted."""
+
+    def record_served(self, fetch_seconds, rows, bucket, queue_depth,
+                      latencies, version=None, replica=None,
+                      infer_dtype=None, fastpath=False):
+        if fastpath:
+            self.record_fastpath(rows)
+        self.record_fetch(fetch_seconds)
+        self.record_batch(rows, bucket, queue_depth, version, replica,
+                          infer_dtype)
+        for seconds, n in latencies:
+            self.record_latency(seconds, n, version)
+
+
+class _ResetWindowMachine(tharnesses.FastlaneBatcherMachine):
+    """The real DynamicBatcher over the harness engine, with a real
+    ServeMetrics: one client submits six 1-row requests (through the
+    fast lane when `fastlane`, each a lone request; else without
+    waiting, so they coalesce) while a second thread reopens the
+    metrics window. At drain the window holds whole dispatches only:
+    the lane split counts every request in it, and the occupancy rows
+    sum to its rows."""
+
+    name = "metrics-reset"
+
+    def __init__(self, fastlane: bool, metrics_cls=ServeMetrics):
+        super().__init__()
+        self.fastlane = fastlane
+        self.metrics_cls = metrics_cls
+
+    def run(self, ctl) -> None:
+        self.engine = tharnesses._FastEngine()
+        self.metrics = self.metrics_cls()
+        self.batcher = b = DynamicBatcher(
+            self.engine, max_batch=8, max_wait_us=1000, queue_depth=8,
+            max_inflight=1, adaptive=False, fastlane=self.fastlane,
+            metrics=self.metrics)
+        b.start()
+
+        def client():
+            for _ in range(6):
+                self.futs.append(b.submit(np.zeros((1, 4), np.uint8)))
+
+        def resetter():
+            for _ in range(RESETS):
+                time.sleep(0.001)
+                self.metrics.reset()
+
+        for t in (ctl.spawn(client, "client"),
+                  ctl.spawn(resetter, "resetter")):
+            t.join()
+        b.stop(drain=True)
+        for fut in list(self.futs):
+            tharnesses.await_future(ctl, fut, "client-result")
+
+    def final(self, ctl) -> None:
+        super().final(ctl)
+        snap = self.metrics.snapshot()
+        if self.fastlane:
+            fp = snap["fastpath"]
+            assert (fp["dispatches"], fp["rows"]) == (
+                snap["requests"], snap["rows"]), (
+                f"lane split {fp} against {snap['requests']} requests, "
+                f"{snap['rows']} rows in one window")
+        else:
+            occ = sum(o["rows"] for o in snap["batch_occupancy"].values())
+            assert occ == snap["rows"], (
+                f"occupancy rows {occ} against {snap['rows']} rows in "
+                "one window")
+
+
+@pytest.mark.parametrize("fastlane", [True, False],
+                         ids=["fastlane", "coalesced"])
+def test_reset_window_never_splits_a_dispatch(fastlane):
+    rep = texplore.Explorer().run(
+        lambda: _ResetWindowMachine(fastlane), "metrics-reset",
+        RESET_SCHEDULES)
+    assert rep.findings == [], rep.findings[0]["detail"]
+    assert rep.completed == RESET_SCHEDULES
+
+
+@pytest.mark.parametrize("fastlane", [True, False],
+                         ids=["fastlane", "coalesced"])
+def test_reset_window_split_is_found_when_planted(fastlane):
+    rep = texplore.Explorer(stop_on_finding=True).run(
+        lambda: _ResetWindowMachine(fastlane, _SplitRecords),
+        "metrics-reset-split", RESET_SCHEDULES)
+    assert rep.findings, "the explorer missed the planted split"
+    assert rep.findings[0]["kind"] == "invariant"
+    assert "one window" in rep.findings[0]["detail"]
