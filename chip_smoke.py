@@ -93,7 +93,16 @@ under the concurrency sanitizer) on one CUDA card.
    bench's keys, a value above 0, the card's name, no kernel-library load
    or engine build after warmup, and the trial must reach its target;
    each record is printed on a `bench` line, and the launches the runs
-   report are the `bench` path's.
+   report are the `bench` path's. Then, on launch counts of their own
+   (the `bench_ranks` path), the bench's training modes over 2 ranks
+   (`--num-devices 2`), both runs at once: the MLP's throughput (global
+   batch 128, 64 rows a rank) and LeNet-5's time-to-accuracy to 0.99
+   (batch 512, one trial). On one card the ranks share it over gloo and
+   the record counts one chip; with two or more cards, one a rank over
+   NCCL, two chips. Each must print one record with the root bench's
+   keys, n_chips and the backend so, the target reached, a launch line
+   from every rank, and dense_relu launched in both ranks of the MLP
+   run; each run's seconds and record are printed.
 10. The rest of training (after phase 5), with every launch count set to
    0 first, children reporting their own: dense_relu f32 at each
    tensor-parallel rank's column shard (N = 64 and 32: the trainer's
@@ -242,10 +251,11 @@ under the concurrency sanitizer) on one CUDA card.
    models at CALIBRATION_EPOCHS on 60,000 / 10,000 images, each accuracy
    in (0.1, 1]. Prints a `dryrun_phases` line: the legs and each leg's
    seconds, the audit, the calibration row, the launches.
-17. Prints a `kernels` JSON line (launches on each path, with the
-   `fleet`, `cascade`, `tenancy`, `gateway`, `replay_autoscale`,
-   `sanitized`, `dryrun`, `train_audit` and `calibration` paths also as
-   columns of their own, error, times, bound; dense_relu's entry lists
+17. Prints a `kernels` JSON line (launches on each path, the
+   `bench_ranks` path among them, with the `fleet`, `cascade`, `tenancy`,
+   `gateway`, `replay_autoscale`, `sanitized`, `dryrun`, `train_audit`
+   and `calibration` paths also as columns of their own, error, times,
+   bound; dense_relu's entry lists
    the new shapes, dense_relu's and quant_dense's LeNet's serving
    shapes; each entry's `fastlane` its b = 1 case and fast-route
    launches), a `phase_seconds` line (each phase's wall seconds) and,
@@ -258,6 +268,7 @@ nonzero and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import itertools
 import json
 import os
@@ -359,9 +370,11 @@ DP_TIMEOUT_S = 300
 COMPARE_STEPS = 50
 COMPARE_TOL = dict(loss_rtol=1e-4, param_atol=1e-4)
 # The bench phase: each run's arguments, with windows cut short (the
-# default windows take minutes on the card) and half-second serve phases;
-# the supervised worker (the bench's default) runs the first, the rest
-# run --inline (each run's process boot is most of its time).
+# default windows take minutes on the card) and serve phases of 0.3 s
+# (most of a run's time is its process boot); the supervised worker (the
+# bench's default) runs the first, the rest run --inline. The training modes ask for one
+# rank (--num-devices 1): on a host with more cards the bench would
+# otherwise start a rank a card.
 # The serve runs of LeNet-5 boot from a copy of config 2's last
 # checkpoint, the one whose gates the LeNet serving phase held.
 # The rest-of-training phase. Tensor parallelism: model_parallel 2 as 2
@@ -389,26 +402,42 @@ STREAM_TOL = 1e-6
 BENCH_RUNS = (
     ("throughput", "--model", "mlp", "--global-batch", "64",
      "--steps-per-call", "128", "--warmup-steps", "128", "--bench-steps",
-     "256", "--repeats", "2"),
+     "256", "--repeats", "2", "--num-devices", "1"),
     ("throughput", "--model", "lenet", "--global-batch", "512",
      "--steps-per-call", "128", "--warmup-steps", "128", "--bench-steps",
-     "128", "--repeats", "2", "--inline"),
+     "128", "--repeats", "2", "--num-devices", "1", "--inline"),
     ("time-to-accuracy", "--model", "lenet", "--global-batch", "512",
-     "--trials", "1", "--target-accuracy", "0.99", "--inline"),
-    ("serve", "--model", "mlp", "--serve-duration", "0.5", "--no-artifact",
+     "--trials", "1", "--target-accuracy", "0.99", "--num-devices",
+     "1", "--inline"),
+    ("serve", "--model", "mlp", "--serve-duration", "0.3", "--no-artifact",
      "--inline"),
     ("serve", "--model", "lenet", "--serve-infer-dtype", "bfloat16",
-     "--serve-duration", "0.5", "--checkpoint-dir", "{ckpt}",
+     "--serve-duration", "0.3", "--checkpoint-dir", "{ckpt}",
      "--no-artifact", "--inline"),
     ("serve", "--model", "lenet", "--serve-infer-dtype", "int8",
-     "--serve-duration", "0.5", "--checkpoint-dir", "{ckpt}",
+     "--serve-duration", "0.3", "--checkpoint-dir", "{ckpt}",
      "--no-artifact", "--inline"),
     ("sweep", "--model", "lenet", "--sweep-batches", "64,512",
      "--steps-per-call", "128", "--warmup-steps", "128", "--bench-steps",
-     "128", "--repeats", "1", "--inline"),
-    ("smoke", "--model", "mlp", "--dtype", "bfloat16", "--inline"),
+     "128", "--repeats", "1", "--num-devices", "1", "--inline"),
+    ("smoke", "--model", "mlp", "--dtype", "bfloat16", "--num-devices", "1",
+     "--inline"),
 )
 BENCH_TIMEOUT_S = 300
+# The bench over ranks: two training modes with --num-devices 2, a
+# process a rank (on one card the two share it over gloo and count as
+# one chip; on a host with two or more cards, a card a rank over NCCL),
+# both runs at once. The MLP's global batch of 128 gives each rank the
+# 64-row step phase 2 holds dense_relu at.
+BENCH_RANK_RUNS = (
+    ("throughput", "--model", "mlp", "--global-batch", "128",
+     "--steps-per-call", "64", "--warmup-steps", "64", "--bench-steps",
+     "128", "--repeats", "1", "--num-devices", "2", "--inline"),
+    ("time-to-accuracy", "--model", "lenet", "--global-batch", "512",
+     "--trials", "1", "--target-accuracy", "0.99", "--num-devices", "2",
+     "--inline"),
+)
+BENCH_RANKS = 2
 # The HTTP phase: sequential 1-row /predict calls timed per server, the
 # rows of the large /predict held against the CPU's float32 model, and
 # how long a server may take to turn /healthz 200 or to roll a SIGHUP.
@@ -1091,25 +1120,36 @@ def _child_env() -> dict:
     return env
 
 
-def _run_ranks(argvs, timeout=DP_TIMEOUT_S) -> list:
+def _run_timed(argvs, timeout=DP_TIMEOUT_S) -> list:
     """Start one child a command line, all at once, from the repository
-    root; wait for all of them (every one killed if any outlives the
-    timeout). Returns [(rc, stdout, stderr)], one a child."""
+    root; wait for all of them, a thread a child (every one killed if any
+    outlives the timeout). Returns [(rc, stdout, stderr, seconds from the
+    start to its exit)], one a child."""
     here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, *argv], cwd=here,
                               env=_child_env(), stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for argv in argvs]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=timeout))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    return [(p.returncode, out, err) for p, (out, err) in zip(procs, outs)]
+
+    def wait(p):
+        out, err = p.communicate(timeout=timeout)
+        return p.returncode, out, err, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(procs)) as pool:
+        waits = [pool.submit(wait, p) for p in procs]
+        try:
+            return [w.result() for w in waits]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+
+
+def _run_ranks(argvs, timeout=DP_TIMEOUT_S) -> list:
+    """_run_timed's [(rc, stdout, stderr)], one a child."""
+    return [r[:3] for r in _run_timed(argvs, timeout)]
 
 
 def _summary(out: str) -> dict:
@@ -2091,6 +2131,44 @@ def drive_http_path(params: dict, lenet_checkpoint_dir: str,
     return phases, launches
 
 
+def _bench_record(run, rc: int, out: str, err: str, card: str) -> dict:
+    """The one record of a bench run that exited `rc`, held to the root
+    bench's keys, a value above 0, the card and, for time-to-accuracy,
+    the target reached."""
+    if rc != 0:
+        raise RuntimeError(f"bench {' '.join(run)} exited {rc}:\n"
+                           f"{err[-4000:]}")
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    if len(lines) != 1:
+        raise RuntimeError(f"bench {' '.join(run)} printed "
+                           f"{len(lines)} JSON lines, not 1")
+    rec = json.loads(lines[0])
+    want = BENCH_KEYS.get(rec.get("metric"))
+    detail = rec.get("detail", {})
+    bad = []
+    if set(rec) != {"metric", "value", "unit", "vs_baseline",
+                    "detail"} or set(detail) != want:
+        bad.append("keys differ from the root bench's")
+    if not rec["value"] > 0 or rec["vs_baseline"] is not None:
+        bad.append(f"value {rec['value']}, vs_baseline "
+                   f"{rec['vs_baseline']}")
+    if detail.get("backend") != "cuda":
+        bad.append(f"backend {detail.get('backend')}")
+    if rec["metric"] == "serve_images_per_sec_per_chip":
+        if detail["recompiles_after_warmup"] != 0:
+            bad.append(f"{detail['recompiles_after_warmup']} "
+                       "builds after warmup")
+        if detail["host"]["device_kind"] != card:
+            bad.append(f"device_kind {detail['host']['device_kind']}")
+    if (rec["metric"] == "wall_clock_to_target_accuracy"
+            and not detail["reached_target"]):
+        bad.append("the trial did not reach its target")
+    if bad:
+        raise RuntimeError(f"bench {' '.join(run)}: {bad}: "
+                           f"{lines[0][:2000]}")
+    return rec
+
+
 def drive_bench_path(lenet_checkpoint_dir: str) -> dict:
     """The port's bench, one subprocess a run (each mode in a process of
     its own, so no mode's TF32 or allocator state leaks into the next).
@@ -2118,39 +2196,8 @@ def drive_bench_path(lenet_checkpoint_dir: str) -> dict:
                  *argv], cwd=here, env=env, capture_output=True, text=True,
                 timeout=BENCH_TIMEOUT_S)
             took = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise RuntimeError(f"bench {' '.join(run)} exited "
-                                   f"{proc.returncode}:\n"
-                                   f"{proc.stderr[-4000:]}")
-            lines = [ln for ln in proc.stdout.splitlines()
-                     if ln.startswith("{")]
-            if len(lines) != 1:
-                raise RuntimeError(f"bench {' '.join(run)} printed "
-                                   f"{len(lines)} JSON lines, not 1")
-            rec = json.loads(lines[0])
-            want = BENCH_KEYS.get(rec.get("metric"))
-            detail = rec.get("detail", {})
-            bad = []
-            if set(rec) != {"metric", "value", "unit", "vs_baseline",
-                            "detail"} or set(detail) != want:
-                bad.append("keys differ from the root bench's")
-            if not rec["value"] > 0 or rec["vs_baseline"] is not None:
-                bad.append(f"value {rec['value']}, vs_baseline "
-                           f"{rec['vs_baseline']}")
-            if detail.get("backend") != "cuda":
-                bad.append(f"backend {detail.get('backend')}")
-            if rec["metric"] == "serve_images_per_sec_per_chip":
-                if detail["recompiles_after_warmup"] != 0:
-                    bad.append(f"{detail['recompiles_after_warmup']} "
-                               "builds after warmup")
-                if detail["host"]["device_kind"] != card:
-                    bad.append(f"device_kind {detail['host']['device_kind']}")
-            if (rec["metric"] == "wall_clock_to_target_accuracy"
-                    and not detail["reached_target"]):
-                bad.append("the trial did not reach its target")
-            if bad:
-                raise RuntimeError(f"bench {' '.join(run)}: {bad}: "
-                                   f"{lines[0][:2000]}")
+            rec = _bench_record(run, proc.returncode, proc.stdout,
+                                proc.stderr, card)
             counts = fused.parse_launches(proc.stderr, "bench: launches ")
             if len(counts) != 1:
                 raise RuntimeError(f"bench {' '.join(run)} reported no "
@@ -2160,7 +2207,56 @@ def drive_bench_path(lenet_checkpoint_dir: str) -> dict:
             print(f"bench {' '.join(run[:3])}: {rec['metric']} "
                   f"{rec['value']} {rec['unit']} in {took:.1f}s, launches "
                   f"{counts[0]}", flush=True)
-            print("bench " + lines[0], flush=True)
+            print("bench " + json.dumps(rec), flush=True)
+    return launches
+
+
+def drive_bench_ranks_path(card: str) -> dict:
+    """The bench's training modes over BENCH_RANKS ranks (BENCH_RANK_RUNS,
+    both runs at once, each bench process starting its ranks): each run
+    one record (rank 0's) with the root bench's keys, n_chips the cards
+    the ranks run on (one, counted once, when they share it), the
+    backend the topology calls for, and a launch line from every rank,
+    dense_relu launched in every rank of the MLP run. Prints each run's
+    seconds and record; returns the kernel launches the ranks report,
+    summed."""
+    import torch
+
+    from distributedmnist_tpu_torch.ops import fused
+
+    chips = min(BENCH_RANKS, torch.cuda.device_count())
+    backend = "nccl" if chips == BENCH_RANKS else "gloo"
+    results = _run_timed([["-m", "distributedmnist_tpu_torch.bench", *run]
+                          for run in BENCH_RANK_RUNS], BENCH_TIMEOUT_S)
+    launches: dict = {}
+    for run, (rc, out, err, took) in zip(BENCH_RANK_RUNS, results):
+        rec = _bench_record(run, rc, out, err, card)
+        bad = []
+        if rec["detail"]["n_chips"] != chips:
+            bad.append(f"n_chips {rec['detail']['n_chips']}, not {chips}")
+        up = (f"bench: backend up: {BENCH_RANKS}x cuda on {chips} chip(s) "
+              f"over {backend}")
+        by_rank = [fused.parse_launches(err, f"[rank {r}] bench: launches ")
+                   for r in range(BENCH_RANKS)]
+        for r, counts in enumerate(by_rank):
+            if f"[rank {r}] {up}" not in err:
+                bad.append(f"rank {r} did not come up as {up!r}")
+            if len(counts) != 1:
+                bad.append(f"rank {r} reported {len(counts)} launch lines")
+            elif run[2] == "mlp" and counts[0]["dense_relu"] <= 0:
+                bad.append(f"rank {r} never launched dense_relu")
+        if bad:
+            raise RuntimeError(f"bench {' '.join(run)}: {bad}:\n"
+                               f"{err[-3000:]}")
+        for counts in by_rank:
+            for k, n in counts[0].items():
+                launches[k] = launches.get(k, 0) + n
+        print(f"bench ranks {' '.join(run[:3])}: {rec['metric']} "
+              f"{rec['value']} {rec['unit']}, {BENCH_RANKS} ranks on "
+              f"{chips} card(s) over {backend}, ended {took:.1f}s after "
+              f"both runs started, launches by rank "
+              f"{[c[0] for c in by_rank]} on {card}", flush=True)
+        print("bench " + json.dumps(rec), flush=True)
     return launches
 
 
@@ -4439,6 +4535,11 @@ def main() -> int:
         if missing:
             raise RuntimeError(f"kernels never launched on the bench "
                                f"path: {missing}")
+        fused.reset_launches()
+        launches["bench_ranks"] = drive_bench_ranks_path(card)
+        if launches["bench_ranks"].get("dense_relu", 0) <= 0:
+            raise RuntimeError("dense_relu never launched on the bench's "
+                               "path over ranks")
         lap("9 bench")
 
         from distributedmnist_tpu_torch.serve.quantize import PARITY_SEED

@@ -4,20 +4,23 @@
 The port's counterpart of the root bench.py, in its five modes, with
 its flag names, defaults and record keys:
 
-- throughput (default): steady-state training images/sec on one card
-  (LeNet-5, Adam, global batch 512 by default). Steps run in blocks of
-  steps_per_call with at most 16 blocks in flight, as trainer.fit runs
-  them; the median of --repeats timed windows is reported, each window's
-  clock stopped on a value fetch of its last loss.
+- throughput (default): steady-state training images/sec a chip
+  (LeNet-5, Adam, global batch 512 by default, rounded up to a multiple
+  of the ranks). Steps run in blocks of steps_per_call with at most 16
+  blocks in flight, as trainer.fit runs them; the median of --repeats
+  timed windows is reported, each window's clock stopped on a value
+  fetch of its last loss on every rank, its seconds the slowest rank's.
 - time-to-accuracy: wall-clock seconds of trainer.fit to reach
   --target-accuracy on the tuned recipe (tta_config), over --trials
   trials at distinct seeds; the median is reported beside the steps and
   evals each trial needed.
-- sweep: the throughput measurement at each per-card batch of
-  --sweep-batches, and from that curve the root bench's 8-card
-  prediction (strong and weak scaling, a sensitivity band), with the
-  gradient all-reduce modelled at the bus bandwidth NCCL measured among
-  this host's own cards (ALLREDUCE_BUS_GBPS).
+- sweep: the throughput measurement at each per-rank batch of
+  --sweep-batches (global batch b x ranks), and from that curve the root
+  bench's 8-card prediction (strong and weak scaling, a sensitivity
+  band). On one rank the gradient all-reduce is modelled at the bus
+  bandwidth NCCL measured among this host's own cards
+  (ALLREDUCE_BUS_GBPS); over ranks it is in the measured step, and the
+  model is only reported.
 - smoke: an end-to-end gate: trainer.fit for 64 steps with evals and
   checkpoints, then a restore that resumes to step 96, held to a 0.85
   test-accuracy floor.
@@ -75,6 +78,17 @@ its flag names, defaults and record keys:
   autoscale setting, or a gateway record (and a gateway run, a
   single-process record).
 
+The four training modes run data-parallel, one process (rank) a device,
+as the root bench runs them over every device of its mesh: by default
+one rank a visible card (one on the cpu), --num-devices N asks for N
+(ranks beyond the cards share them over gloo, and a shared card counts
+as one chip in n_chips). More than one rank starts them here through
+parallel/launch.py, inside the supervised worker, as the train CLI
+does: rank 0 prints the record, every rank its `[rank r] bench:
+launches {...}` line, and a rank that fails ends the run non-zero with
+no record. The serve mode stays in one process (its replicas span cards
+in process).
+
 Runs on the card; --device cpu runs on the CPU, and without a card the
 bench raises. --dtype bfloat16 trains in bfloat16 (throughput,
 time-to-accuracy, sweep, smoke); --data-dir reads MNIST from IDX files or
@@ -92,6 +106,8 @@ fails: a CPU number is never a result of the card's bench.
     python -m distributedmnist_tpu_torch.bench throughput --model mlp
     python -m distributedmnist_tpu_torch.bench time-to-accuracy
     python -m distributedmnist_tpu_torch.bench sweep --sweep-batches 64,512
+    python -m distributedmnist_tpu_torch.bench throughput --device cpu \\
+        --num-devices 2 --model mlp
     python -m distributedmnist_tpu_torch.bench smoke --dtype bfloat16
     python -m distributedmnist_tpu_torch.bench serve --model lenet \\
         --checkpoint-dir ckpt --serve-infer-dtype int8
@@ -175,6 +191,10 @@ def _parser() -> argparse.ArgumentParser:
                    help="where the bench runs (default cuda; cpu only "
                         "when asked)")
     p.add_argument("--model", choices=["mlp", "lenet"], default="lenet")
+    p.add_argument("--num-devices", type=int, default=None,
+                   help="[throughput/time-to-accuracy/sweep/smoke] ranks, "
+                        "one device each (default: every visible card, "
+                        "or 1 on the cpu); N > 1 starts N local ranks")
     p.add_argument("--dtype", choices=["float32", "bfloat16"],
                    default="float32",
                    help="training compute dtype (throughput, "
@@ -194,9 +214,10 @@ def _parser() -> argparse.ArgumentParser:
                         "8192 on the card, 64 on the cpu)")
     p.add_argument("--steps-per-call", type=int, default=None,
                    help="steps launched per block (default: 1 on the cpu; "
-                        "on the card min(4096, max(256, 1024*512 // b)) in "
-                        "throughput mode, trainer.fit's auto depth in "
-                        "time-to-accuracy mode)")
+                        "on the card min(4096, max(256, 1024*512 // b)), b "
+                        "the batch a rank, in throughput mode, "
+                        "trainer.fit's auto depth in time-to-accuracy "
+                        "mode)")
     p.add_argument("--repeats", type=int, default=None,
                    help="[throughput/sweep] timed windows, median reported "
                         "(default: 3 on the card, 1 on the cpu)")
@@ -390,6 +411,13 @@ def _parse(argv) -> argparse.Namespace:
                     f"--mode {args.mode!r}")
         args.mode = args.mode_pos
     args.mode = args.mode or "throughput"
+    if args.num_devices is not None:
+        if args.mode == "serve":
+            p.error("--num-devices is a training-mode flag; the serve "
+                    "mode runs in one process (--serve-replicas spans "
+                    "cards in it)")
+        if args.num_devices < 1:
+            p.error("--num-devices must be >= 1")
     serve_flags = {"--serve-qps": args.serve_qps,
                    "--serve-duration": args.serve_duration,
                    "--serve-clients": args.serve_clients,
@@ -608,12 +636,28 @@ def main(argv=None) -> int:
             accept=supervise.json_record_acceptor("metric"),
             stall_timeout=args.stall_timeout, attempts=args.max_attempts,
             final_codes=(REFUSED,))
+    if args.mode != "serve":
+        # one rank a device, as the root bench's mesh spans every device
+        # it sees: with more than one, this process starts them (each
+        # this command) and waits, rank 0's record passed on
+        from distributedmnist_tpu_torch.config import Config
+        from distributedmnist_tpu_torch.parallel import launch
+
+        rc = launch.run_ranks(
+            "distributedmnist_tpu_torch.bench", argv,
+            Config(device=args.device, num_devices=args.num_devices))
+        if rc is not None:
+            return rc
     run = {"throughput": _throughput, "time-to-accuracy": _time_to_accuracy,
            "sweep": _sweep, "smoke": _smoke,
            "serve": _serve_gateway if args.gateway else _serve}[args.mode]
-    rc = run(args)
     from distributedmnist_tpu_torch.ops import fused
+    from distributedmnist_tpu_torch.parallel import distributed
 
+    try:
+        rc = run(args)
+    finally:
+        distributed.shutdown()
     _mark("launches " + json.dumps(fused.LAUNCHES))
     return rc
 
@@ -621,35 +665,69 @@ def main(argv=None) -> int:
 # -- throughput ---------------------------------------------------------------
 
 
+def _join(args):
+    """(this rank's device, the ranks, the distinct devices under them):
+    joins the process group when a launcher started this process as a
+    rank (parallel/distributed.py), and is one device outside one. The
+    root bench's `jax.devices()` and the size of its mesh."""
+    from distributedmnist_tpu_torch.parallel import (chip_count,
+                                                     distributed,
+                                                     get_device)
+    from distributedmnist_tpu_torch.utils.device import resolve_device
+
+    distributed.maybe_initialize(None, None, None,
+                                 resolve_device(args.device).type)
+    device = get_device(args.device, getattr(args, "num_devices", None))
+    world = distributed.process_count()
+    n_chips = chip_count(device)
+    _mark(f"backend up: {world}x {device.type}" + (
+        f" on {n_chips} chip(s) over {distributed.topology().backend}"
+        if world > 1 else ""))
+    return device, world, n_chips
+
+
+def _emit(record: dict) -> None:
+    """The mode's one JSON record, printed by rank 0 only."""
+    from distributedmnist_tpu_torch.parallel import distributed
+
+    if distributed.process_index() == 0:
+        print(json.dumps(record), flush=True)
+
+
 class _Runner:
-    """Device, data and model for the throughput mode; measure() gives the
-    median images/sec over timed windows from a fresh state."""
+    """This rank's device, data and model for the throughput and sweep
+    modes; measure() gives the median images/sec a chip over timed
+    windows from a fresh state, the ranks stepping together."""
 
     def __init__(self, args, data=None):
         from distributedmnist_tpu_torch.data import DeviceDataset, load_mnist
-        from distributedmnist_tpu_torch.utils.device import resolve_device
+        from distributedmnist_tpu_torch.parallel import distributed
 
         # An explicit --bench-steps is honoured exactly; the default
         # window scales with the block depth so that the in-flight cap
         # binds within it.
         self.user_bench_steps = args.bench_steps is not None
-        self.device = resolve_device(args.device)
+        self.device, self.world, self.n_chips = _join(args)
+        self.rank = distributed.process_index()
         self.on_cpu = self.device.type == "cpu"
-        _mark(f"backend up: 1x {self.device.type}")
         self.model = args.model
         self.dtype = args.dtype
         data = data if data is not None else load_mnist(
             args.data_dir, synthetic=args.data_dir is None, seed=0)
-        # the trainer's defaults: packed pixel rows on the device
+        # the trainer's defaults: packed pixel rows on the device, the
+        # whole set on every rank
         self.ds = DeviceDataset(data, self.device, pixel_format="packed")
         # On the CPU every op has finished when it returns: one step a
         # block, one block in flight. The card takes 16, as trainer.fit.
         self.max_inflight = 1 if self.on_cpu else 16
 
     def stepper(self, gb: int, params=None):
-        """run_block(k) -> the last step's loss (a tensor on the device):
-        k Adam steps at lr 1e-3 on the device-resident set, from a fresh
-        model (seed-0 init, or `params`) and a fresh IndexStream(seed=0)."""
+        """run_block(k) -> the last step's loss over this rank's columns
+        (a tensor on the device): k Adam steps at lr 1e-3 at global batch
+        gb on the device-resident set, from a fresh model (seed-0 init,
+        or `params`) and a fresh IndexStream(seed=0). Over ranks the step
+        is the trainer's data-parallel one (DDP, the JAX step's 'auto'
+        mode), each rank taking its columns of every global batch."""
         from distributedmnist_tpu_torch import models, optim, trainer
         from distributedmnist_tpu_torch.data import IndexStream
 
@@ -658,14 +736,14 @@ class _Runner:
                             else models.init_params(self.model, 0))
         optimizer, scheduler = optim.build("adam", net.parameters(),
                                            optim.make_schedule(1e-3))
-        step = trainer.make_train_step(net, optimizer, scheduler,
-                                       self.ds.pixel_format,
-                                       dtype=models.DTYPES[self.dtype])
+        step = trainer.data_parallel_step(
+            net, optimizer, scheduler, self.ds.pixel_format, 1, "auto",
+            self.device, dtype=models.DTYPES[self.dtype])
         stream = IndexStream(self.ds.train_n, gb, seed=0)
         train_x, train_y = self.ds.train_x, self.ds.train_y
 
         def run_block(k: int):
-            idx = stream.next_block(k, self.device)
+            idx = stream.next_block(k, self.device, self.rank, self.world)
             for i in range(k):
                 loss = step(train_x, train_y, idx[i])
             return loss
@@ -674,6 +752,7 @@ class _Runner:
     def measure(self, args, gb: int, bench_steps: int) -> dict:
         import torch
 
+        from distributedmnist_tpu_torch.parallel import distributed
         from distributedmnist_tpu_torch.utils import StepTimer
         from distributedmnist_tpu_torch.utils.device import training_numerics
 
@@ -682,8 +761,9 @@ class _Runner:
         elif self.on_cpu:
             spc = 1
         else:
-            # the root bench's block depth: about 1024 x 512 rows a block
-            spc = min(4096, max(256, 1024 * 512 // gb))
+            # the root bench's block depth: about 1024 x 512 rows of a
+            # rank's batch a block
+            spc = min(4096, max(256, 1024 * 512 // max(1, gb // self.world)))
         # The default window spans 32 blocks, twice the in-flight cap, so
         # the cap binds for its second half whatever spc is.
         if not self.user_bench_steps and not self.on_cpu:
@@ -720,23 +800,30 @@ class _Runner:
             for r in range(repeats):
                 t0 = time.perf_counter()
                 n_run = run(run_block, bench_steps)
-                windows.append(n_run * gb / (time.perf_counter() - t0))
+                # a window ends when the last rank has its last loss: one
+                # all-reduce after every clock has stopped
+                seconds = distributed.max_float(time.perf_counter() - t0,
+                                                self.device)
+                windows.append(n_run * gb / seconds / self.n_chips)
                 _mark(f"b={gb} window {r + 1}/{repeats}: "
-                      f"{windows[-1]:.0f} img/s")
+                      f"{windows[-1]:.0f} img/s/chip")
         value = statistics.median(windows)
         return {"img_s_chip": value, "windows": windows,
                 "bench_steps": n_run, "steps_per_call": spc,
-                "step_ms": 1000 * gb / value if value else None}
+                "step_ms": (1000 * gb / value / self.n_chips
+                            if value else None)}
 
 
 def _throughput(args) -> int:
+    from distributedmnist_tpu_torch.utils import round_up
+
     r = _Runner(args)
-    gb = args.global_batch
+    gb = round_up(args.global_batch, r.world)
     if args.bench_steps is None:
         args.bench_steps = 64 if r.on_cpu else 8192
     m = r.measure(args, gb, args.bench_steps)
     value = m["img_s_chip"]
-    print(json.dumps({
+    _emit({
         "metric": "train_images_per_sec_per_chip",
         "value": round(value, 1),
         "unit": "images/sec/chip",
@@ -747,7 +834,7 @@ def _throughput(args) -> int:
             "model": args.model,
             "data": r.ds.source,
             "global_batch": gb,
-            "n_chips": 1,
+            "n_chips": r.n_chips,
             "backend": r.device.type,
             "dtype": args.dtype,
             "bench_steps": m["bench_steps"],
@@ -756,7 +843,7 @@ def _throughput(args) -> int:
                         if m["step_ms"] is not None else None),
             "windows_img_s_chip": [round(w, 1) for w in m["windows"]],
         },
-    }), flush=True)
+    })
     return 0
 
 
@@ -790,12 +877,12 @@ def _time_to_accuracy(args) -> int:
     import logging
 
     from distributedmnist_tpu_torch import trainer
-    from distributedmnist_tpu_torch.utils.device import resolve_device
+    from distributedmnist_tpu_torch.utils import round_up
 
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
-    device = resolve_device(args.device)
-    _mark(f"backend up: 1x {device.type}")
-    gb = args.global_batch
+    # each trial's fit runs data-parallel over the ranks joined here
+    device, world, n_chips = _join(args)
+    gb = round_up(args.global_batch, world)
     cfg = tta_config(args, gb)
     # Distinct seeds (init and batch order): seed sensitivity is the risk
     # a run-to-target claim carries.
@@ -823,7 +910,7 @@ def _time_to_accuracy(args) -> int:
               f"(reached={reached})")
     value = statistics.median(walls)
     reached_steps = [s for s, r in zip(steps_list, reached_flags) if r]
-    print(json.dumps({
+    _emit({
         "metric": "wall_clock_to_target_accuracy",
         "value": round(value, 2),
         "unit": "seconds",
@@ -851,11 +938,11 @@ def _time_to_accuracy(args) -> int:
             "data": out["data"],
             "model": args.model,
             "global_batch": out["global_batch"],
-            "n_chips": 1,
+            "n_chips": n_chips,
             "backend": device.type,
             "dtype": args.dtype,
         },
-    }), flush=True)
+    })
     return 0
 
 
@@ -865,14 +952,19 @@ def _time_to_accuracy(args) -> int:
 def _sweep(args) -> int:
     """The batch sweep and the root bench's 8-card scaling estimate.
 
-    A per-card batch b on 1 card is the same step as global batch 8b on 8
-    cards but for the gradient all-reduce, which the estimate adds as a
-    model: ring all-reduce time 2 * grad_bytes * (8 - 1) / 8 over the bus
-    bandwidth NCCL measured among this host's cards (ALLREDUCE_BUS_GBPS).
-    Strong scaling holds the global batch at 8x the smallest per-card
-    batch, weak scaling the per-card batch at the curve's peak (and, for
-    a fixed anchor, at the largest); the band recomputes the prediction
-    at 1x and 2x the modelled all-reduce and 0.8-1.2x the measured step."""
+    Each point b of --sweep-batches is a per-rank batch: the global batch
+    is b x ranks, so the curve means the same thing on one rank and on
+    several. A per-card batch b on 1 card is the same step as global
+    batch 8b on 8 cards but for the gradient all-reduce. On one rank the
+    estimate adds it as a model: ring all-reduce time
+    2 * grad_bytes * (8 - 1) / 8 over the bus bandwidth NCCL measured
+    among this host's cards (ALLREDUCE_BUS_GBPS). Over ranks the measured
+    step already holds the real all-reduce, so the model is reported
+    (allreduce_ms_est) and not added. Strong scaling holds the global
+    batch at 8x the smallest per-card batch, weak scaling the per-card
+    batch at the curve's peak (and, for a fixed anchor, at the largest);
+    the band recomputes the prediction at 1x and 2x the modelled
+    all-reduce and 0.8-1.2x the measured step."""
     from distributedmnist_tpu_torch import models
 
     r = _Runner(args)
@@ -880,7 +972,7 @@ def _sweep(args) -> int:
         args.bench_steps = 64 if r.on_cpu else 8192
     curve = {}
     for b in args.sweep_batches:
-        m = r.measure(args, b, args.bench_steps)
+        m = r.measure(args, b * r.world, args.bench_steps)
         curve[b] = {"img_s_chip": round(m["img_s_chip"], 1),
                     "step_ms": round(m["step_ms"], 4),
                     "steps_per_call": m["steps_per_call"]}
@@ -889,8 +981,11 @@ def _sweep(args) -> int:
                    for s in models.full_shapes(args.model).values())
     grad_bytes = n_params * 4
     bus_gbps = ALLREDUCE_BUS_GBPS[args.model]
-    # one card measured: the whole all-reduce is modelled
-    modeled_ms = 2 * grad_bytes * (8 - 1) / 8 / (bus_gbps * 1e9) * 1e3
+    allreduce_ms = 2 * grad_bytes * (8 - 1) / 8 / (bus_gbps * 1e9) * 1e3
+    # over ranks the all-reduce is in the measured step: adding the model
+    # would count it twice
+    modeled = r.world == 1
+    modeled_ms = allreduce_ms if modeled else 0.0
     smallest, largest = min(curve), max(curve)
     peak = max(curve, key=lambda b: curve[b]["img_s_chip"])
     strong_step_ms = curve[smallest]["step_ms"] + modeled_ms
@@ -914,7 +1009,7 @@ def _sweep(args) -> int:
                  for f in (0.8, 1.0, 1.2) for ar in (1, 2)]
         return [round(min(preds), 1), round(max(preds), 1)]
 
-    print(json.dumps({
+    _emit({
         "metric": "predicted_8chip_images_per_sec_per_chip",
         "value": round(strong_img_s_chip, 1),
         "unit": "images/sec/chip",
@@ -924,15 +1019,15 @@ def _sweep(args) -> int:
             "model": args.model,
             "backend": r.device.type,
             "dtype": args.dtype,
-            "n_chips_measured": 1,
+            "n_chips_measured": r.n_chips,
             "curve_img_s_chip": {str(k): v for k, v in curve.items()},
             "n_params": n_params,
             "grad_bytes_f32": grad_bytes,
             # the root bench's key: here NCCL's measured bus bandwidth
             # among this host's own cards
             "ici_assumed_gbps": bus_gbps,
-            "allreduce_ms_est": round(modeled_ms, 4),
-            "allreduce_modeled": True,
+            "allreduce_ms_est": round(allreduce_ms, 4),
+            "allreduce_modeled": modeled,
             "strong_scaling": {
                 "per_chip_batch": smallest,
                 "global_batch_8chip": 8 * smallest,
@@ -951,7 +1046,7 @@ def _sweep(args) -> int:
                          "fixed_cost_x": [0.8, 1.0, 1.2]},
             },
         },
-    }), flush=True)
+    })
     return 0
 
 
@@ -963,20 +1058,25 @@ def _smoke(args) -> int:
     64 steps (evals and checkpoints every 32), then a restore that
     resumes to step 96, whose test accuracy must reach 0.85 (96 Adam
     steps reach about 0.95 on the synthetic set: a regression that still
-    completes must fail)."""
+    completes must fail). Over ranks both fits run data-parallel on one
+    checkpoint directory (rank 0 writes it), and every rank restores."""
     import logging
+    import shutil
     import tempfile
 
     from distributedmnist_tpu_torch import trainer
     from distributedmnist_tpu_torch.config import Config
-    from distributedmnist_tpu_torch.utils.device import resolve_device
+    from distributedmnist_tpu_torch.parallel import distributed
+    from distributedmnist_tpu_torch.utils import round_up
 
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
-    device = resolve_device(args.device)
-    _mark(f"backend up: 1x {device.type}")
-    gb = min(args.global_batch, 256)
+    device, world, n_chips = _join(args)
+    gb = round_up(min(args.global_batch, 256), world)
     legs = []
-    with tempfile.TemporaryDirectory() as ckpt_dir:
+    rank0 = distributed.process_index() == 0
+    ckpt_dir = distributed.broadcast_object(
+        tempfile.mkdtemp(prefix="bench-smoke-") if rank0 else None, device)
+    try:
         cfg = Config(model=args.model, optimizer="adam",
                      learning_rate=1e-3, synthetic=args.data_dir is None,
                      data_dir=args.data_dir, batch_size=gb,
@@ -1000,14 +1100,19 @@ def _smoke(args) -> int:
                                f"{out2['test_accuracy']:.4f} < "
                                f"{SMOKE_FLOOR}")
         legs.append("accuracy-floor")
-    print(json.dumps({
+        # every rank is done with the directory before rank 0 removes it
+        distributed.agree_max(0, device)
+    finally:
+        if rank0:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+    _emit({
         "metric": "smoke",
         "value": 1.0,
         "unit": "ok",
         "vs_baseline": None,
         "detail": {
             "backend": device.type,
-            "n_chips": 1,
+            "n_chips": n_chips,
             "model": args.model,
             "data": out2["data"],
             "legs": legs,
@@ -1020,7 +1125,7 @@ def _smoke(args) -> int:
             "short_window": True,
             "window_steps": SMOKE_STEPS,
         },
-    }), flush=True)
+    })
     return 0
 
 

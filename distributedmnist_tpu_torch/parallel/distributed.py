@@ -39,12 +39,12 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from distributedmnist_tpu_torch.parallel.launch import LAUNCH_ENV
+
 log = logging.getLogger("distributedmnist_tpu_torch")
 
 # how long a rank waits for the others (rendezvous and every collective)
 TIMEOUT = datetime.timedelta(seconds=120)
-# the environment a launcher (parallel/launch.py, torchrun) gives a rank
-LAUNCH_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,12 +200,32 @@ def all_sum(value: int, device) -> int:
     return _all_reduce_int(value, device, dist.ReduceOp.SUM)
 
 
+def max_float(value: float, device) -> float:
+    """Max of a per-rank float over the ranks (the bench's window
+    seconds: the slowest rank's), the value itself outside a process
+    group."""
+    if not dist.is_initialized():
+        return float(value)
+    t = torch.tensor([value], dtype=torch.float64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return float(t.item())
+
+
 def _all_reduce_int(value: int, device, op) -> int:
     if not dist.is_initialized():
         return int(value)
     t = torch.tensor([value], dtype=torch.int32, device=device)
     dist.all_reduce(t, op=op)
     return int(t.item())
+
+
+def broadcast_object(obj, device):
+    """Rank 0's `obj` (any picklable value), on every rank."""
+    if not dist.is_initialized():
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=0, device=device)
+    return box[0]
 
 
 def broadcast_int(value: int, device) -> int:

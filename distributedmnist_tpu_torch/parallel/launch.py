@@ -43,6 +43,8 @@ import time
 from typing import Optional
 
 TAIL_LINES = 40
+# the environment a launcher (this module, torchrun) gives a rank
+LAUNCH_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
 
 
 def local_ranks(cfg) -> int:
@@ -50,10 +52,8 @@ def local_ranks(cfg) -> int:
     1 when it is a rank already (coordinator flags, a launcher's
     environment), else num_devices, by default one a visible card (one
     on the cpu)."""
-    from distributedmnist_tpu_torch.parallel import distributed
-
     if cfg.coordinator_address is not None or all(
-            k in os.environ for k in distributed.LAUNCH_ENV):
+            k in os.environ for k in LAUNCH_ENV):
         return 1
     if cfg.num_devices is not None:
         return cfg.num_devices

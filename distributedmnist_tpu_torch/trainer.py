@@ -193,14 +193,15 @@ def _wrap(model, spmd_mode: str, device, groups: Groups):
 
 
 def data_parallel_step(model, optimizer, scheduler, pixel_format: str,
-                       grad_accum: int, spmd_mode: str, device):
+                       grad_accum: int, spmd_mode: str, device,
+                       dtype=torch.float32):
     """make_train_step for this process under data parallelism, its
     model wrapped by _wrap."""
     groups = Groups(make_mesh(distributed.process_count()),
                     distributed.process_index())
     model, reduce_grads = _wrap(model, spmd_mode, device, groups)
     return make_train_step(model, optimizer, scheduler, pixel_format,
-                           grad_accum, reduce_grads)
+                           grad_accum, reduce_grads, dtype)
 
 
 def pmean_grads(params) -> None:

@@ -13,7 +13,9 @@ plain versions), and the int8 dense stack bit for bit. Then the
 bench's throughput mode through dense_relu, the HTTP server booted on
 the card answering one /predict, and last config 3's MLP as 2
 data-parallel ranks sharing the card over gloo (DDP against the
-hand-written all-reduce, losses within 1e-6). Then the rest of training:
+hand-written all-reduce, losses within 1e-6), and the bench's sweep and
+smoke over 2 ranks sharing the card (and over NCCL, a card a rank, where
+2 or more cards are visible). Then the rest of training:
 dense_relu at a tensor-parallel rank's column shard (N = 64 and 32), the
 MLP and LeNet-5 at model_parallel 2 as 2 ranks sharing the card against
 1 rank (losses rtol 1e-4, as 2 data-parallel ranks are held), config 1
@@ -446,7 +448,8 @@ def test_lenet_int8_dense_stack_on_card_is_exact(m):
 
 @pytest.mark.gpu
 def test_bench_throughput_launches_dense_relu_on_card(capsys):
-    """The bench's throughput mode at --model mlp, a tiny window: one
+    """The bench's throughput mode at --model mlp, a tiny window, one
+    rank in this process (--num-devices 1, whatever the cards): one
     record measured on the card, its steps through dense_relu."""
     _need_card()
     from distributedmnist_tpu_torch import bench
@@ -455,7 +458,7 @@ def test_bench_throughput_launches_dense_relu_on_card(capsys):
     assert bench.main(["throughput", "--model", "mlp", "--global-batch",
                        "64", "--steps-per-call", "4", "--warmup-steps",
                        "4", "--bench-steps", "8", "--repeats", "1",
-                       "--inline"]) == 0
+                       "--num-devices", "1", "--inline"]) == 0
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rec["metric"] == "train_images_per_sec_per_chip"
     assert rec["value"] > 0 and rec["detail"]["backend"] == "cuda"
@@ -562,6 +565,69 @@ def test_ranks_on_their_own_cards_over_nccl(tmp_path):
     np.testing.assert_allclose(explicit["losses"], auto["losses"],
                                rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(auto["losses"], one["losses"], rtol=1e-4)
+
+
+# the bench's sweep and smoke over ranks: windows cut short
+BENCH_RANK_ARGS = {
+    "sweep": ("--sweep-batches", "64,512", "--steps-per-call", "16",
+              "--warmup-steps", "16", "--bench-steps", "32", "--repeats",
+              "1"),
+    "smoke": (),
+}
+
+
+def _bench_over_ranks(mode, tmp_path, n, chips, backend, env=None):
+    """The bench's `mode` at --model mlp over n ranks (--num-devices n;
+    the bench starts them): one record with n_chips `chips`, every rank
+    up on `backend` with dense_relu launched; the sweep measures its
+    all-reduce, and smoke restores on every rank."""
+    from torch_dp_util import run_bench
+
+    rc, records, _, err = run_bench(
+        [mode, "--model", "mlp", "--num-devices", str(n),
+         *BENCH_RANK_ARGS[mode], "--inline"], str(tmp_path), timeout=300,
+        env_extra=env)
+    assert rc == 0, err[-3000:]
+    assert len(records) == 1
+    d = records[0]["detail"]
+    assert d["backend"] == "cuda" and records[0]["value"] > 0
+    for r in range(n):
+        assert (f"[rank {r}] bench: backend up: {n}x cuda on {chips} "
+                f"chip(s) over {backend}") in err
+        [counts] = fused.parse_launches(err, f"[rank {r}] bench: launches ")
+        assert counts["dense_relu"] > 0
+    if mode == "sweep":
+        assert d["n_chips_measured"] == chips
+        assert d["allreduce_modeled"] is False
+        assert d["strong_scaling"]["step_ms"] == \
+            d["curve_img_s_chip"]["64"]["step_ms"]
+    else:
+        assert d["n_chips"] == chips and d["final_accuracy"] >= 0.85
+        assert d["legs"] == ["train", "eval", "checkpoint-save",
+                             "restore-resume", "accuracy-floor"]
+        assert err.count("restored checkpoint at step 64") == n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ("sweep", "smoke"))
+def test_bench_over_two_ranks_sharing_the_card(mode, tmp_path):
+    """The bench's sweep and smoke over 2 ranks on cuda:0: the ranks share
+    the card over gloo, so the record counts one chip."""
+    _need_card()
+    _bench_over_ranks(mode, tmp_path, 2, 1, "gloo",
+                      {"CUDA_VISIBLE_DEVICES": "0"})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ("sweep", "smoke"))
+def test_bench_over_ranks_on_their_own_cards_over_nccl(mode, tmp_path):
+    """On a machine with 2 or more cards, the bench's sweep and smoke over
+    one rank a card (up to 4) over NCCL, each card a chip."""
+    _need_card()
+    n = min(4, torch.cuda.device_count())
+    if n < 2:
+        pytest.skip("needs 2 or more cards: one rank a card")
+    _bench_over_ranks(mode, tmp_path, n, n, "nccl")
 
 
 # -- the rest of training -----------------------------------------------------
@@ -1270,14 +1336,16 @@ def test_training_runs_under_deterministic_algorithms_on_card(
 @pytest.mark.gpu
 def test_bench_time_to_accuracy_repeats_its_steps_on_card(capsys):
     """The bench's time-to-accuracy mode for LeNet-5 at its defaults (3
-    seeds), run twice: the same steps and evals to the target, and the
-    same final accuracy, seed by seed."""
+    seeds), one rank in this process (--num-devices 1), run twice: the
+    same steps and evals to the target, and the same final accuracy,
+    seed by seed."""
     _need_card()
     from distributedmnist_tpu_torch import bench
 
     runs = []
     for _ in range(2):
-        assert bench.main(["time-to-accuracy", "--inline"]) == 0
+        assert bench.main(["time-to-accuracy", "--num-devices", "1",
+                           "--inline"]) == 0
         rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
         d = rec["detail"]
         runs.append((d["steps_to_target"], d["evals_to_target"],
