@@ -4,8 +4,9 @@ card, data-parallel and tensor-parallel ranks sharing it, bfloat16, the
 streaming pipeline), its LeNet-5 serving path, its HTTP server, its
 request path, its replica fleet and cascade, multi-tenant, multi-model
 serving, the gateway over worker processes, trace replay and the
-autoscaler, its bench, and its analysis tools (the serving path run
-under the concurrency sanitizer) on one CUDA card.
+autoscaler, its bench, its analysis tools (the serving path run under
+the concurrency sanitizer) and serving over a card group on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -251,10 +252,23 @@ under the concurrency sanitizer) on one CUDA card.
    models at CALIBRATION_EPOCHS on 60,000 / 10,000 images, each accuracy
    in (0.1, 1]. Prints a `dryrun_phases` line: the legs and each leg's
    seconds, the audit, the calibration row, the launches.
-17. Prints a `kernels` JSON line (launches on each path, the
+17. Serving over a card group, as the JAX engine shards each batch over
+   its 'data' mesh: a registry over the group [cuda:0, cuda:0] (two
+   shards on the one card, the ladder 2..512) serves the MLP at float32,
+   bfloat16, int8 and the megakernel and LeNet-5 at float32, bfloat16
+   and int8, each variant through its gate: row counts from 1 to 512,
+   the fast lane's row route and an exact fit, and a batcher burst, each
+   against a one-card engine of the same weights (int8 bit for bit, the
+   float precisions within a parity gate); every kernel launches, on
+   counts of the group's calls only. With two or more cards visible,
+   `serve --num-devices 2` answers /predict over HTTP and the bench's
+   serve mode runs over every card (n_chips the card count); on one card
+   a line says they are skipped. Prints a `card_group_phases` line.
+18. Prints a `kernels` JSON line (launches on each path, the
    `bench_ranks` path among them, with the `fleet`, `cascade`, `tenancy`,
-   `gateway`, `replay_autoscale`, `sanitized`, `dryrun`, `train_audit`
-   and `calibration` paths also as columns of their own, error, times,
+   `gateway`, `replay_autoscale`, `sanitized`, `dryrun`, `train_audit`,
+   `calibration` and `card_group` paths also as columns of their own,
+   error, times,
    bound; dense_relu's entry lists
    the new shapes, dense_relu's and quant_dense's LeNet's serving
    shapes; each entry's `fastlane` its b = 1 case and fast-route
@@ -613,6 +627,14 @@ TENANCY_REQUESTS = 256
 TENANCY_BENCH_RUN = ("serve", "--model", "mlp", "--serve-duration", "0.5",
                      "--multimodel", "--swap-during-load", "--inline")
 # the root bench's r11 record's `multimodel` keys and r02's `swap` keys
+# phase 17: serving over a card group, two shards sharing the one card
+GROUP_MAX_BATCH = 512
+GROUP_ROWS = (1, 2, 3, 7, 64, 127, 128, 255, 256, 511, 512)
+GROUP_BURST = 64              # batcher requests of 1-8 rows a precision
+GROUP_HTTP_ROWS = 64
+GROUP_BENCH_RUN = ("serve", "--model", "mlp", "--serve-duration", "0.5",
+                   "--serve-qps", "100", "--serve-clients", "4",
+                   "--serve-max-batch", "64", "--no-artifact")
 TENANCY_RECORD_KEYS = {
     "multimodel": {"duration_s_per_phase", "fairness", "fairness_model",
                    "fairness_ok", "heavy_mixed_p99_ms", "host_contention_x",
@@ -2647,7 +2669,7 @@ def drive_fleet(params: dict) -> tuple[dict, list, object]:
     engines = registry.get("fit").engines
     streams = [e.stream for e in engines]
     if (None in streams or streams[0].cuda_stream == streams[1].cuda_stream
-            or len(set(factory.replica_devices)) != 1):
+            or len(set(map(tuple, factory.replica_devices))) != 1):
         raise RuntimeError(f"fleet placement: devices "
                            f"{factory.replica_devices}, streams {streams}")
     figures = {"warm_s": time.perf_counter() - t0}
@@ -3212,7 +3234,7 @@ def drive_tenancy_in_process(base: str) -> tuple[dict, list]:
             if sources != {m: f"checkpoint {base}/{m}"
                            for m in ("mlp", "lenet")}:
                 raise RuntimeError(f"tenancy sources {sources}")
-            streams = [e.factory.replica_streams[0]
+            streams = [e.factory.replica_streams[0][0]
                        for e in catalog.entries()]
             if (None in streams
                     or streams[0].cuda_stream == streams[1].cuda_stream):
@@ -4401,6 +4423,252 @@ def drive_multichip(card: str) -> tuple[dict, dict]:
     return figures, launches
 
 
+def _group_gate(model: str, dt: str, ref, got) -> dict:
+    """The two-shard engine against the one-card engine on the same rows:
+    int8 bit for bit (exact products); float32 at the card tests'
+    tolerance (rtol 1e-5, atol 1e-5 x the largest logit, 1e-4 x for
+    LeNet-5: cuDNN may pick another algorithm at another row count), so
+    a shard that computed in a lower precision fails; bfloat16 and the
+    megakernel within their parity gates."""
+    import numpy as np
+
+    from distributedmnist_tpu_torch.serve import PARITY_GATES
+    from distributedmnist_tpu_torch.utils import parity_check
+
+    if ref.shape != got.shape:
+        raise RuntimeError(f"card group {model} {dt}: shape {got.shape}, "
+                           f"want {ref.shape}")
+    if dt == "int8":
+        if ref.tobytes() != got.tobytes():
+            raise RuntimeError(f"card group {model} int8: not bit for bit "
+                               "the one-card engine's")
+        return {"bitwise": True}
+    if dt == "float32":
+        err = np.abs(got - ref)
+        atol = ((1e-4 if model == "lenet" else 1e-5)
+                * max(1.0, float(np.abs(ref).max())))
+        if not (np.isfinite(got).all()
+                and (err <= atol + 1e-5 * np.abs(ref)).all()):
+            raise RuntimeError(f"card group {model} float32: max abs "
+                               f"logit diff {float(err.max())} over atol "
+                               f"{atol} + rtol 1e-5")
+        return {"bitwise": ref.tobytes() == got.tobytes(),
+                "max_abs_logit_diff": float(err.max()), "atol": atol}
+    rep = parity_check(ref, got, *PARITY_GATES[dt])
+    if not rep["passed"]:
+        raise RuntimeError(f"card group {model} {dt}: {rep['why']}")
+    return {"bitwise": ref.tobytes() == got.tobytes(),
+            **{k: rep[k] for k in ("argmax_agreement",
+                                   "max_rel_logit_diff",
+                                   "max_abs_logit_diff")}}
+
+
+def drive_card_group(params: dict, lenet_params: dict,
+                     card: str) -> tuple[dict, dict]:
+    """Phase 17: serving over a card group, as the JAX engine shards each
+    batch over its 'data' mesh. On the one card, a registry whose factory
+    is the group [cuda:0, cuda:0] (two shards, each half of every bucket
+    on the card) serves the MLP at float32, bfloat16, int8 and the
+    megakernel and LeNet-5 at float32, bfloat16 and int8, each variant
+    through its parity gate: the live engine at GROUP_ROWS row counts,
+    its fast lane (a 1-row request on the row route, a 2-row exact fit)
+    and a batcher burst, each held against a one-card engine of the same
+    weights. The counts are the group's calls only, taken as
+    differences: every kernel must launch. With two or more cards,
+    `serve --num-devices 2` answers /predict and the bench's serve mode
+    runs over every card (n_chips the card count); on one card they are
+    skipped, and a line says so."""
+    import numpy as np
+    import torch
+
+    from distributedmnist_tpu_torch.bench import _drain_or_die
+    from distributedmnist_tpu_torch.data import synthetic_mnist
+    from distributedmnist_tpu_torch.ops import fused
+    from distributedmnist_tpu_torch.serve import (DynamicBatcher,
+                                                  EngineFactory,
+                                                  InferenceEngine,
+                                                  ModelRegistry,
+                                                  ServeMetrics)
+    from distributedmnist_tpu_torch.serve.quantize import PARITY_SEED
+
+    t_phase = time.perf_counter()
+    group = [torch.device("cuda", 0)] * 2
+    launched = {k: 0 for k in fused.LAUNCHES}
+    figures: dict = {"card": card, "devices": [str(d) for d in group]}
+    rng = np.random.default_rng(SEED + 17)
+    # held-out digits of the distribution both models were fit on (the
+    # parity batch's): random pixels leave near-tie logits, which a
+    # bfloat16 sum in another order flips
+    x = np.asarray(synthetic_mnist(seed=PARITY_SEED, train_n=16,
+                                   test_n=GROUP_MAX_BATCH)["test_x"])
+
+    def counted(fn):
+        before = dict(fused.LAUNCHES)
+        out = fn()
+        for k in launched:
+            launched[k] += fused.LAUNCHES[k] - before[k]
+        return out
+
+    for model, p, dtypes in (
+            ("mlp", params, ("float32", "bfloat16", "int8", "megakernel")),
+            ("lenet", lenet_params, ("float32", "bfloat16", "int8"))):
+        factory = EngineFactory(model, device="cuda",
+                                max_batch=GROUP_MAX_BATCH, devices=group)
+        if factory.n_chips != 2 or factory.buckets[0] != 2:
+            raise RuntimeError(f"card group {model}: n_chips "
+                               f"{factory.n_chips}, buckets "
+                               f"{factory.buckets}")
+        metrics = ServeMetrics()
+        router = factory.make_router(metrics=metrics)
+        registry = ModelRegistry(factory, router)
+        batcher = DynamicBatcher(router, max_batch=GROUP_MAX_BATCH,
+                                 max_wait_us=500, metrics=metrics).start()
+        try:
+            registry.add(p, version="v1")
+            registry.promote("v1")
+            for dt in dtypes:
+                t0 = time.perf_counter()
+                if dt != "float32":
+                    registry.add_variant("v1", dt)   # a refusal fails
+                registry.promote("v1", infer_dtype=dt)
+                mv = registry.get("v1")
+                eng = mv.engine if dt == "float32" else \
+                    mv.variants[dt].engine
+                if eng.n_chips != 2 or eng.devices != group:
+                    raise RuntimeError(f"card group {model} {dt}: engine "
+                                       f"over {eng.devices}")
+                one = InferenceEngine(model, p, device="cuda",
+                                      max_batch=GROUP_MAX_BATCH,
+                                      infer_dtype=dt)
+                rows = {}
+                for n in GROUP_ROWS:
+                    got = counted(lambda: eng.infer(x[:n]))
+                    rows[n] = _group_gate(model, dt, one.infer(x[:n]),
+                                          got)
+                # the fast lane: the row route (priced at warmup; forced
+                # on here, so that it is driven) and an exact fit
+                row_ok = eng._fast_row_ok
+                eng._fast_row_ok = True
+                try:
+                    h = counted(lambda: eng.dispatch_fast(x[:1]))
+                    if h is None:
+                        raise RuntimeError(f"card group {model} {dt}: the "
+                                           "row route did not serve")
+                    lane = {"row": _group_gate(
+                        model, dt, one.infer(x[:1]), eng.fetch(h))}
+                finally:
+                    eng._fast_row_ok = row_ok
+                h = counted(lambda: eng.dispatch_fast(x[:2]))
+                if h is None:
+                    raise RuntimeError(f"card group {model} {dt}: no "
+                                       "exact-fit route for 2 rows")
+                lane["exact"] = _group_gate(model, dt, one.infer(x[:2]),
+                                            eng.fetch(h))
+                # the batcher over the router, as a server drives it
+                sizes = rng.integers(1, 9, GROUP_BURST)
+                offs = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+
+                def burst():
+                    futs = [batcher.submit(x[o:o + n])
+                            for o, n in zip(offs, sizes)]
+                    out = np.concatenate([f.result(timeout=120)
+                                          for f in futs])
+                    _drain_or_die(batcher, timeout=120)
+                    return out
+
+                got = counted(burst)
+                want = np.concatenate([one.infer(x[o:o + n])
+                                       for o, n in zip(offs, sizes)])
+                figures[f"{model} {dt}"] = {
+                    "rows": rows[GROUP_MAX_BATCH], "rows_1": rows[1],
+                    "fastlane": lane,
+                    "fast_row_priced_on": row_ok,
+                    "burst": _group_gate(model, dt, want, got),
+                    "bucket_cost_ms": {
+                        str(b): round(c * 1e3, 4)
+                        for b, c in sorted(eng.bucket_costs().items())},
+                    "s": time.perf_counter() - t0}
+                print(f"card group {model} {dt}: "
+                      f"{json.dumps(figures[f'{model} {dt}'])}",
+                      flush=True)
+        finally:
+            batcher.stop()
+    missing = [k for k, n in launched.items() if n <= 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on the card group: "
+                           f"{missing}")
+
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        figures["cards"] = drive_card_group_cards(n_cards, launched)
+    else:
+        print("card group: one card visible; serve --num-devices 2 and "
+              "the bench over every card are skipped", flush=True)
+    figures["launches"] = dict(launched)
+    figures["phase_s"] = time.perf_counter() - t_phase
+    print("card_group_phases " + json.dumps(figures), flush=True)
+    return figures, {"card_group": launched}
+
+
+def drive_card_group_cards(n_cards: int, launched: dict) -> dict:
+    """With two or more cards: `serve --num-devices 2` over HTTP (its
+    /models names both cards; a 64-row /predict and single rows answer,
+    the classes those of a one-card engine of the same fresh-init
+    weights on 99% of rows or more), then the bench's serve mode over
+    every card (n_chips the card count). Their launch counts add to
+    `launched`."""
+    import numpy as np
+
+    from distributedmnist_tpu_torch import models
+    from distributedmnist_tpu_torch.ops import fused
+    from distributedmnist_tpu_torch.serve import InferenceEngine
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = _child_env()
+    out: dict = {"visible": n_cards}
+    srv = start_server(["--model", "mlp", "--num-devices", "2",
+                        "--serve-max-batch", str(GROUP_HTTP_ROWS)],
+                       env, here)
+    try:
+        healthy(srv)
+        desc = srv.ok("/models")
+        if desc.get("devices") != ["cuda:0", "cuda:1"]:
+            raise RuntimeError(f"serve --num-devices 2: devices "
+                               f"{desc.get('devices')}")
+        rng = np.random.default_rng(SEED + 18)
+        x = rng.integers(0, 256, (GROUP_HTTP_ROWS, 784), dtype=np.uint8)
+        want = InferenceEngine("mlp", models.init_params("mlp", SEED),
+                               device="cuda", max_batch=GROUP_HTTP_ROWS
+                               ).infer(x).argmax(axis=1)
+        got = np.asarray(srv.ok("/predict", data=x.tobytes())["classes"])
+        singles = [srv.ok("/predict", data=x[i].tobytes())["classes"][0]
+                   for i in range(4)]
+        agree = float(np.mean(got == want))
+        if got.shape != (GROUP_HTTP_ROWS,) or agree < 0.99 \
+                or singles != list(got[:4]):
+            raise RuntimeError(f"serve --num-devices 2: classes agree "
+                               f"{agree}, singles {singles}")
+        out["serve_2"] = {"devices": desc["devices"], "agreement": agree}
+    finally:
+        summary, counts = stop_server(srv)
+    for k in launched:
+        launched[k] += counts[k]
+    rc, rec, err = _bench_run(list(GROUP_BENCH_RUN), env, here)
+    if rc != 0 or rec is None:
+        raise RuntimeError(f"bench serve over every card exited {rc}:\n"
+                           f"{err[-4000:]}")
+    if rec["detail"]["n_chips"] != n_cards:
+        raise RuntimeError(f"bench serve over every card: n_chips "
+                           f"{rec['detail']['n_chips']}, {n_cards} visible")
+    for k, n in fused.parse_launches(err, "bench: launches ")[-1].items():
+        launched[k] += n
+    out["bench"] = {"n_chips": rec["detail"]["n_chips"],
+                    "value": rec["value"],
+                    "buckets": rec["detail"]["buckets"]}
+    print(f"card group over {n_cards} cards: {json.dumps(out)}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4581,6 +4849,10 @@ def main() -> int:
     launches.update(multichip_launches)
     lap("16 multichip")
 
+    _, group_launches = drive_card_group(params, lenet_params, card)
+    launches.update(group_launches)
+    lap("17 card group")
+
     line = []
     for name in ("dense_relu", "quant_dense", "mlp_megakernel"):
         timed = next(r for r in records if r["name"] == name
@@ -4601,6 +4873,7 @@ def main() -> int:
             "dryrun": launches["dryrun"][name],
             "train_audit": launches["train_audit"][name],
             "calibration": launches["calibration"][name],
+            "card_group": launches["card_group"][name],
             "max_abs_err": max(r["max_abs_err"] for r in records
                                if r["name"] == name),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],

@@ -312,7 +312,8 @@ class _RegFactory:
     max_batch = 8
     buckets = (8,)
     model = "mlp"
-    device = "cpu"          # describe() names it
+    device = "cpu"          # describe() names it and its group
+    devices = ("cpu",)
 
     def make_engine(self, params, version, replica: int = 0,
                     infer_dtype: str = "float32") -> _RegEngine:

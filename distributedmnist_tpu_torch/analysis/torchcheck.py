@@ -146,23 +146,28 @@ def key_str(model: str, infer_dtype: str, bucket) -> str:
 class AuditTarget:
     """One deployment shape: the knobs that decide which forwards the
     registry could ever serve. `buckets` overrides the ladder
-    make_buckets(serve_max_batch) would give."""
+    make_buckets(serve_max_batch, n_chips) would give. With n_chips > 1
+    the engine is a group engine (data-parallel over n_chips devices,
+    as jaxcheck's n_chips mesh): each rung b runs n_chips shard forwards
+    of b / n_chips rows, and the audit records that shard forward."""
 
     model: str
     serve_max_batch: int = 512
     serve_infer_dtype: str = "auto"
     buckets: Optional[tuple] = None
+    n_chips: int = 1
 
     def ladder(self) -> tuple:
         from distributedmnist_tpu_torch.serve.engine import make_buckets
 
         return (tuple(sorted(set(self.buckets))) if self.buckets
-                else make_buckets(self.serve_max_batch))
+                else make_buckets(self.serve_max_batch, self.n_chips))
 
     def label(self) -> str:
         lad = "" if not self.buckets else (
             "-b" + "_".join(str(b) for b in self.ladder()))
-        return (f"{self.model}-mb{self.serve_max_batch}"
+        chips = f"-c{self.n_chips}" if self.n_chips > 1 else ""
+        return (f"{self.model}-mb{self.serve_max_batch}{chips}"
                 f"-{self.serve_infer_dtype}{lad}")
 
 
@@ -236,7 +241,8 @@ class _WarmupProbe:
     they would serve instead of computing. The warmed set is derived
     from the warmup CODE, not from a model of it."""
 
-    def __init__(self, buckets: Sequence[int], infer_dtype: str):
+    def __init__(self, buckets: Sequence[int], infer_dtype: str,
+                 n_chips: int = 1):
         import torch
 
         from distributedmnist_tpu_torch.serve.engine import (
@@ -245,6 +251,9 @@ class _WarmupProbe:
         self.buckets = tuple(sorted(set(buckets)))
         self.infer_dtype = infer_dtype
         self.device = torch.device("cpu")
+        self.devices = [self.device] * n_chips
+        self.n_chips = n_chips
+        self.streams = [None] * n_chips
         self.stream = None
         self._pin = False
         self.warmed: set = set()
@@ -261,7 +270,7 @@ class _WarmupProbe:
         eng = InferenceEngine
         for name in ("bucket_for", "_warm_fastlane", "_on_stream",
                      "_fast_out_take", "_fast_out_put", "_row_host_take",
-                     "_row_host_put", "_stage_row"):
+                     "_row_host_put", "_stage_row", "_launch_row"):
             setattr(self, name, getattr(eng, name).__get__(self))
 
     def infer(self, x) -> None:
@@ -269,18 +278,20 @@ class _WarmupProbe:
 
     def _launch(self, x_dev, out) -> None:
         if x_dev is self._fast_row_buf:
-            self.warmed.add(f"{x_dev.shape[0]}-row")
+            self.warmed.add(f"{self._fast_row_b}-row")
         else:
             self.warmed.add(self.bucket_for(x_dev.shape[0]))
         return None
 
 
-def warmed_buckets(buckets: Sequence[int], infer_dtype: str) -> set:
+def warmed_buckets(buckets: Sequence[int], infer_dtype: str,
+                   n_chips: int = 1) -> set:
     """The rungs `InferenceEngine.warmup` actually runs for one engine
-    of this ladder (module-level so tests can plant a regression)."""
+    of this ladder over n_chips devices (module-level so tests can plant
+    a regression)."""
     from distributedmnist_tpu_torch.serve.engine import InferenceEngine
 
-    probe = _WarmupProbe(buckets, infer_dtype)
+    probe = _WarmupProbe(buckets, infer_dtype, n_chips)
     InferenceEngine.warmup(probe, cost_samples=1)
     return probe.warmed
 
@@ -499,11 +510,13 @@ def record_forward(engine, bucket: int, row: bool = False) -> _Recording:
     """Record the engine's served forward at one rung: the pooled
     program (x staged as the whole bucket) or, with `row`, the fast
     lane's row-staged program (one row copied into row 0 of the resident
-    buffer, then the same forward)."""
+    buffer, then the same forward). A group engine's rung runs one
+    forward a shard, each of bucket / n_chips rows, and the same program
+    on every device: the first device's is recorded."""
     import torch
 
-    x = torch.zeros((bucket, *_IMAGE_SHAPE), dtype=torch.uint8,
-                    device=engine.device)
+    x = torch.zeros((bucket // engine.n_chips, *_IMAGE_SHAPE),
+                    dtype=torch.uint8, device=engine.device)
     known = _resident_tensors(engine) + [x]
     staging = []
     if row:
@@ -550,14 +563,16 @@ def fingerprint_set_hash(fps: dict) -> str:
 
 
 def build_engine(model: str, infer_dtype: str, buckets: Sequence[int],
-                 device):
+                 device, n_chips: int = 1):
     """A real InferenceEngine of this (model, dtype, ladder) over the
-    seed-0 fresh-init weights (fingerprints never depend on values)."""
+    seed-0 fresh-init weights (fingerprints never depend on values); with
+    n_chips > 1 a group engine of n_chips shards on `device`."""
     from distributedmnist_tpu_torch import models
     from distributedmnist_tpu_torch.serve.engine import InferenceEngine
 
     return InferenceEngine(model, models.init_params(model, seed=0),
-                           device=device, max_batch=max(buckets),
+                           devices=[device] * n_chips,
+                           max_batch=max(buckets),
                            infer_dtype=infer_dtype, buckets=buckets)
 
 
@@ -571,13 +586,15 @@ def audit_target(target: AuditTarget, device) -> dict:
     dtypes = served_dtypes(target.model, target.serve_infer_dtype)
     reach = reachable_buckets(buckets, target.serve_max_batch)
     static = {dt: set(reach) for dt in dtypes}
-    warmed = {dt: warmed_buckets(buckets, dt) for dt in dtypes}
+    warmed = {dt: warmed_buckets(buckets, dt, target.n_chips)
+              for dt in dtypes}
     findings = crosscheck_keys(target.model, static, warmed,
                                target.serve_max_batch)
     fps: dict = {}
     row_b = fast_row_bucket(buckets)
     for dt in dtypes:
-        engine = build_engine(target.model, dt, buckets, device=device)
+        engine = build_engine(target.model, dt, buckets, device=device,
+                              n_chips=target.n_chips)
         rungs = [(b, False) for b in buckets]
         if row_b is not None:
             rungs.append((row_b, True))
@@ -596,6 +613,7 @@ def audit_target(target: AuditTarget, device) -> dict:
     return {
         "label": target.label(),
         "model": target.model,
+        "n_chips": target.n_chips,
         "buckets": list(buckets),
         "max_batch": target.serve_max_batch,
         "infer_dtypes": list(dtypes),
@@ -793,20 +811,22 @@ def run_audit(targets: Optional[list], device, with_train: bool = True,
 
 
 def compile_surface_summary(model: str, buckets: Sequence[int],
-                            max_batch: int, infer_dtype: str) -> dict:
+                            max_batch: int, infer_dtype: str,
+                            n_chips: int = 1) -> dict:
     """The compile-surface provenance block the bench's serve record
     carries: static key count + fingerprint-set hash for ONE deployment
-    geometry at its headline serving precision, enough for --baseline
-    to show when two records' served surfaces differ. The forwards run
-    on the CPU whatever device the record was measured on (`basis`): a
-    hash of the served op sequences, not a measurement of the card
-    (chip_smoke.py holds the card's fingerprints to the same snapshot)."""
+    geometry (its ladder over n_chips devices) at its headline serving
+    precision, enough for --baseline to show when two records' served
+    surfaces differ. The forwards run on the CPU whatever device the
+    record was measured on (`basis`): a hash of the served op sequences,
+    not a measurement of the card (chip_smoke.py holds the card's
+    fingerprints to the same snapshot)."""
     import torch
 
     r = audit_target(AuditTarget(
         model=model, serve_max_batch=max_batch,
-        serve_infer_dtype=infer_dtype, buckets=tuple(buckets)),
-        device="cpu")
+        serve_infer_dtype=infer_dtype, buckets=tuple(buckets),
+        n_chips=n_chips), device="cpu")
     return {
         "static_keys": r["static_keys"],
         "fingerprint_set_hash": fingerprint_set_hash(r["fingerprints"]),

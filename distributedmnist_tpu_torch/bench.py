@@ -86,8 +86,13 @@ as one chip in n_chips). More than one rank starts them here through
 parallel/launch.py, inside the supervised worker, as the train CLI
 does: rank 0 prints the record, every rank its `[rank r] bench:
 launches {...}` line, and a rank that fails ends the run non-zero with
-no record. The serve mode stays in one process (its replicas span cards
-in process).
+no record. The serve mode stays in one process and serves over the same
+cards, as the root bench's engine shards each batch over its mesh: every
+batch is split over every visible card (--num-devices N: the first N;
+more than are visible fails), --serve-replicas cuts them among the
+replicas by the JAX registry's rule (equal slices when they divide,
+else logical replicas over all of them), and images/s per chip divides
+by the cards served over.
 
 Runs on the card; --device cpu runs on the CPU, and without a card the
 bench raises. --dtype bfloat16 trains in bfloat16 (throughput,
@@ -192,9 +197,11 @@ def _parser() -> argparse.ArgumentParser:
                         "when asked)")
     p.add_argument("--model", choices=["mlp", "lenet"], default="lenet")
     p.add_argument("--num-devices", type=int, default=None,
-                   help="[throughput/time-to-accuracy/sweep/smoke] ranks, "
-                        "one device each (default: every visible card, "
-                        "or 1 on the cpu); N > 1 starts N local ranks")
+                   help="the first N devices (default: every visible "
+                        "card, or 1 on the cpu). Training modes: one "
+                        "rank a device, N > 1 starts N local ranks; "
+                        "serve: the cards each batch is sharded over "
+                        "(cut among --serve-replicas)")
     p.add_argument("--dtype", choices=["float32", "bfloat16"],
                    default="float32",
                    help="training compute dtype (throughput, "
@@ -411,13 +418,8 @@ def _parse(argv) -> argparse.Namespace:
                     f"--mode {args.mode!r}")
         args.mode = args.mode_pos
     args.mode = args.mode or "throughput"
-    if args.num_devices is not None:
-        if args.mode == "serve":
-            p.error("--num-devices is a training-mode flag; the serve "
-                    "mode runs in one process (--serve-replicas spans "
-                    "cards in it)")
-        if args.num_devices < 1:
-            p.error("--num-devices must be >= 1")
+    if args.num_devices is not None and args.num_devices < 1:
+        p.error("--num-devices must be >= 1")
     serve_flags = {"--serve-qps": args.serve_qps,
                    "--serve-duration": args.serve_duration,
                    "--serve-clients": args.serve_clients,
@@ -2085,7 +2087,7 @@ def contention_probe(catalog, n: int = 30) -> dict:
 
 
 def _serve_multimodel_leg(compiles, device: str, duration: float,
-                          rows: int) -> dict:
+                          rows: int, num_devices=None) -> dict:
     """The multi-tenant leg (the root bench's): MLP and LeNet-5 resident
     in one process behind the global DRR/EDF scheduler, on a catalog and
     scheduler of their own (the main single-model stack is untouched).
@@ -2111,7 +2113,8 @@ def _serve_multimodel_leg(compiles, device: str, duration: float,
     # weights only when affording a head takes several credit scans (one
     # that covers every head at once degenerates to round robin)
     cfg = Config(
-        model="mlp", device=device, serve_models="mlp,lenet",
+        model="mlp", device=device, num_devices=num_devices,
+        serve_models="mlp,lenet",
         serve_tenants=(f"light:weight={weights['light']:g},"
                        "deadline_ms=5000,model=mlp;"
                        f"heavy:weight={weights['heavy']:g},"
@@ -3084,6 +3087,7 @@ def _serve(args) -> int:
 
     on_cpu = resolve_device(args.device).type == "cpu"
     cfg = Config(model=args.model, device=args.device,
+                 num_devices=args.num_devices,
                  checkpoint_dir=args.checkpoint_dir,
                  serve_max_batch=(args.serve_max_batch
                                   or (128 if on_cpu else 512)),
@@ -3104,13 +3108,16 @@ def _serve(args) -> int:
             _mark(f"REFUSING --baseline {args.baseline}: {why}")
             return REFUSED
     # the replica fleet (--serve-replicas >= 2): the fleet leg and the
-    # chaos replica kill hang off it, and images/s per chip divides by
-    # the fleet's distinct cards
+    # chaos replica kill hang off it. images/s per chip divides by every
+    # card the process serves over (--num-devices, default all of them),
+    # as the root bench divides by its mesh
     fleet = router if getattr(router, "n_replicas", 1) > 1 else None
     n_chips = factory.total_chips
-    _mark(f"backend up: {n_chips}x {factory.platform}"
-          + (f", {fleet.n_replicas} replicas" if fleet is not None
-             else ""))
+    _mark(f"backend up: {n_chips}x {factory.platform}, buckets "
+          f"{list(factory.buckets)}"
+          + (f", {fleet.n_replicas} replicas on "
+             f"{[[str(d) for d in g] for g in factory.replica_devices]}"
+             if fleet is not None else ""))
     # `is None`, not `or`: an explicit 0 (no coalescing wait) is honoured
     max_wait_us = (cfg.serve_max_wait_us if args.serve_max_wait_us is None
                    else args.serve_max_wait_us)
@@ -3341,7 +3348,8 @@ def _serve(args) -> int:
     multimodel_leg = None
     if args.multimodel:
         multimodel_leg = _serve_multimodel_leg(compiles, args.device,
-                                               duration, rows)
+                                               duration, rows,
+                                               args.num_devices)
     chaos = None
     if args.chaos:
         from distributedmnist_tpu_torch.serve import trace as trace_lib
@@ -3420,7 +3428,8 @@ def _serve(args) -> int:
     from distributedmnist_tpu_torch.analysis import torchcheck
 
     compile_surface = torchcheck.compile_surface_summary(
-        args.model, factory.buckets, factory.max_batch, headline_dtype)
+        args.model, factory.buckets, factory.max_batch, headline_dtype,
+        n_chips=factory.n_chips)
     _mark(f"compile surface: {compile_surface['static_keys']} static "
           f"keys at {headline_dtype}, fingerprint set "
           f"{compile_surface['fingerprint_set_hash']}")
@@ -3468,9 +3477,10 @@ def _serve(args) -> int:
             "swap": swap,
             "multimodel": multimodel_leg,
             "trace_replay": trace_replay_leg,
-            # the fleet (None on one replica): where each replica runs
-            # (its own card, or a stream of its own on a shared one), the
-            # scaling leg and the fleet's state at the end
+            # the fleet (None on one replica): which cards each replica
+            # owns (an equal slice, or all of them as a logical replica
+            # with streams of its own), the scaling leg and the fleet's
+            # state at the end
             "replicas": ({
                 "count": fleet.n_replicas,
                 "per_replica_inflight": fleet.per_replica_inflight,
@@ -3480,7 +3490,7 @@ def _serve(args) -> int:
                                      * fleet.n_replicas),
                 "provenance": [
                     {"id": rep.rid,
-                     "devices": [str(factory.replica_devices[i])]}
+                     "devices": [str(d) for d in factory.replica_devices[i]]}
                     for i, rep in enumerate(fleet.replicas)],
                 "fleet_leg": fleet_leg,
                 "final": fleet.snapshot(),
@@ -3593,7 +3603,8 @@ class _GatewayFleet:
                           ("--serve-infer-dtype", args.serve_infer_dtype),
                           ("--serve-cache-capacity",
                            args.serve_cache_capacity),
-                          ("--checkpoint-dir", args.checkpoint_dir)):
+                          ("--checkpoint-dir", args.checkpoint_dir),
+                          ("--num-devices", args.num_devices)):
             if val is not None:
                 argv += [flag, str(val)]
         if args.no_adaptive:

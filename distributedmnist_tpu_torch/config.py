@@ -53,7 +53,10 @@ class Config:
     device: str = "cuda"            # {cuda, cpu}
     # data parallelism: one rank per device (parallel/). num_devices is
     # the world size; None = every rank of the process group (the train
-    # CLI starts one a visible card, or 1 on the cpu).
+    # CLI starts one a visible card, or 1 on the cpu). Serving runs in
+    # one process over the first num_devices cards (None = every
+    # visible card, or the one cpu device), each batch sharded over
+    # them (parallel/mesh.py get_devices).
     num_devices: Optional[int] = None
     # auto: DistributedDataParallel; explicit: one hand-written
     # all-reduce of the flattened gradients per optimizer step
@@ -281,9 +284,12 @@ def add_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    help="where the port runs (default cuda; cpu only "
                         "when asked)")
     p.add_argument("--num-devices", type=int, default=None,
-                   help="ranks, one device each (default: every visible "
-                        "card, or 1 on the cpu); N > 1 without the "
-                        "coordinator flags starts N local ranks")
+                   help="the first N devices (default: every visible "
+                        "card, or 1 on the cpu). Training: one rank a "
+                        "device, N > 1 without the coordinator flags "
+                        "starts N local ranks. Serving: the cards each "
+                        "batch is sharded over, cut among "
+                        "--serve-replicas")
     p.add_argument("--spmd-mode", choices=["auto", "explicit"], default=None)
     p.add_argument("--model-parallel", type=int, default=None,
                    help="tensor-parallel degree: ranks r with the same "

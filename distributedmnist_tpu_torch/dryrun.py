@@ -226,13 +226,25 @@ def run_group_legs(n: int, device: str, work_dir: str,
 # -- serve-reload (this process) -------------------------------------------
 
 
+def serve_group(n: int, device: str) -> list:
+    """The n devices of JAX's serve-reload mesh: the first n visible
+    cards, a card taking several shards when fewer are visible, or n
+    logical shards on the one cpu device."""
+    from distributedmnist_tpu_torch.parallel.mesh import get_devices
+
+    visible = get_devices(device)
+    return [visible[i % len(visible)] for i in range(n)]
+
+
 def serve_reload(n: int, device: str) -> dict:
     """The registry's hot swap through the real batcher and router: the
-    MLP float32 engines at max_batch 2n, v1 promoted and served 1, n and
-    2n rows, v2 added (warmed off the hot path), promoted and served
-    again. Nothing is built across the swap (serve.server.compiles_total
-    grows by 0) and v2 is live. Returns the kernels' launches during the
-    two served rounds (after every engine is warm)."""
+    MLP float32 engines at max_batch 2n, data-parallel over n devices
+    (serve_group) as JAX's engines are over its n-device mesh, v1
+    promoted and served 1, n and 2n rows, v2 added (warmed off the hot
+    path), promoted and served again. Nothing is built across the swap
+    (serve.server.compiles_total grows by 0) and v2 is live. Returns the
+    kernels' launches during the two served rounds (after every engine
+    is warm)."""
     import numpy as np
 
     from distributedmnist_tpu_torch.ops import fused
@@ -242,7 +254,8 @@ def serve_reload(n: int, device: str) -> dict:
                                                   ServeMetrics)
     from distributedmnist_tpu_torch.serve.server import compiles_total
 
-    factory = EngineFactory("mlp", device=device, max_batch=2 * n)
+    factory = EngineFactory("mlp", device=device, max_batch=2 * n,
+                            devices=serve_group(n, device))
     metrics = ServeMetrics()
     router = factory.make_router(metrics=metrics)
     registry = ModelRegistry(factory, router)

@@ -7,12 +7,17 @@ runs one rank per device (parallel/distributed.py), so there is no mesh
 object: a rank holds one device, and the 'data' sharding of a global
 batch becomes the rank's contiguous column slice of it, the block
 `[r*B/n, (r+1)*B/n)` that `P('data')` puts on device r of n.
+
+Serving is the exception: one process serves over a group of cards, as
+the JAX engine shards each batch over its whole 'data' mesh.
+`get_devices` is that group (JAX's get_devices) and `place_replicas`
+cuts it among a fleet's replicas by the JAX registry's rule.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -53,6 +58,42 @@ def get_device(device: str = "cuda",
                            % torch.cuda.device_count())
         torch.cuda.set_device(dev)
     return dev
+
+
+def get_devices(device: str = "cuda",
+                num_devices: Optional[int] = None) -> list[torch.device]:
+    """The devices one serving process runs over: the first `num_devices`
+    visible cards, or every one of them by default; on the cpu, the one
+    CPU device. Asking for more than are visible raises, in the JAX
+    package's words; nothing falls back to fewer."""
+    dev = resolve_device(device)
+    visible = ([torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+               if dev.type == "cuda" else [dev])
+    if num_devices is None:
+        return visible
+    if num_devices < 1:
+        raise ValueError(f"num_devices must be >= 1, got {num_devices}")
+    if num_devices > len(visible):
+        raise RuntimeError(
+            f"requested {num_devices} devices, only {len(visible)} visible "
+            f"(on the {dev.type}; CUDA_VISIBLE_DEVICES limits the cards)")
+    return visible[:num_devices]
+
+
+def place_replicas(devices: Sequence, replicas: int) -> list[list]:
+    """Each of `replicas` fleet replicas' devices, by the JAX registry's
+    rule: with N devices, N >= replicas and N % replicas == 0, replica i
+    takes the equal slice `devices[i*N/R:(i+1)*N/R]`; otherwise every
+    replica is a logical replica over all N."""
+    if replicas < 1:
+        raise ValueError(f"replicas must be >= 1, got {replicas}")
+    devices = list(devices)
+    n = len(devices)
+    if replicas > 1 and n >= replicas and n % replicas == 0:
+        k = n // replicas
+        return [devices[i * k:(i + 1) * k] for i in range(replicas)]
+    return [list(devices) for _ in range(replicas)]
 
 
 def chip_count(dev: torch.device) -> int:

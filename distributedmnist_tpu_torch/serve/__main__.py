@@ -51,7 +51,14 @@ It does not compose with --serve-cascade, --serve-replicas above 1 or
 --serve-fastlane, and runs without the resilience policy, as the root
 serve.py does.
 
-Runs on the card; pass --device cpu to run on the CPU.
+Runs on the card; pass --device cpu to run on the CPU. On the card it
+serves over every visible card, each batch sharded over all of them as
+the JAX engine shards it over its 'data' mesh; --num-devices N serves
+over the first N (more than are visible is refused). --serve-replicas
+cuts those cards among the replicas: equal slices when the replicas
+divide them, else every replica over all of them. On the CPU it serves
+over the one CPU device. A --gateway worker is this CLI with the same
+flags, so each worker serves over the same cards.
 
     python -m distributedmnist_tpu_torch.train --preset lenet-adam \\
         --synthetic --steps 1000 --checkpoint-dir ckpt
@@ -393,10 +400,11 @@ def main(argv=None) -> int:
                  autoscaler.floor, autoscaler.ceiling, autoscaler.low,
                  autoscaler.high, autoscaler.cooldown_s,
                  autoscaler.interval_s)
-    log.info("dispatch pipeline depth: %d; buckets %s; device %s; "
+    log.info("dispatch pipeline depth: %d; buckets %s; devices %s; "
              "replicas %d%s; fast lane %s; cache %s; dedup %s; cascade "
              "%s", batcher.max_inflight, list(factory.buckets),
-             factory.device, cfg.serve_replicas,
+             [[str(d) for d in g] for g in factory.replica_devices],
+             cfg.serve_replicas,
              " (hedged)" if cfg.serve_hedge else "",
              "on" if cfg.serve_fastlane else "off",
              "on" if cache is not None else "off",
@@ -414,6 +422,7 @@ def main(argv=None) -> int:
             summary = selftest(front, metrics, args.selftest or 256,
                                factory.max_batch)
             summary["device"] = str(factory.device)
+            summary["devices"] = [str(d) for d in factory.devices]
             summary["live_infer_dtype"] = router.live_infer_dtype()
             summary["versions"] = registry.describe()["versions"]
             if scheduler is not None:

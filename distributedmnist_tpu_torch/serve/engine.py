@@ -45,11 +45,27 @@ max_inflight fast requests can be in flight beside the pooled pipeline.
 warmup() prices the row route against the covering bucket's pooled
 dispatch and turns it off where it is slower (`_warm_fastlane`).
 
-An engine built with a `stream` (each replica of a fleet on one card has
-its own) launches its copies and kernels on that stream and records its
-events there, so two replicas never queue behind each other; without
-one it uses the device's current stream. The stream first waits for the
-work that built the engine's parameters on the current stream.
+An engine built with `streams`, one a device (each replica of a fleet
+has its own), launches each shard's copies and kernels on its device's
+stream and records its events there, so two replicas never queue behind
+each other; a None stream is the device's current stream. Each stream
+first waits for the work that built the engine's parameters on the
+current stream.
+
+**A group of devices** (`devices=[...]`, the JAX engine's 'data' mesh):
+the engine is data-parallel over them. The parameters, and a variant's
+prepared weights (prepared once), are copied once to each distinct
+device; the ladder is `make_buckets(max_batch, n_chips)`, multiples of
+n_chips = len(devices). dispatch() pads into the pooled pinned buffer
+and then, for each shard i, copies its equal block of rows to device i
+on that device's stream (`streams[i]`, or its current stream), launches
+the forward there and copies the logits back into its block of the
+pinned output, recording one event a shard; fetch() waits on them all.
+The exact-fit fast route splits the same way; the row-staged one runs
+shard 0 alone, whose first row is the request (its resident buffer is
+one shard's rows on the first device). A shard that fails to launch
+fails the dispatch. Several shards may share one device (on the CPU,
+or two shards on one card), which runs the same split and gather.
 
 Failpoints `engine.dispatch` and `engine.fetch` (serve/faults.py), the
 span `engine.staging` (serve/trace.py) and the concurrency sanitizer's
@@ -66,7 +82,7 @@ import dataclasses
 import logging
 import statistics
 import time
-from typing import Any, Optional, Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -118,7 +134,7 @@ class InferenceHandle:
     n: int                        # real rows (the rest is padding)
     bucket: int
     staging: Optional[_Staging]   # recycled on fetch; None after
-    done: Any = None              # torch.cuda.Event on the card, else None
+    done: tuple = ()              # a shard's torch.cuda.Event each (card)
     version: Optional[str] = None
     infer_dtype: Optional[str] = None
     # A fast-lane handle: no staging pair; its own output buffer `out`
@@ -150,47 +166,63 @@ class InferenceEngine:
                  max_batch: int = 512, version: Optional[str] = None,
                  infer_dtype: str = "float32",
                  buckets: Optional[Sequence[int]] = None,
-                 stream=None):
-        from distributedmnist_tpu_torch import models
-
-        self.device = resolve_device(device)
+                 devices: Optional[Sequence] = None,
+                 streams: Optional[Sequence] = None):
+        self.devices = [resolve_device(d)
+                        for d in (devices if devices else [device])]
+        if len({d.type for d in self.devices}) != 1:
+            raise ValueError(f"an engine's devices must be of one kind, "
+                             f"got {self.devices}")
+        self.device = self.devices[0]
+        self.n_chips = len(self.devices)
         self.platform = self.device.type
         self.version = version
         self.infer_dtype = infer_dtype
         self.max_batch = max_batch
         self.buckets = (tuple(sorted(set(buckets))) if buckets
-                        else make_buckets(max_batch))
+                        else make_buckets(max_batch, self.n_chips))
+        if any(b % self.n_chips for b in self.buckets):
+            raise ValueError(
+                f"buckets {self.buckets} must be multiples of the "
+                f"data-parallel width {self.n_chips}")
+        self.streams = (list(streams) if streams is not None
+                        else [None] * self.n_chips)
+        if len(self.streams) != self.n_chips:
+            raise ValueError(f"give one stream a device: {self.n_chips} "
+                             f"devices, {len(self.streams)} streams")
+        self.stream = self.streams[0]
         self._pin = self.device.type == "cuda"
         if self._pin:
             pin_float32_numerics()
-        # The float32 parameters on the device: the registry builds every
-        # variant of a version from these.
+        # The float32 parameters on the first device: the registry builds
+        # every variant of a version from these.
         self.params = {k: torch.as_tensor(v).detach().to(self.device)
                        for k, v in params.items()}
-        if infer_dtype == "float32":
-            net = models.build(model, device=self.device)
-            net.load_state_dict(self.params)
-            net.eval()
-
-            def forward(x_u8):
-                # cast + /255 in-step: the host->device copy stays uint8
-                return net(x_u8.to(torch.float32) / 255.0)
-        else:
+        # One forward a distinct device, over its own copy of the same
+        # bits; the first device's is also self._forward.
+        prep = None
+        if infer_dtype != "float32":
             from distributedmnist_tpu_torch.serve.quantize import \
                 prepare_inference
 
             prep, fast_forward = prepare_inference(model, self.params,
                                                    infer_dtype)
-            prep = {k: v.to(self.device) for k, v in prep.items()}
-
-            def forward(x_u8):
-                return fast_forward(prep, x_u8)
-        self._forward = forward
-        self.stream = stream
-        if stream is not None:
-            # the parameters (and their quantized forms) were written on
-            # the current stream: dispatches on this one must see them
-            stream.wait_stream(torch.cuda.current_stream(self.device))
+        self._device_forwards = {}
+        for d in dict.fromkeys(self.devices):
+            if prep is None:
+                on_d = (self.params if d == self.device else
+                        {k: v.to(d) for k, v in self.params.items()})
+                self._device_forwards[d] = self._float32_forward(model,
+                                                                 on_d, d)
+            else:
+                self._device_forwards[d] = self._variant_forward(
+                    fast_forward, {k: v.to(d) for k, v in prep.items()})
+        for d, s in zip(self.devices, self.streams):
+            if s is not None:
+                # the parameters (and their quantized forms) were written
+                # on the current stream: dispatches on this one must see
+                # them
+                s.wait_stream(torch.cuda.current_stream(d))
         # Host staging pairs, one free-list per bucket: bounded by the
         # caller's dispatched-but-unfetched window, never by traffic.
         self._staging_pool: dict[int, list[_Staging]] = {
@@ -214,6 +246,36 @@ class InferenceEngine:
         self._fast_row_ok = False
         self._fast_row_cost: Optional[float] = None
         self._fast_row_lock = make_lock("engine.fastlane")
+
+    @property
+    def _forward(self):
+        """The first device's forward (what a one-device engine runs)."""
+        return self._device_forwards[self.device]
+
+    @_forward.setter
+    def _forward(self, forward) -> None:
+        self._device_forwards[self.device] = forward
+
+    @staticmethod
+    def _float32_forward(model: str, params: dict, device):
+        from distributedmnist_tpu_torch import models
+
+        net = models.build(model, device=device)
+        net.load_state_dict(params)
+        net.eval()
+
+        def forward(x_u8):
+            # cast + /255 in-step: the host->device copy stays uint8
+            return net(x_u8.to(torch.float32) / 255.0)
+
+        return forward
+
+    @staticmethod
+    def _variant_forward(fast_forward, prep: dict):
+        def forward(x_u8):
+            return fast_forward(prep, x_u8)
+
+        return forward
 
     # -- bucketing ---------------------------------------------------------
 
@@ -274,25 +336,54 @@ class InferenceEngine:
 
     # -- inference ---------------------------------------------------------
 
-    def _on_stream(self):
-        """The context every launch of this engine runs in: its own
-        stream (and card) when it has one, else nothing to enter."""
-        if self.stream is None:
+    def _on_stream(self, shard: int = 0):
+        """The context every launch of shard `shard` runs in: its own
+        stream (and card) when it has one, else nothing to enter (its
+        copies and kernels then run on the current stream of the card
+        their tensors are on, whichever card is current)."""
+        stream = self.streams[shard]
+        if stream is None:
             return contextlib.nullcontext()
-        return torch.cuda.stream(self.stream)
+        return torch.cuda.stream(stream)
 
-    def _launch(self, x_dev: torch.Tensor, out: torch.Tensor):
-        """Launch the forward on `x_dev` and the copy of its logits into
-        the host buffer `out` (the caller is inside _on_stream); returns
-        the event that marks the copy done (None on the CPU, where both
-        ran already)."""
-        logits = self._forward(x_dev)
+    def _launch(self, x_dev: torch.Tensor, out: torch.Tensor,
+                shard: int = 0):
+        """Launch shard `shard`'s forward on `x_dev` and the copy of its
+        logits into the host buffer `out` (the caller is inside
+        _on_stream(shard)); returns the event that marks the copy done
+        (None on the CPU, where both ran already)."""
+        dev = self.devices[shard]
+        logits = self._device_forwards[dev](x_dev)
         out.copy_(logits, non_blocking=True)
         if not self._pin:
             return None
         done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self.device))
+        done.record(torch.cuda.current_stream(dev))
         return done
+
+    def _launch_split(self, x_host: torch.Tensor, out: torch.Tensor,
+                      non_blocking: bool = True) -> tuple:
+        """Split the host rows `x_host` into n_chips equal blocks and, for
+        each, copy it to its shard's device, launch the forward there and
+        copy the logits into the same block of `out`. Returns the shards'
+        events. When a shard fails, the ones already launched are waited
+        for before the error goes on, so that no copy still reads or
+        writes a buffer the caller then recycles."""
+        rows = x_host.shape[0] // self.n_chips
+        events = []
+        try:
+            for i, dev in enumerate(self.devices):
+                blk = slice(i * rows, (i + 1) * rows)
+                with self._on_stream(i):
+                    x_dev = x_host[blk].to(dev, non_blocking=non_blocking)
+                    done = self._launch(x_dev, out[blk], i)
+                if done is not None:
+                    events.append(done)
+        except BaseException:
+            for done in events:
+                done.synchronize()
+            raise
+        return tuple(events)
 
     def dispatch(self, x) -> InferenceHandle:
         """Pad `x` — one uint8 image array or a list of them (coalesced
@@ -319,9 +410,8 @@ class InferenceEngine:
                     off += p.shape[0]
                 if n < b:
                     staging.x_np[n:] = 0
-                with torch.inference_mode(), self._on_stream():
-                    x_dev = staging.x.to(self.device, non_blocking=True)
-                    done = self._launch(x_dev, staging.out)
+                with torch.inference_mode():
+                    done = self._launch_split(staging.x, staging.out)
                 dispatched = True
             finally:
                 if not dispatched:
@@ -344,17 +434,18 @@ class InferenceEngine:
         with self._staging_lock:
             self._fast_out_pool[bucket].append(out)
 
-    def _stage_exact(self, x: np.ndarray) -> torch.Tensor:
-        """Exact-fit route: the request's own rows, copied to the device
-        from pageable memory. That copy returns once it has run, after
-        the work queued before it on the stream; a lane request waits for
-        that work at its fetch anyway (one stream). Staging through a
-        pinned tensor of torch's caching host allocator, and the pooled
+    def _launch_exact(self, x: np.ndarray, out: torch.Tensor) -> tuple:
+        """Exact-fit route: the request's own rows, each shard's block
+        copied to its device from pageable memory. That copy returns once
+        it has run, after the work queued before it on the stream; a lane
+        request waits for that work at its fetch anyway. Staging through
+        a pinned tensor of torch's caching host allocator, and the pooled
         dispatch, time within a few percent of this copy at b = 1 on an
         H100 (chip_smoke.py times all three), so the route takes the
         simplest one. The array is copied first: an HTTP body is a
         read-only buffer."""
-        return torch.from_numpy(np.array(x)).to(self.device)
+        return self._launch_split(torch.from_numpy(np.array(x)), out,
+                                  non_blocking=False)
 
     def _row_host_take(self, x: np.ndarray) -> torch.Tensor:
         """A pinned one-row host buffer holding `x`, taken outside the
@@ -376,10 +467,18 @@ class InferenceEngine:
 
     def _stage_row(self, host: torch.Tensor) -> torch.Tensor:
         """Row-staged route (the caller holds the fast-row lock): copy
-        the pinned host row into row 0 of the resident device buffer and
-        return the buffer. Nothing here waits for the card."""
+        the pinned host row into row 0 of the resident device buffer (on
+        the first device: shard 0's rows) and return the buffer. Nothing
+        here waits for the card."""
         self._fast_row_buf[0:1].copy_(host, non_blocking=True)
         return self._fast_row_buf
+
+    def _launch_row(self, host: torch.Tensor, out: torch.Tensor):
+        """Stage `host` by the row route and launch shard 0 on the
+        resident buffer, its logits into the first rows of `out` (the
+        caller holds the fast-row lock and is inside _on_stream())."""
+        buf = self._stage_row(host)
+        return self._launch(buf, out[:buf.shape[0]])
 
     def dispatch_fast(self, x) -> Optional[InferenceHandle]:
         """The fast lane's dispatch: stage `x` by a resident route and
@@ -405,17 +504,18 @@ class InferenceEngine:
             host = None if n == b else self._row_host_take(x)
             dispatched = False
             try:
-                with torch.inference_mode(), self._on_stream():
+                with torch.inference_mode():
                     if host is None:
-                        done = self._launch(self._stage_exact(x), out)
+                        done = self._launch_exact(x, out)
                     else:
                         if not self._fast_row_lock.acquire(blocking=False):
                             return None   # busy: the pooled path serves
                         try:
-                            done = self._launch(self._stage_row(host),
-                                                out)
+                            with self._on_stream():
+                                done = self._launch_row(host, out)
                         finally:
                             self._fast_row_lock.release()
+                        done = () if done is None else (done,)
                 dispatched = True
             finally:
                 if not dispatched:
@@ -441,8 +541,8 @@ class InferenceEngine:
                 failpoint("engine.fetch", version=handle.version,
                           rows=handle.n)
                 blocking("engine.fetch device->host sync")
-                if handle.done is not None:
-                    handle.done.synchronize()
+                for done in handle.done:
+                    done.synchronize()
                 return out.numpy()[:handle.n].copy()
             finally:
                 handle.out = None
@@ -461,8 +561,8 @@ class InferenceEngine:
             # the host waits here for the card (on the CPU the batch is
             # already done): flagged if a hot-path lock is held
             blocking("engine.fetch device->host sync")
-            if handle.done is not None:
-                handle.done.synchronize()
+            for done in handle.done:
+                done.synchronize()
             return staging.out.numpy()[:handle.n].copy()
         finally:
             handle.staging = None
@@ -499,7 +599,8 @@ class InferenceEngine:
         builds = kernel_lib.load_events() - before
         log.info("serve engine warm [%s on %s]: %d buckets %s (%d kernel "
                  "library loads); bucket cost ms %s", self.infer_dtype,
-                 self.device, len(self.buckets), list(self.buckets), builds,
+                 ", ".join(map(str, self.devices)), len(self.buckets),
+                 list(self.buckets), builds,
                  {b: round(c * 1e3, 3)
                   for b, c in sorted(self._bucket_cost.items())})
         return builds
@@ -507,15 +608,16 @@ class InferenceEngine:
     def _warm_fastlane(self, costs: dict) -> None:
         """Allocate the row route's resident buffers, run it, and price
         it: it serves only when its median single-row cost is no worse
-        than the covering bucket's pooled dispatch (`costs`, this
-        warmup's). A no-op for ladders whose smallest rung is 1."""
+        than the covering bucket's pooled dispatch over the whole group
+        (`costs`, this warmup's). A no-op for ladders whose smallest rung
+        is 1. In a group the buffer is shard 0's rows of the rung."""
         b = self._fast_row_b
         if b is None:
             return
         if self._fast_row_buf is None:
             with self._on_stream():       # zeroed where it is read
-                buf = torch.zeros((b, *IMAGE_SHAPE), dtype=torch.uint8,
-                                  device=self.device)
+                buf = torch.zeros((b // self.n_chips, *IMAGE_SHAPE),
+                                  dtype=torch.uint8, device=self.device)
             with self._fast_row_lock:
                 self._fast_row_buf = buf
         row = np.zeros((1, *IMAGE_SHAPE), np.uint8)
@@ -527,7 +629,7 @@ class InferenceEngine:
                 t0 = time.perf_counter()
                 with self._fast_row_lock:
                     with torch.inference_mode(), self._on_stream():
-                        done = self._launch(self._stage_row(host), out)
+                        done = self._launch_row(host, out)
                 if done is not None:
                     # outside the lane lock: warmup's own wait
                     blocking("engine.warmup device->host sync")

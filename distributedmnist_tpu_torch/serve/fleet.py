@@ -8,10 +8,11 @@ Router sits and the batcher cannot tell the difference. Each replica owns
 a Router over its own InferenceEngines; the registry fans every version's
 warm and promote out to all of them, so a roll never leaves the fleet
 serving mixed versions. Where a replica runs is the factory's choice
-(serve/registry.py): on its own card when at least N cards are visible,
-else N replicas share one card, each engine launching on a CUDA stream of
-its replica's own, so a hedge never queues behind the slow batch it
-races. Per dispatch:
+(serve/registry.py), by the JAX registry's rule: an equal slice of the
+cards when the replicas divide them, else every replica over all of
+them, each engine data-parallel over its replica's cards and launching
+on CUDA streams of its replica's own, so a hedge never queues behind the
+slow batch it races. `n_chips` is one replica's cards. Per dispatch:
 
 - **cost-aware least-loaded pick** (`select_member`, a pure function):
   each replica holds a bounded in-flight window (`per_replica_inflight`

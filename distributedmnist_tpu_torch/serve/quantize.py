@@ -29,8 +29,9 @@ only; no device of the port takes it, so int8 always takes the true
 int8 route here, on the CPU (plain versions) as on the card (kernels).
 
 prepare_inference() is the entry point: it returns the prepared
-parameters (CPU tensors, moved to the engine's device by the engine) and a
-forward(params, x_u8) -> f32 logits.
+parameters (CPU tensors) and a forward(params, x_u8) -> f32 logits. An
+engine prepares a variant once and copies the same prepared tensors to
+each of its devices (a group engine's cards), one forward a device.
 """
 
 from __future__ import annotations

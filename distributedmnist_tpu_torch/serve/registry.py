@@ -25,8 +25,12 @@ ladder — so a swap never changes the shapes the kernels run at.
 `build_serving` with serve_replicas > 1) every version and variant warms
 one engine per replica, each proved warm on its own, and every route
 change fans the whole list out, so a roll moves the entire fleet. The
-factory places replica i on card i when at least N cards are visible,
-else every replica on one card, each on a CUDA stream of its own.
+factory serves over the process's cards (cfg.num_devices, default every
+visible card; one device on the CPU) and cuts them among the replicas
+by the JAX registry's rule (parallel/mesh.py place_replicas): equal
+slices when the replicas divide the cards, else every replica over all
+of them, each engine data-parallel over its replica's cards, and on
+each card on a CUDA stream of the replica's own.
 
 **The cascade** (serve/cascade.py): enable_cascade() builds the cheap
 variant, calibrates the confidence threshold on the held-out batch and
@@ -151,45 +155,59 @@ class EngineFactory:
     """Builds shape-identical InferenceEngines, one per (version, fleet
     replica): one model, one bucket ladder for every version.
 
-    With `replicas` > 1 on the card, replica i runs on card i when at
-    least `replicas` cards are visible; otherwise every replica runs on
-    the factory's card, each engine of replica i launching on replica
-    i's own CUDA stream. `own_stream` gives a single replica a stream of
-    its own too (a catalog model beside others on one card, so its
-    dispatches never queue behind another model's). On the CPU the
-    replicas are logical: separate engines and staging pools on one
-    device. `total_chips` counts the distinct cards (or 1 on the CPU)."""
+    The factory serves over a group of devices, `devices` (build_serving
+    passes `get_devices(cfg.device, cfg.num_devices)`; a device may
+    repeat: two shards on one card, or logical shards on the CPU), by
+    default `get_devices(device)`: every visible card, the one CPU
+    device on the cpu. As the JAX registry does, it cuts them among
+    `replicas` (place_replicas): equal slices when the replicas divide
+    the devices, else every replica a logical replica over all of them.
+    Each engine is data-parallel over its replica's devices. `n_chips`
+    and `buckets` are per replica (the ladder's rungs are multiples of
+    n_chips); `total_chips` is the union of the replicas' devices.
+
+    With `replicas` > 1 or `own_stream` on the card, each replica's
+    engines launch on CUDA streams of the replica's own, one a card (a
+    catalog model beside others on one card then never queues behind
+    another model's dispatches). On the CPU the replicas are logical:
+    separate engines and staging pools on one device.
+
+    `replica_devices[i]` is replica i's devices and `replica_streams[i]`
+    their streams (None: the card's current stream)."""
 
     def __init__(self, model: str, device="cuda", max_batch: int = 512,
-                 replicas: int = 1, own_stream: bool = False):
+                 replicas: int = 1, own_stream: bool = False,
+                 devices: Optional[list] = None):
+        from distributedmnist_tpu_torch.parallel.mesh import (get_devices,
+                                                              place_replicas)
+
         if replicas < 1:
             raise ValueError(f"replicas must be >= 1, got {replicas}")
         self.model = model
         self.device = resolve_device(device)
         self.platform = self.device.type
         self.max_batch = max_batch
-        self.buckets = make_buckets(max_batch)
         self.replicas = replicas
-        self.n_chips = 1                    # per replica
-        self.replica_devices = [self.device] * replicas
-        self.replica_streams = [None] * replicas
+        self.devices = list(devices) if devices else get_devices(device)
+        self.replica_devices = place_replicas(self.devices, replicas)
+        self.n_chips = len(self.replica_devices[0])      # per replica
+        self.buckets = make_buckets(max_batch, self.n_chips)
+        self.replica_streams = [[None] * len(g)
+                                for g in self.replica_devices]
         if self.device.type == "cuda" and (replicas > 1 or own_stream):
             import torch
 
-            if replicas > 1 and torch.cuda.device_count() >= replicas:
-                self.replica_devices = [torch.device("cuda", i)
-                                        for i in range(replicas)]
-            self.replica_streams = [torch.cuda.Stream(device=d)
-                                    for d in self.replica_devices]
+            self.replica_streams = [[torch.cuda.Stream(device=d) for d in g]
+                                    for g in self.replica_devices]
         self.total_chips = len({(d.type, d.index)
-                                for d in self.replica_devices})
+                                for g in self.replica_devices for d in g})
         # engines built so far: with the kernel-library loads, the
         # process's build count (the HTTP server's compiles_total)
         self.engine_builds = 0
 
     @property
     def device_kind(self) -> str:
-        """The card's name, or "cpu"."""
+        """The first card's name, or "cpu"."""
         if self.device.type == "cuda":
             import torch
 
@@ -220,10 +238,10 @@ class EngineFactory:
                     replica: int = 0) -> InferenceEngine:
         self.engine_builds += 1
         return InferenceEngine(self.model, params,
-                               device=self.replica_devices[replica],
+                               devices=self.replica_devices[replica],
                                max_batch=self.max_batch, version=version,
-                               infer_dtype=infer_dtype,
-                               stream=self.replica_streams[replica])
+                               infer_dtype=infer_dtype, buckets=self.buckets,
+                               streams=self.replica_streams[replica])
 
     def init_params(self, seed: int = 0) -> dict:
         """Fresh-init parameters (a seeded CPU generator, so the values do
@@ -992,6 +1010,7 @@ class ModelRegistry:
                 "buckets": list(self.factory.buckets),
                 "max_batch": self.factory.max_batch,
                 "device": str(self.factory.device),
+                "devices": [str(d) for d in self.factory.devices],
                 "replicas": self.n_replicas,
             }
 
@@ -1025,17 +1044,21 @@ def build_serving(cfg, metrics=None, own_stream: bool = False):
     `metrics` and draws its routes from cfg.seed. With serve_replicas > 1
     the router's slot holds a ReplicaSet (serve/fleet.py) of that many
     replicas, with serve_replica_inflight and serve_hedge; 1 keeps the
-    bare Router. `own_stream` launches every engine on a CUDA stream of
-    the factory's own (EngineFactory). No version is loaded yet: the
-    caller bootstraps. Raises without a card unless cfg.device is
-    'cpu'."""
+    bare Router. The engines serve over cfg.num_devices cards (None:
+    every visible card; EngineFactory cuts them among the replicas).
+    `own_stream` launches every engine on CUDA streams of the factory's
+    own. No version is loaded yet: the caller bootstraps. Raises without
+    a card unless cfg.device is 'cpu', and when cfg.num_devices asks for
+    more devices than are visible."""
     from distributedmnist_tpu_torch import models
+    from distributedmnist_tpu_torch.parallel.mesh import get_devices
 
     models.build(cfg.model, device="meta")    # refuses unknown names
     factory = EngineFactory(cfg.model, device=cfg.device,
                             max_batch=cfg.serve_max_batch,
                             replicas=cfg.serve_replicas,
-                            own_stream=own_stream)
+                            own_stream=own_stream,
+                            devices=get_devices(cfg.device, cfg.num_devices))
     if cfg.serve_replicas > 1:
         router = factory.make_fleet(
             metrics=metrics, seed=cfg.seed,

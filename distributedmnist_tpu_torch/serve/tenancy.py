@@ -266,8 +266,10 @@ def build_catalog(cfg, metrics=None, own_streams: bool = True
     alone), each on its own checkpoint subtree, with its own started
     DynamicBatcher (fast lane off: a lane submit would dispatch before
     the scheduler's grant) and, under --serve-cache, its own cache
-    front. `own_streams` puts each model's engines on a CUDA stream of
-    their own on the card. Nothing is warmed here."""
+    front. Every model's factory serves over the same cards
+    (cfg.num_devices, default every visible card). `own_streams` puts
+    each model's engines on CUDA streams of their own on the card.
+    Nothing is warmed here."""
     from distributedmnist_tpu_torch.serve.cache import build_cache_front
     from distributedmnist_tpu_torch.serve.registry import build_serving
 

@@ -174,8 +174,8 @@ def test_planted_forward_edit_is_tx005_against_the_snapshot(tmp_path):
                         snapshot_file=str(snap))["closed"]
     real = tc.build_engine
 
-    def edited(model, infer_dtype, buckets, device):
-        eng = real(model, infer_dtype, buckets, device)
+    def edited(model, infer_dtype, buckets, device, **kw):
+        eng = real(model, infer_dtype, buckets, device, **kw)
         fwd = eng._forward
         eng._forward = lambda x: torch.relu(fwd(x))
         return eng

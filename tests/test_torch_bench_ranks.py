@@ -8,7 +8,8 @@ ranks, one record with the root bench's keys, its batch rounding
 all-reduce; time-to-accuracy's steps within one eval of 1 rank's; every
 rank's launch counts, and no jax in any of the bench's processes (a
 sitecustomize written for the test records each one's modules at exit).
-Then the guards: serve refuses --num-devices (exit 2), and a run whose
+Then the guards: serve refuses more devices than are visible (and
+--num-devices 0 with exit 2), and a run whose
 rank fails, at its start or once the process group is up, exits
 non-zero with no record, supervised or not, and never runs on one rank.
 
@@ -345,10 +346,18 @@ def _one_rank_tta(tmp):
 
 
 def test_serve_refuses_num_devices(capsys):
+    """The serve mode shards over --num-devices devices, as the root
+    bench's engine shards over its mesh: a count below 1 is a usage error
+    (exit 2), and more devices than are visible (the cpu has one) fails
+    before any load phase, in the JAX package's words."""
     with pytest.raises(SystemExit) as exc:
-        tbench.main(["serve", "--num-devices", "2", "--inline"])
+        tbench.main(["serve", "--num-devices", "0", "--inline"])
     assert exc.value.code == 2
-    assert "--num-devices is a training-mode flag" in capsys.readouterr().err
+    assert "--num-devices must be >= 1" in capsys.readouterr().err
+    with pytest.raises(RuntimeError,
+                       match="requested 2 devices, only 1 visible"):
+        tbench.main(["serve", "--device", "cpu", "--num-devices", "2",
+                     "--no-artifact", "--inline"])
 
 
 @pytest.mark.parametrize("fail,supervised", [("start", False),

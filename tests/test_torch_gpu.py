@@ -31,7 +31,12 @@ bound held. Then the gateway: two int8 workers of the serve CLI behind
 `--gateway 2`, every answer the argmax of an in-process int8 router's
 logits for the same rows, no CUDA context in the gateway; and the
 autoscaler's WindowActuator stepping a batcher over the card's engines
-with nothing built after warmup. Last, the gate entry points: the
+with nothing built after warmup. Serving over a card group: two shards
+sharing the card (and an engine over 2 and over 4 cards where that many
+are visible) against the one-card engine at every precision, a
+2-replica fleet on 4 cards taking 2 disjoint cards each and a 3-replica
+fleet on 4 cards as logical replicas over all 4. Last, the gate entry
+points: the
 multichip dry run's every leg on the card (serve-reload and dp:2proc
 launching dense_relu), the training steps' fingerprints on the card
 equal to the CPU snapshot's, and one calibration point whose accuracies
@@ -931,7 +936,7 @@ def test_fleet_replicas_on_their_own_cards():
 
     registry, fleet, factory = build_serving(Config(
         model="mlp", device="cuda", serve_max_batch=64, serve_replicas=4))
-    assert factory.replica_devices == [torch.device("cuda", i)
+    assert factory.replica_devices == [[torch.device("cuda", i)]
                                        for i in range(4)]
     assert factory.total_chips == 4
     registry.add(_fit_mlp(), version="v1")
@@ -952,6 +957,162 @@ def test_fleet_replicas_on_their_own_cards():
         assert len(served) >= 2, (dt, served)
         outs = [rep.router.infer(reqs[1]) for rep in fleet.replicas]
         assert all(o.tobytes() == outs[0].tobytes() for o in outs), dt
+
+
+GROUP_ROWS = (1, 2, 3, 7, 64, 127, 128, 255, 256, 511, 512)
+GROUP_CASES = ([("mlp", dt) for dt in ("float32", "bfloat16", "int8",
+                                       "megakernel")]
+               + [("lenet", dt) for dt in ("float32", "bfloat16", "int8")])
+
+
+def _group_close(model, infer_dtype, got, want):
+    """int8 bit for bit, the float precisions at this file's tolerances
+    (LeNet's float32 at its serving tolerance: cuDNN may pick another
+    algorithm at another row count)."""
+    scale = max(1.0, float(np.abs(want).max()))
+    if infer_dtype == "int8":
+        assert got.tobytes() == want.tobytes()
+    elif infer_dtype == "bfloat16":
+        atol = (3e-2 if model == "lenet" else 2e-2) * scale
+        np.testing.assert_allclose(got, want, rtol=2e-2, atol=atol)
+    else:
+        atol = (1e-4 if model == "lenet" else 1e-5) * scale
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=atol)
+
+
+def _group_against_one_card(eng, one, model, infer_dtype, x):
+    """A group engine's logits against a one-card engine's at
+    GROUP_ROWS."""
+    for n in GROUP_ROWS:
+        got, want = eng.infer(x[:n]), one.infer(x[:n])
+        assert got.shape == (n, 10)
+        _group_close(model, infer_dtype, got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model,infer_dtype", GROUP_CASES)
+def test_two_shards_sharing_the_card_equal_the_one_card_engine(
+        model, infer_dtype):
+    """The group [cuda:0, cuda:0]: the ladder in multiples of 2, each
+    dispatch split into two shards launched on the card, the fast lane's
+    row route and exact fit, and the answers the one-card engine's."""
+    _need_card()
+    from distributedmnist_tpu_torch.serve import InferenceEngine
+
+    params = models.init_params(model, 5)
+    dev = torch.device("cuda", 0)
+    eng = InferenceEngine(model, params, devices=[dev, dev], max_batch=512,
+                          infer_dtype=infer_dtype)
+    one = InferenceEngine(model, params, device="cuda", max_batch=512,
+                          infer_dtype=infer_dtype)
+    assert eng.n_chips == 2 and eng.buckets[0] == 2
+    assert eng.buckets[-1] == 512
+    eng.warmup(cost_samples=1)
+    x = _rng(17).integers(0, 256, (512, 28, 28, 1), dtype=np.uint8)
+    before = dict(fused.LAUNCHES)
+    _group_against_one_card(eng, one, model, infer_dtype, x)
+    eng._fast_row_ok = True
+    for n in (1, 2):
+        h = eng.dispatch_fast(x[:n])
+        assert h is not None, n
+        _group_close(model, infer_dtype, eng.fetch(h), one.infer(x[:n]))
+    kernel = {"bfloat16": "dense_relu", "int8": "quant_dense",
+              "megakernel": "mlp_megakernel"}.get(
+        infer_dtype, "dense_relu" if model == "mlp" else None)
+    if kernel is not None:
+        assert fused.LAUNCHES[kernel] > before[kernel]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", (2, 4))
+def test_group_engine_over_k_cards(k):
+    """An engine over the first k cards: the weights (each variant's
+    prepared once) copied to every card, each shard launched on its own
+    card, every precision's answers the one-card engine's."""
+    _need_card()
+    if torch.cuda.device_count() < k:
+        pytest.skip(f"needs {k} cards")
+    from distributedmnist_tpu_torch.serve import InferenceEngine
+
+    devs = [torch.device("cuda", i) for i in range(k)]
+    x = _rng(18).integers(0, 256, (512, 28, 28, 1), dtype=np.uint8)
+    for model, dt in GROUP_CASES:
+        params = models.init_params(model, 6)
+        eng = InferenceEngine(model, params, devices=devs, max_batch=512,
+                              infer_dtype=dt)
+        assert eng.buckets[0] == k and sorted(
+            eng._device_forwards, key=lambda d: d.index) == devs
+        assert all(p.device == devs[0] for p in eng.params.values())
+        one = InferenceEngine(model, params, device="cuda", max_batch=512,
+                              infer_dtype=dt)
+        _group_against_one_card(eng, one, model, dt, x)
+
+
+def _serve_fleet_on_cards(replicas: int):
+    from distributedmnist_tpu_torch.config import Config
+    from distributedmnist_tpu_torch.serve import build_serving
+
+    registry, fleet, factory = build_serving(Config(
+        model="mlp", device="cuda", serve_max_batch=64,
+        serve_replicas=replicas))
+    registry.add(_fit_mlp(), version="v1")
+    registry.promote("v1")
+    registry.add_variant("v1", "int8")
+    return registry, fleet, factory
+
+
+@pytest.mark.gpu
+def test_two_replica_fleet_on_four_cards_takes_two_cards_each():
+    """The JAX registry's rule: 2 replicas on 4 cards get 2 disjoint cards
+    each, every engine data-parallel over its replica's 2, and each batch
+    bit for bit the single Router's dispatch on that replica."""
+    _need_card()
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 cards")
+    registry, fleet, factory = _serve_fleet_on_cards(2)
+    cards = [torch.device("cuda", i) for i in range(4)]
+    assert factory.replica_devices == [cards[:2], cards[2:]]
+    assert (factory.n_chips, factory.total_chips) == (2, 4)
+    assert factory.total_chips == factory.n_chips * fleet.n_replicas
+    assert factory.buckets == (2, 4, 8, 16, 32, 64)
+    for i, eng in enumerate(registry.get("v1").engines):
+        assert eng.devices == factory.replica_devices[i]
+        assert [s.device for s in eng.streams] == eng.devices
+    rng = _rng(19)
+    reqs = [rng.integers(0, 256, (int(n), 28, 28, 1), dtype=np.uint8)
+            for n in rng.integers(1, 33, 96)]
+    for dt in ("float32", "int8"):
+        registry.promote("v1", infer_dtype=dt)
+        served = _fleet_batches_against_single_routers(registry, fleet,
+                                                       factory, reqs)
+        assert served == {"r0", "r1"}, dt
+
+
+@pytest.mark.gpu
+def test_three_replica_fleet_on_four_cards_is_logical_over_all_four():
+    """3 replicas do not divide 4 cards: every replica is a logical
+    replica over all 4 (JAX's rule), on streams of its own on each card,
+    n_chips 4 a replica and 4 in all."""
+    _need_card()
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 cards")
+    registry, fleet, factory = _serve_fleet_on_cards(3)
+    cards = [torch.device("cuda", i) for i in range(4)]
+    assert factory.replica_devices == [cards] * 3
+    assert (factory.n_chips, factory.total_chips) == (4, 4)
+    assert factory.total_chips != factory.n_chips * fleet.n_replicas
+    assert factory.buckets == (4, 8, 16, 32, 64)
+    streams = {s.cuda_stream for g in factory.replica_streams
+               for s in g}
+    assert len(streams) == 12
+    rng = _rng(20)
+    reqs = [rng.integers(0, 256, (int(n), 28, 28, 1), dtype=np.uint8)
+            for n in rng.integers(1, 33, 96)]
+    for dt in ("float32", "int8"):
+        registry.promote("v1", infer_dtype=dt)
+        served = _fleet_batches_against_single_routers(registry, fleet,
+                                                       factory, reqs)
+        assert len(served) >= 2, (dt, served)
 
 
 @pytest.mark.gpu
@@ -1042,7 +1203,7 @@ def test_two_catalog_models_on_card_are_each_routers_dispatch():
         lenet.registry.promote("v1")
         for dt in ("int8", "megakernel"):
             mlp.registry.add_variant("v1", dt)
-        streams = [e.factory.replica_streams[0] for e in (mlp, lenet)]
+        streams = [e.factory.replica_streams[0][0] for e in (mlp, lenet)]
         assert streams[0].cuda_stream != streams[1].cuda_stream
         for st in streams:
             assert st.cuda_stream != torch.cuda.default_stream(

@@ -396,25 +396,45 @@ def test_expired_deadline_shed_504_at_the_door():
                              "(10.0 ms ago)")
 
 
-def test_infeasible_head_shed_at_grant_is_504():
+class _FrozenMonotonic:
+    """The JAX scheduler module's `time` in a test: monotonic() still at
+    `t`, every other attribute the real module's (the grant thread's
+    waits are the condition variable's own, on the real clock)."""
+
+    def __init__(self, t: float):
+        self.t = t
+
+    def monotonic(self) -> float:
+        return self.t
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+def test_infeasible_head_shed_at_grant_is_504(monkeypatch):
     """A head whose modeled dispatch (2 rows at the 1 ms/row default)
     cannot make a 0.5 ms deadline is shed by EDF at grant, before any
-    batch: 504 with the same text in both."""
+    batch: 504 with the same text in both. Both schedulers read a frozen
+    clock (the JAX one through its module's `time`), so a stall between
+    taking t0 and the admission's own read cannot expire the deadline at
+    the door."""
     out = {}
     for which, pkg in PKGS.items():
         rng = np.random.default_rng(0)
         metrics = pkg.Metrics()
         clock = FrozenClock()
-        sched = _stub_sched(which, "default:", start=False,
-                            metrics=metrics, clock=clock)
-        t0 = clock() if which == "port" else time.monotonic()
-        fut = sched.submit(_rows(rng, 2), deadline_s=t0 + 5e-4)
-        sched.start()
-        try:
-            with pytest.raises(pkg.Deadline) as ei:
-                fut.result(timeout=30)
-        finally:
-            sched.stop()
+        with monkeypatch.context() as mp:
+            if which == "jax":
+                mp.setattr(jtenancy, "time", _FrozenMonotonic(clock()))
+            sched = _stub_sched(which, "default:", start=False,
+                                metrics=metrics, clock=clock)
+            fut = sched.submit(_rows(rng, 2), deadline_s=clock() + 5e-4)
+            sched.start()
+            try:
+                with pytest.raises(pkg.Deadline) as ei:
+                    fut.result(timeout=30)
+            finally:
+                sched.stop()
         snap = metrics.snapshot()
         out[which] = (str(ei.value).split(" ms but")[0],
                       _by_tenant_counts(snap), snap["batches"])
@@ -903,6 +923,6 @@ def test_catalog_factories_own_a_stream_only_on_the_card():
     catalog = ttenancy.build_catalog(cfg)
     try:
         assert [e.factory.replica_streams for e in catalog.entries()] == \
-            [[None], [None]]
+            [[[None]], [[None]]]
     finally:
         catalog.stop()
