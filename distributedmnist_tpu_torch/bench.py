@@ -1149,14 +1149,16 @@ def _serve_closed_loop(batcher, metrics, reqs, clients: int,
     client_errors: list = []
     answered: list = []              # list.append is atomic: the count
     ramp = min(0.5, duration * 0.2)
-    t_start = time.monotonic()
-    stop_at = t_start + ramp + duration
-    give_up = stop_at + CLOSED_LOOP_MAX_S
+    # The window is timed from metrics.reset(), once every client runs:
+    # on a busy host starting the clients can outlast ramp + duration,
+    # and a clock started before them measured an empty window.
+    window = {"measuring": False, "stop_at": float("inf"),
+              "give_up": float("inf")}
 
     def running() -> bool:
         now = time.monotonic()
-        return now < stop_at or (len(answered) < min_requests
-                                 and now < give_up)
+        return now < window["stop_at"] or (len(answered) < min_requests
+                                           and now < window["give_up"])
 
     def client(offset: int):
         k = offset                  # stagger starts so the size mix
@@ -1164,7 +1166,7 @@ def _serve_closed_loop(batcher, metrics, reqs, clients: int,
             try:
                 batcher.submit(reqs[k % len(reqs)]).result(timeout=120)
                 k += 1
-                if time.monotonic() >= t_start + ramp:
+                if window["measuring"]:
                     answered.append(1)
             except Rejected:
                 time.sleep(0.001)   # shed: brief client backoff
@@ -1181,6 +1183,10 @@ def _serve_closed_loop(batcher, metrics, reqs, clients: int,
         t.start()
     time.sleep(ramp)
     metrics.reset()                  # measurement starts post-ramp
+    t_reset = time.monotonic()
+    window["measuring"] = True
+    window["give_up"] = t_reset + duration + CLOSED_LOOP_MAX_S
+    window["stop_at"] = t_reset + duration
     for t in threads:
         t.join()
     if client_errors:

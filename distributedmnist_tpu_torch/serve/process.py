@@ -46,15 +46,17 @@ class Exited:
 class ServerProcess:
     """`argv` started with stdout piped; raises RuntimeError (the child
     killed) unless a `ready_metric` line comes within `ready_timeout`
-    seconds. `ready` holds that line's record."""
+    seconds. `ready` holds that line's record. `popen` starts it
+    (subprocess.Popen, or anything with its interface: chip_smoke.py
+    forks its servers from a process that has imported torch)."""
 
     def __init__(self, argv, env=None, cwd=None,
                  ready_timeout: float = 120.0,
-                 ready_metric: str = "serve_ready"):
+                 ready_metric: str = "serve_ready",
+                 popen: Callable = subprocess.Popen):
         self.err = tempfile.TemporaryFile("w+")
-        self.proc = subprocess.Popen(argv, stdout=subprocess.PIPE,
-                                     stderr=self.err, text=True, env=env,
-                                     cwd=cwd)
+        self.proc = popen(argv, stdout=subprocess.PIPE, stderr=self.err,
+                          text=True, env=env, cwd=cwd)
         self.lines: list = []
         self.port: Optional[int] = None
         self.ready: Optional[dict] = None
