@@ -55,7 +55,9 @@ card.
    coordinator flags, 2 ranks) killed at step 200 by the fault hook on
    both ranks and restored there, its checkpoint loaded with the LeNet
    template; and NCCL at world size 1 (config 4's LeNet, `--num-devices
-   1`), 200 steps.
+   1`), 200 steps. The groups that run at once take distinct ports (one
+   launch.free_ports call), and a group whose port was taken before its
+   rank 0 bound it is rerun once on a fresh port.
 6. Holds the kernels at LeNet's serving shapes (dense_relu bf16 400->120
    and 120->84, quant_dense 400->120, 120->84 and 84->10, buckets 1, 7,
    128 and 512) against their plain versions on the trained weights'
@@ -184,12 +186,12 @@ card.
    the quota route's 200 and 404, /metrics' by_tenant and by_model
    blocks and families, quant_dense launched, SIGTERM rc 0 with the
    summary's tenancy block). The bench's `serve --multimodel
-   --swap-during-load` (the root bench's leg keys, fairness ratios, no
-   build after warmup or after the swap) writing BENCH_torch_serve_r01.json
-   into a temporary directory (the card's name as device_kind, the
-   commit), a second run diffing against it with --baseline, and a
-   --baseline on the JAX package's CPU record refused before any load
-   phase (exit 4, not retried).
+   --swap-during-load` (the root bench's leg keys, fairness ratios, both
+   light p99s measured, no build after warmup or after the swap)
+   writing BENCH_torch_serve_r01.json into a temporary directory (the
+   card's name as device_kind, the commit), a second run diffing
+   against it with --baseline, and a --baseline on the JAX package's
+   CPU record refused before any load phase (exit 4, not retried).
 14. The gateway, trace replay and the autoscaler (after phase 13), each
    child reporting its own launch counts: `python -m
    distributedmnist_tpu_torch.serve --model mlp --checkpoint-dir <the
@@ -211,8 +213,9 @@ card.
    gateway_summary, the surviving worker's quant_dense launched). The
    bench's `serve --gateway 2 --serve-infer-dtype megakernel` (the root
    bench's gateway keys, no build after warmup on any worker, every
-   worker's mlp_megakernel launched). The static trace-replay phase's
-   sustained rate measured closed-loop in this process, then the bench's
+   worker's mlp_megakernel launched, requests answered in both
+   closed-loop windows). The static trace-replay phase's sustained rate
+   measured closed-loop in this process, then the bench's
    `serve --trace-replay SPEC --autoscale` at float32 with SPEC peaking
    at twice that rate (schedule_sha256 that of the same spec and seed
    materialized here, no flap, nothing built after warmup, a grow and a
@@ -1761,6 +1764,35 @@ def _coordinated(port: int, n: int, *args) -> list:
             for i in range(n)]
 
 
+def _run_groups(groups) -> list:
+    """Run coordinated groups at once: `groups` is a list of functions,
+    each giving a group's argvs (one a rank) for its rendezvous port.
+    The ports come from one launch.free_ports call, so no two groups
+    share one. A group that failed with a bind failure in a rank's
+    stderr (launch.BIND_FAILURES: its port was taken before its rank 0
+    bound it) is rerun once on a fresh port, as the dry run's
+    _run_group_retry does; any other failure is the caller's to judge.
+    Returns _run_ranks's [(rc, stdout, stderr)], a list a group."""
+    from distributedmnist_tpu_torch.parallel import launch
+
+    def run(makes):
+        argvs = [make(p) for make, p in zip(makes,
+                                           launch.free_ports(len(makes)))]
+        results = iter(_run_ranks([a for g in argvs for a in g]))
+        return [[next(results) for _ in g] for g in argvs]
+
+    out = run(groups)
+    again = [i for i, res in enumerate(out)
+             if any(rc != 0 for rc, _, _ in res)
+             and any(launch.bind_failure(err) for _, _, err in res)]
+    if again:
+        print(f"coordinated groups {again}: a rendezvous port was taken; "
+              f"rerunning them once on fresh ports", flush=True)
+        for i, res in zip(again, run([groups[i] for i in again])):
+            out[i] = res
+    return out
+
+
 def drive_dp_path(card: str) -> tuple[dict, dict]:
     """Data-parallel training through the port's entry points on the
     card, every rank a child process: config 3 at full width as 2 ranks
@@ -1772,7 +1804,7 @@ def drive_dp_path(card: str) -> tuple[dict, dict]:
 
     from distributedmnist_tpu_torch import checkpoint, models
     from distributedmnist_tpu_torch.ops import fused
-    from distributedmnist_tpu_torch.parallel import launch, mh_smoke
+    from distributedmnist_tpu_torch.parallel import mh_smoke
 
     phases: dict = {}
     launches = dict.fromkeys(fused.LAUNCHES, 0)
@@ -1829,21 +1861,21 @@ def drive_dp_path(card: str) -> tuple[dict, dict]:
         runs = [{"spmd_mode": mode, "learning_rate": MLP_LR,
                  "steps_per_call": 1, "checkpoint_dir": f"{d}/{mode}"}
                 for mode in ("auto", "explicit")]
-        port = launch.free_port()
-        smoke = [["-m", "distributedmnist_tpu_torch.parallel.mh_smoke",
-                  str(r), "2", str(port), "--device", "cuda", "--preset",
-                  "mlp-dp2", "--steps", str(TRAJ_STEPS), "--runs",
-                  json.dumps(runs)] for r in range(2)]
-        nccl = _coordinated(launch.free_port(), 1, "--preset", "lenet-dp8",
-                            "--synthetic", "--num-devices", "1", "--steps",
-                            str(NCCL_STEPS))
         ck = f"{d}/config5"
         c5 = ("--preset", "lenet-multihost", "--synthetic", "--steps",
               "300", "--checkpoint-every", "100", "--checkpoint-dir", ck)
-        killed = _coordinated(launch.free_port(), 2, *c5, "--fail-at-step",
-                              "200")
         t0 = time.perf_counter()
-        results = _run_ranks(smoke + nccl + killed)
+        results = [r for group in _run_groups([
+            lambda port: [[
+                "-m", "distributedmnist_tpu_torch.parallel.mh_smoke",
+                str(r), "2", str(port), "--device", "cuda", "--preset",
+                "mlp-dp2", "--steps", str(TRAJ_STEPS), "--runs",
+                json.dumps(runs)] for r in range(2)],
+            lambda port: _coordinated(port, 1, "--preset", "lenet-dp8",
+                                      "--synthetic", "--num-devices", "1",
+                                      "--steps", str(NCCL_STEPS)),
+            lambda port: _coordinated(port, 2, *c5, "--fail-at-step",
+                                      "200")]) for r in group]
         phases["concurrent_s"] = time.perf_counter() - t0
         for rc, out, err in results[:3]:
             if rc != 0:
@@ -1902,7 +1934,7 @@ def drive_dp_path(card: str) -> tuple[dict, dict]:
                 raise RuntimeError(f"config 5 was not killed at step 200 "
                                    f"(rc {rc}):\n{err[-3000:]}")
         t0 = time.perf_counter()
-        resumed = _run_ranks(_coordinated(launch.free_port(), 2, *c5))
+        [resumed] = _run_groups([lambda port: _coordinated(port, 2, *c5)])
         phases["config5_resume_s"] = time.perf_counter() - t0
         for rc, out, err in resumed:
             s = _summary(out) if rc == 0 else {}
@@ -2038,7 +2070,7 @@ def drive_rest_of_training(card: str, data: dict) -> tuple[dict, dict]:
     from distributedmnist_tpu_torch.config import PRESETS
     from distributedmnist_tpu_torch.data import load_mnist, native
     from distributedmnist_tpu_torch.ops import fused
-    from distributedmnist_tpu_torch.parallel import launch, mh_smoke
+    from distributedmnist_tpu_torch.parallel import mh_smoke
     from distributedmnist_tpu_torch.utils import MetricsLogger
 
     phases: dict = {}
@@ -2052,13 +2084,12 @@ def drive_rest_of_training(card: str, data: dict) -> tuple[dict, dict]:
     runs = {"mlp": {"learning_rate": MLP_LR},
             "lenet": {"model": "lenet", "optimizer": "adam",
                       "learning_rate": 1e-3}}
-    port = launch.free_port()
     specs = [{"model_parallel": 2, "steps_per_call": 1,
               "steps": TP_STEPS[n], **r} for n, r in runs.items()]
-    results = _run_ranks([[
+    [results] = _run_groups([lambda port: [[
         "-m", "distributedmnist_tpu_torch.parallel.mh_smoke", str(r), "2",
         str(port), "--device", "cuda", "--preset", "mlp-dp2", "--runs",
-        json.dumps(specs)] for r in range(2)])
+        json.dumps(specs)] for r in range(2)]])
     recs = []
     for rc, out, err in results:
         if rc != 0:
@@ -4093,6 +4124,10 @@ def drive_tenancy_bench(card: str) -> tuple[dict, dict]:
                        f"after the swap {sw['recompiles_after_swap']}")
         if set(mm["fairness"]) != {"light", "heavy"}:
             bad.append(f"fairness {mm['fairness']}")
+        empty = [k for k in ("light_solo_p99_ms", "light_mixed_p99_ms")
+                 if mm[k] is None]
+        if empty:
+            bad.append(f"an empty multimodel window: {empty} None")
         path = os.path.join(out, "BENCH_torch_serve_r01.json")
         if not os.path.isfile(path):
             bad.append(f"no record file: {os.listdir(out)}")
@@ -4531,6 +4566,12 @@ def drive_gateway_bench(params: dict, card: str) -> tuple[dict, dict]:
         bad.append("a hot key on two workers or a mixed-epoch reply")
     if len(workers) != 3 or any(w["mlp_megakernel"] <= 0 for w in workers):
         bad.append(f"worker launches {workers}")
+    empty = [k for k, leg in (("closed_loop", d["closed_loop"]),
+                              ("closed_loop_1worker",
+                               g["closed_loop_1worker"]))
+             if leg["requests_ok"] <= 0]
+    if empty:
+        bad.append(f"an empty closed-loop window: {empty}")
     if bad:
         raise RuntimeError(f"bench {GATEWAY_BENCH_RUN}: {bad}\n"
                            f"record: {json.dumps(rec)[:3000]}\n"

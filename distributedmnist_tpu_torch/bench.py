@@ -175,6 +175,8 @@ ARTIFACT_PREFIX = "BENCH_torch_serve_r"
 # after it at the latest.
 FLEET_LEG_MIN_REQUESTS = 32
 CLOSED_LOOP_MAX_S = 60.0
+# how long a leg's clients may take to start before the leg fails
+CLIENTS_READY_S = 120.0
 
 
 def _mark(msg: str) -> None:
@@ -2107,6 +2109,7 @@ def _serve_multimodel_leg(compiles, device: str, duration: float,
     `warmup_compile_events`, which the caller excludes from its
     whole-run count."""
     import collections
+    import threading
 
     import numpy as np
 
@@ -2149,11 +2152,17 @@ def _serve_multimodel_leg(compiles, device: str, duration: float,
               f"{probe['contended_ms']:.3f} ms under a lenet storm)")
 
         errors: list = []
+        # the running phase's window: set once its pumps run (on a busy
+        # host starting them can outlast the phase, and a stop time set
+        # before them left a late pump no window at all)
+        current: dict = {}
 
-        def pump(tenant, window, stop_at, lats, model=None):
+        def pump(ready, tenant, window, lats, model=None):
             rng = np.random.default_rng(sum(map(ord, tenant)))
             x = rng.integers(0, 256, (rows, 28, 28, 1), dtype=np.uint8)
             outstanding = collections.deque()
+            ready.wait()
+            stop_at = current["stop_at"]
             while time.monotonic() < stop_at:
                 try:
                     while (len(outstanding) < window
@@ -2177,17 +2186,33 @@ def _serve_multimodel_leg(compiles, device: str, duration: float,
                     errors.append(e)
                     return
 
+        def start_phase():
+            """The phase's window and its grant baseline, taken by the
+            last of its pumps to be ready (or the caller)."""
+            current["granted0"] = {t: s["granted_rows"] for t, s in
+                                   sched.snapshot()["tenants"].items()}
+            current["stop_at"] = time.monotonic() + duration
+
         def phase(pumps):
-            threads = [make_thread(target=pump, args=spec,
+            """Run one pump a spec (tenant, window, latencies[, model])
+            over one window of `duration`, timed once they all run;
+            returns each tenant's granted rows in it."""
+            ready = threading.Barrier(len(pumps) + 1, action=start_phase)
+            threads = [make_thread(target=pump, args=(ready, *spec),
                                    name=f"bench-mm-{spec[0]}",
                                    daemon=True)
                        for spec in pumps]
-            granted0 = {t: s["granted_rows"] for t, s in
-                        sched.snapshot()["tenants"].items()}
             for t in threads:
                 t.start()
+            try:
+                ready.wait(timeout=CLIENTS_READY_S)
+            except threading.BrokenBarrierError:
+                raise RuntimeError(
+                    f"the multimodel pumps were not all running within "
+                    f"{CLIENTS_READY_S:g} s") from None
             for t in threads:
                 t.join()
+            granted0 = current["granted0"]
             if errors:
                 raise RuntimeError(
                     "multimodel pump died; the fairness split would "
@@ -2201,21 +2226,18 @@ def _serve_multimodel_leg(compiles, device: str, duration: float,
                     if samples else None)
 
         # Phase A: the light tenant alone, its uncontended p99.
-        phase([("light", 8, time.monotonic() + duration, lat["solo"])])
+        phase([("light", 8, lat["solo"])])
         solo_p99 = p99_ms(lat["solo"])
         # Phase B: the same light pump plus a heavy burst at the OTHER
         # model, 8x the outstanding window.
-        stop_at = time.monotonic() + duration
-        phase([("light", 8, stop_at, lat["light"]),
-               ("heavy", 64, stop_at, lat["heavy"])])
+        phase([("light", 8, lat["light"]), ("heavy", 64, lat["heavy"])])
         mixed_p99 = p99_ms(lat["light"])
         # Phase C: both tenants saturated on ONE model (LeNet, the
         # expensive one): the pacing cap keeps their backlogs in the
         # per-tenant queues, so every row that reaches the card got there
         # by a DRR grant.
-        stop_at = time.monotonic() + duration
-        granted = phase([("light", 64, stop_at, [], "lenet"),
-                         ("heavy", 64, stop_at, [], "lenet")])
+        granted = phase([("light", 64, [], "lenet"),
+                         ("heavy", 64, [], "lenet")])
         recompiles = compiles.snapshot() - steady_from
     finally:
         sched.stop()
@@ -3747,21 +3769,36 @@ def _gw_closed_loop(port: int, clients: int, duration: float,
     connections, every request a UNIQUE body (capacity must price real
     inference, not cache hits). 503 backpressure is counted and retried
     after a short pause — shed-and-retry is the documented client
-    contract."""
+    contract. The window is timed once every client runs: each connects,
+    then waits at a barrier whose last party sets the window's start and
+    end (on a busy host starting the clients can outlast the window, and
+    a clock started before them measured an empty one). A request counts
+    when it was sent before the end and answered 200; the rates are over
+    the window the clients had, from its start to the last answer."""
     import http.client
+    import threading
 
     import numpy as np
 
-    t_start = time.perf_counter() + 0.2        # common start line
-    t_end = t_start + duration
-    lats, oks, sheds, errs = [], [], [], []
+    window: dict = {}
+    lats, oks, sheds, errs, ends = [], [], [], [], []
+
+    def start_window():
+        window["start"] = time.perf_counter()
+        window["end"] = window["start"] + duration
+
+    ready = threading.Barrier(clients + 1, action=start_window)
 
     def drive(tid: int):
         rng = np.random.default_rng(10_000 * seed + tid)
         conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
         my_lat, my_ok, my_shed, my_err = [], 0, 0, 0
-        while time.perf_counter() < t_start:
-            time.sleep(0.005)
+        try:
+            conn.connect()
+        except OSError:
+            conn.close()             # the first request connects anew
+        ready.wait()
+        t_end = window["end"]
         while time.perf_counter() < t_end:
             body = rng.integers(0, 256, rows * 784,
                                 dtype=np.uint8).tobytes()
@@ -3787,6 +3824,7 @@ def _gw_closed_loop(port: int, clients: int, duration: float,
                 time.sleep(0.002)
             else:
                 my_err += 1
+        ends.append(time.perf_counter())
         conn.close()
         lats.append(my_lat)
         oks.append(my_ok)
@@ -3798,13 +3836,20 @@ def _gw_closed_loop(port: int, clients: int, duration: float,
                for i in range(clients)]
     for t in threads:
         t.start()
+    try:
+        ready.wait(timeout=CLIENTS_READY_S)
+    except threading.BrokenBarrierError:
+        raise RuntimeError(f"the {clients} closed-loop clients were not "
+                           f"all running within {CLIENTS_READY_S:g} s"
+                           ) from None
     for t in threads:
         t.join()
     done = sum(oks)
+    had = max(ends) - window["start"]
     return {
         "requests_ok": done,
-        "requests_per_sec": round(done / duration, 1),
-        "rows_per_sec": round(done * rows / duration, 1),
+        "requests_per_sec": round(done / had, 1),
+        "rows_per_sec": round(done * rows / had, 1),
         "latency_ms": _gw_lat_ms(sorted(
             x for chunk in lats for x in chunk)),
         "shed_503": sum(sheds),

@@ -42,13 +42,11 @@ import tempfile
 import time
 from typing import Optional
 
+from distributedmnist_tpu_torch.parallel.launch import bind_failure
+
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # a rank's wait for its group (rendezvous, fits, restore)
 RANK_TIMEOUT_S = 600
-# the coordinator's bind failure, when the free port picked (bind, then
-# close) was taken before rank 0 bound it
-BIND_FAILURES = ("address already in use", "errno 98", "failed to bind",
-                 "bind failed")
 
 
 def _even(n: int) -> bool:
@@ -354,7 +352,7 @@ def _run_group_retry(n: int, device: str, steps: int, ckpt_dir: str,
     try:
         return _run_group(n, device, steps, ckpt_dir, work_dir)
     except RuntimeError as e:
-        if not any(sig in str(e).lower() for sig in BIND_FAILURES):
+        if not bind_failure(str(e)):
             raise
         return _run_group(n, device, steps, ckpt_dir, work_dir)
 

@@ -28,6 +28,12 @@ saved their checkpoint and printed their summary, ends it with exit code
 1 and a SignalException traceback, where the single-process CLI ends by
 the SIGTERM itself. tests/test_torch_parallel.py holds the launcher to
 both.
+
+The rendezvous port is picked bind-then-close (free_port), so another
+process can take it before rank 0's TCPStore binds it. launch() then
+retries once on a fresh port, when the failed rank's tail shows a bind
+failure (BIND_FAILURES) and no rank has written to this process's stdout
+yet, so a retry never repeats a line. Any other failure is final.
 """
 
 from __future__ import annotations
@@ -43,6 +49,11 @@ import time
 from typing import Optional
 
 TAIL_LINES = 40
+# the coordinator's bind failure, when the free port picked (bind, then
+# close) was taken before rank 0 bound it; torch's TCPStore says "...
+# code: -98, name: EADDRINUSE, message: address already in use"
+BIND_FAILURES = ("address already in use", "errno 98", "failed to bind",
+                 "bind failed")
 # the environment a launcher (this module, torchrun) gives a rank
 LAUNCH_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
 
@@ -73,31 +84,66 @@ def run_ranks(module: str, argv: list[str], cfg) -> Optional[int]:
     return launch([sys.executable, "-m", module, *argv], n)
 
 
+def free_ports(k: int) -> list[int]:
+    """k distinct free local ports: the k sockets are held bound at once
+    and closed only after every port is read."""
+    socks = []
+    try:
+        for _ in range(k):
+            socks.append(socket.socket())
+            socks[-1].bind(("localhost", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
 def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+    return free_ports(1)[0]
+
+
+def bind_failure(text: str) -> bool:
+    """Whether `text` (a rank's output) shows a coordinator bind
+    failure."""
+    text = text.lower()
+    return any(sig in text for sig in BIND_FAILURES)
 
 
 def _pump(stream, out, prefix: str, tail: collections.deque,
-          lock: threading.Lock) -> None:
+          lock: threading.Lock, printed: Optional[list] = None) -> None:
+    """Pass `stream`'s lines to `out` (None: keep them only in `tail`);
+    each line passed is also appended to `printed`, when given."""
     for line in stream:
         tail.append(line)
         if out is not None:
             with lock:
                 out.write(prefix + line)
                 out.flush()
+                if printed is not None:
+                    printed.append(line)
     stream.close()
 
 
 def launch(argv: list[str], n: int, cwd: Optional[str] = None) -> int:
     """Run `argv` as ranks 0..n-1 (in directory `cwd`, default this
     process's) and wait for all of them. Returns 0 when every rank exits
-    0, 1 when one fails (the rest are killed). After a forwarded SIGTERM
-    that ended the ranks by that signal, re-delivers it to this process
-    once their output is through."""
-    port = free_port()
+    0, 1 when one fails (the rest are killed). A bind failure of the
+    rendezvous port before any rank printed to stdout is retried once on
+    a fresh port. After a forwarded SIGTERM that ended the ranks by that
+    signal, re-delivers it to this process once their output is
+    through."""
+    rc = _launch_once(argv, n, cwd, free_port(), retry=True)
+    if rc is None:
+        rc = _launch_once(argv, n, cwd, free_port(), retry=False)
+    return rc
+
+
+def _launch_once(argv: list[str], n: int, cwd: Optional[str], port: int,
+                 retry: bool) -> Optional[int]:
+    """launch() on rendezvous port `port`. With `retry`, None instead of
+    1 when the failure is one launch() retries."""
     lock = threading.Lock()
+    printed: list = []
     procs, tails, pumps = [], [], []
     for r in range(n):
         env = dict(os.environ, MASTER_ADDR="localhost",
@@ -107,11 +153,12 @@ def launch(argv: list[str], n: int, cwd: Optional[str] = None) -> int:
         proc = subprocess.Popen(argv, env=env, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True, cwd=cwd)
         tail: collections.deque = collections.deque(maxlen=TAIL_LINES)
-        for stream, out, prefix in (
-                (proc.stdout, sys.stdout if r == 0 else None, ""),
-                (proc.stderr, sys.stderr, f"[rank {r}] ")):
+        for stream, out, prefix, seen in (
+                (proc.stdout, sys.stdout if r == 0 else None, "", printed),
+                (proc.stderr, sys.stderr, f"[rank {r}] ", None)):
             t = threading.Thread(target=_pump,
-                                 args=(stream, out, prefix, tail, lock),
+                                 args=(stream, out, prefix, tail, lock,
+                                       seen),
                                  daemon=True)
             t.start()
             pumps.append(t)
@@ -152,6 +199,15 @@ def launch(argv: list[str], n: int, cwd: Optional[str] = None) -> int:
             t.join(timeout=10)
         signal.signal(signal.SIGTERM, prev)
     if failed is not None:
+        if (retry and not terminated and not printed
+                and bind_failure("".join(tails[failed]))):
+            with lock:
+                sys.stderr.write(
+                    f"launch: rank {failed} of {n} could not bind the "
+                    f"rendezvous port {port}; retrying once on a fresh "
+                    f"port\n")
+                sys.stderr.flush()
+            return None
         with lock:
             sys.stderr.write(
                 f"launch: rank {failed} of {n} exited "

@@ -280,3 +280,82 @@ def test_closing_the_server_stops_its_children(env, tiny, tmp_path):
     else:
         pytest.fail(f"child {proc.pid} outlived its fork server")
     proc.stdout.close()
+
+
+# -- coordinated groups' rendezvous ports --------------------------------------
+
+TAKEN = ("The server socket has failed to listen on any local network "
+         "address. port: {}, useIpv6: false, code: -98, name: EADDRINUSE, "
+         "message: address already in use")
+
+
+def _groups(sizes):
+    """A group a size: its ranks' argvs carry its port and its index."""
+    return [lambda port, g=g, n=n: [["group", str(g), str(port), str(r)]
+                                    for r in range(n)]
+            for g, n in enumerate(sizes)]
+
+
+@pytest.fixture
+def ranks(monkeypatch):
+    """chip_smoke._run_ranks stubbed: each call's argvs are recorded,
+    and `fail(argv)` gives a rank's (rc, stderr)."""
+    calls: list = []
+    state = {"fail": lambda argv: (0, "")}
+
+    def run(argvs):
+        calls.append(argvs)
+        out = []
+        for a in argvs:
+            rc, err = state["fail"](a)
+            out.append((rc, f"rank {a}", err))
+        return out
+
+    monkeypatch.setattr(chip_smoke, "_run_ranks", run)
+    return calls, state
+
+
+def test_concurrent_groups_take_distinct_ports(ranks):
+    calls, _ = ranks
+    out = chip_smoke._run_groups(_groups([2, 1, 2]))
+    assert len(calls) == 1 and len(calls[0]) == 5
+    ports = {g: {a[2] for a in calls[0] if a[1] == str(g)} for g in range(3)}
+    assert all(len(p) == 1 for p in ports.values())
+    assert len({p.pop() for p in ports.values()}) == 3
+    assert [[r[1] for r in res] for res in out] == [
+        [f"rank {a}" for a in calls[0] if a[1] == str(g)] for g in range(3)]
+
+
+def test_a_group_whose_port_was_taken_reruns_once(ranks):
+    calls, state = ranks
+    state["fail"] = lambda a: ((1, TAKEN.format(a[2]))
+                               if a[1] == "1" and len(calls) == 1
+                               and a[3] == "0" else (0, ""))
+    out = chip_smoke._run_groups(_groups([2, 2, 1]))
+    assert len(calls) == 2
+    assert {a[1] for a in calls[1]} == {"1"}      # only the failed group
+    first = {a[2] for a in calls[0] if a[1] == "1"}
+    assert {a[2] for a in calls[1]} != first
+    assert [rc for rc, _, _ in out[1]] == [0, 0]
+    assert out[0][0][1] == f"rank {calls[0][0]}"
+
+
+@pytest.mark.parametrize("err", ["ValueError: boom", TAKEN.format(1)])
+def test_no_rerun_for_another_failure_or_a_second_bind_failure(ranks, err):
+    calls, state = ranks
+    bind = "EADDRINUSE" in err
+    state["fail"] = lambda a: (1, err) if a[1] == "0" else (0, "")
+    out = chip_smoke._run_groups(_groups([2, 1]))
+    # another failure is the caller's; a bind failure is rerun once only
+    assert len(calls) == (2 if bind else 1)
+    assert [rc for rc, _, _ in out[0]] == [1, 1]
+
+
+def test_no_rank_group_picks_its_port_alone():
+    """Every coordinated group of the script takes its port through
+    _run_groups (one launch.free_ports call a batch of groups)."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    singles = [n.lineno for n in ast.walk(tree)
+               if isinstance(n, ast.Attribute) and n.attr == "free_port"]
+    assert not singles, singles

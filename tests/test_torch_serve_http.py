@@ -1762,13 +1762,30 @@ def _tenancy_script():
     ]
 
 
+def _wait_resident(base, timeout=240):
+    """Until GET /tenants lists every catalog model resident. Root
+    serve.py answers /healthz 200 once its default model is live, while
+    its boot thread still warms LeNet; a request for LeNet then waits
+    out that warmup, and past 20 s (a token of the free tenant's 0.05
+    qps) its over-quota request is answered 200, not 429."""
+    deadline = time.monotonic() + timeout
+    while True:
+        code, body, _ = _request(f"{base}/tenants")
+        assert code == 200, body
+        if all(m["resident"] for m in body["models"].values()):
+            return
+        assert time.monotonic() < deadline, body["models"]
+        time.sleep(0.1)
+
+
 def test_conformance_tenancy_with_jax_serve():
     """`--serve-models mlp,lenet --serve-tenants ...` on both servers
-    (fresh-init weights, so the classes are not compared): equal codes
-    and bodies' keys for the whole script, the 429 with a Retry-After of
-    the same value, /metrics' tenancy, by_tenant and by_model blocks, the
-    tenant and model Prometheus families, and a SIGTERM summary with the
-    tenancy block in each."""
+    (fresh-init weights, so the classes are not compared), once every
+    catalog model is resident: equal codes and bodies' keys for the
+    whole script, the 429 with a Retry-After of the same value,
+    /metrics' tenancy, by_tenant and by_model blocks, the tenant and
+    model Prometheus families, and a SIGTERM summary with the tenancy
+    block in each."""
     from conftest import worker_env
 
     jenv, _ = worker_env()
@@ -1787,16 +1804,15 @@ def test_conformance_tenancy_with_jax_serve():
     try:
         for name, srv in servers.items():
             _wait_healthy(srv.base, timeout=240)
+            _wait_resident(srv.base)
             answers = _run_script(srv.base, _tenancy_script())
             out[name] = (answers, _request(f"{srv.base}/metrics")[1],
                          _text(f"{srv.base}/metrics?format=prometheus")[1])
     finally:
         for name, srv in servers.items():
             done[name] = srv.stop()
-    # the port exits 0. Root serve.py answers /healthz 200 once its
-    # default model is live, while its boot thread still warms LeNet, and
-    # a SIGTERM then can abort it at exit, after its summary, with that
-    # thread inside XLA (SIGABRT): the reference's; its summary is still
+    # the port exits 0. Root serve.py can abort at exit after a SIGTERM,
+    # after its summary (SIGABRT): the reference's; its summary is still
     # checked below
     assert done["port"].rc == 0, done["port"].stderr[-3000:]
     (ja, jm, jp), (ta, tm, tp) = out["jax"], out["port"]
