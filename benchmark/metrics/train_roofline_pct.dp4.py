@@ -1,0 +1,6 @@
+"""The step's kernels' share of their roofline, over the ranks
+(harness/readers.py)."""
+
+from benchmark.harness import readers
+
+read = readers.roofline_pct
