@@ -15,6 +15,11 @@ attribution, and the per-stage duration histograms behind /metrics.
 - Every completed span feeds a **per-stage duration histogram** (fixed
   log-spaced ms buckets), flattened into the Prometheus exposition.
 
+A span recorded with no request id (a training run's: trainer.fit's
+phases and blocks) belongs to no trace; it is kept in a bounded run ring
+of its own, read by `run_spans()` and `export_run_chrome()`, beside the
+per-stage histogram every span feeds.
+
 Span discipline: every `begin_span` is closed by `end_span` in a
 `finally`. Spans whose ends live on different threads (queue wait, the
 dispatched-but-unfetched window) are recorded as closed intervals with
@@ -71,6 +76,11 @@ from distributedmnist_tpu_torch.analysis.locks import make_lock
 # exposition, which emits them cumulatively per the histogram contract.
 STAGE_BUCKETS_MS = (0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0,
                     100.0, 250.0, 1000.0)
+
+# The run ring's bound: trainer.fit records three spans a block and
+# about fifteen more, so a run of up to 1,360 blocks keeps all of its
+# spans; a longer one keeps its last blocks and its close, root last.
+RUN_CAPACITY = 4096
 
 # Span name -> (attribution stage, claim priority). Higher priority
 # claims wall-clock first, so a rescue nested inside an engine.fetch
@@ -230,6 +240,39 @@ def attribute_stages(trace: dict) -> dict:
     }
 
 
+def _chrome(spans, pid: int, process_name: str, cat: str, ids,
+            shift_us: float = 0.0) -> dict:
+    """Chrome trace-event JSON of span dicts: one 'X' event a span at
+    monotonic microseconds + `shift_us`, its args `ids(span)`, status,
+    parent and tags; thread-name metadata a thread, numbered in
+    first-encounter order."""
+    events = [{"ph": "M", "pid": pid, "tid": 0, "name": "process_name",
+               "args": {"name": process_name}}]
+    tids: dict[str, int] = {}
+
+    def tid_of(label: str) -> int:
+        t = tids.get(label)
+        if t is None:
+            t = tids[label] = len(tids) + 1
+            events.append({"ph": "M", "pid": pid, "tid": t,
+                           "name": "thread_name", "args": {"name": label}})
+        return t
+
+    for s in spans:
+        events.append({
+            "name": s["name"],
+            "cat": cat,
+            "ph": "X",
+            "ts": round(s["t0"] * 1e6 + shift_us, 1),
+            "dur": round(s["dur"] * 1e6, 1),
+            "pid": pid,
+            "tid": tid_of(s["tid"]),
+            "args": {**ids(s), "status": s["status"],
+                     "parent": s["parent"], **s["tags"]},
+        })
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
 class Tracer:
     """Request-scoped span collection with bounded retention.
 
@@ -264,6 +307,8 @@ class Tracer:
             else max(capacity // 2, 16))
         self._live: "OrderedDict[int, dict]" = OrderedDict()
         self._live_cap = live_cap
+        # spans with no request id, oldest first (a training run's)
+        self._run: deque = deque(maxlen=RUN_CAPACITY)
         self._recent: "OrderedDict[str, dict]" = OrderedDict()
         self._recent_cap = 512
         self._stages: dict[str, list] = {}   # name -> [count, sum_ms,
@@ -489,6 +534,8 @@ class Tracer:
             if opened:
                 self._open -= 1
             self._stage_record_locked(d["name"], d["dur"] * 1e3)
+            if not d["rids"]:
+                self._run.append(d)
             for rid in d["rids"]:
                 acc = self._live.get(rid)
                 if acc is not None:
@@ -570,40 +617,32 @@ class Tracer:
         otherwise the second export's thread_name metadata relabels
         the first's tracks (the bench's --trace --chaos merge passes
         pid per leg)."""
-        traces = self.traces()
-        events = [{"ph": "M", "pid": pid, "tid": 0,
-                   "name": "process_name",
-                   "args": {"name": process_name}}]
-        tids: dict[str, int] = {}
-
-        def tid_of(label: str) -> int:
-            t = tids.get(label)
-            if t is None:
-                t = tids[label] = len(tids) + 1
-                events.append({"ph": "M", "pid": pid, "tid": t,
-                               "name": "thread_name",
-                               "args": {"name": label}})
-            return t
-
-        seen: set = set()
-        for tr in traces:
+        spans, seen = [], set()
+        for tr in self.traces():
             for s in tr["spans"]:
-                if s["id"] in seen:
-                    continue
-                seen.add(s["id"])
-                events.append({
-                    "name": s["name"],
-                    "cat": "serve",
-                    "ph": "X",
-                    "ts": round(s["t0"] * 1e6, 1),
-                    "dur": round(s["dur"] * 1e6, 1),
-                    "pid": pid,
-                    "tid": tid_of(s["tid"]),
-                    "args": {"trace_ids": [f"{r:08x}" for r in s["rids"]],
-                             "status": s["status"],
-                             "parent": s["parent"], **s["tags"]},
-                })
-        return {"traceEvents": events, "displayTimeUnit": "ms"}
+                if s["id"] not in seen:
+                    seen.add(s["id"])
+                    spans.append(s)
+        return _chrome(spans, pid, process_name, "serve", lambda s: {
+            "trace_ids": [f"{r:08x}" for r in s["rids"]]})
+
+    def run_spans(self) -> list:
+        """The spans recorded with no request id (a training run's
+        phases and blocks), oldest first: the last RUN_CAPACITY."""
+        with self._lock:
+            return list(self._run)
+
+    def export_run_chrome(self, pid: int = 1,
+                          process_name: str = "distributedmnist-train",
+                          since: int = 0, shift_us: float = 0.0) -> dict:
+        """The run spans whose id is at least `since` as export_chrome's
+        JSON, each event's args holding its own span id beside its
+        parent's. `shift_us` moves them from the monotonic clock onto
+        another trace's (a torch.profiler trace's), so that both load
+        into one view."""
+        spans = [s for s in self.run_spans() if s["id"] >= since]
+        return _chrome(spans, pid, process_name, "train",
+                       lambda s: {"id": s["id"]}, shift_us)
 
     def snapshot(self) -> dict:
         """Counters + the per-stage duration histograms (the /metrics

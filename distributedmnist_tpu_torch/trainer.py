@@ -50,11 +50,44 @@ the models in it (models/). The streaming pipeline (data_pipeline
 copies them to the card a block at a time, in the device pipeline's
 batch order. `profile_dir` makes rank 0 trace the training loop with
 torch.profiler into a Chrome trace.
+
+Spans (serve/trace.py's hooks; with no Tracer installed each is one
+None check, a few a block and none a step), all on the training thread:
+
+    fit                     fit's entry to its return (the root; tags
+                            rank, world, steps)
+    fit.setup.data          the dataset's upload (DeviceDataset)
+    fit.setup.model         the model's build, its weights, the optimizer
+    fit.setup.restore       the resume from a checkpoint
+    fit.setup.wrap          run.start: DDP's wrap and its broadcast
+    fit.setup.agree         the ranks' agreement on the SIGTERM handler
+    train.loop              the loop over blocks
+    train.steady            StepTimer's window: from the first block's
+                            end (timer.start) to the loop's exit
+    train.block             one block (tags step, k: its first step and
+                            its steps), with its children
+    train.block.wait        waiting for the oldest in-flight block when
+                            max_inflight are queued
+    train.block.launch      run_block(k) and the block's event: the
+                            host's enqueue of k steps, which waits for
+                            the card once CUDA's launch queue is full
+    train.drain             finishing the in-flight blocks
+    train.eval              an eval, its drain inside
+    train.checkpoint        a periodic save's copy
+    train.agree             the ranks' preemption agreement
+    fit.close.sync          the window's closing wait for the card
+    fit.close.save          the final save
+    fit.close.commit        waiting for the save, then every rank
+
+With `profile_dir` every rank also writes its spans as a Chrome trace,
+spans-rank<r>-<pid>.json, shifted onto rank 0's profiler trace by one
+mark recorded on both clocks.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import logging
 import math
 import os
@@ -80,6 +113,7 @@ from distributedmnist_tpu_torch.parallel import (batch_shard, chip_count,
 from distributedmnist_tpu_torch.parallel import tp as tp_lib
 from distributedmnist_tpu_torch.parallel.mesh import (Groups, make_mesh,
                                                       process_groups)
+from distributedmnist_tpu_torch.serve import trace
 from distributedmnist_tpu_torch.utils import (MetricsLogger, StepTimer,
                                               round_up)
 from distributedmnist_tpu_torch.utils.device import (resolve_device,
@@ -87,12 +121,24 @@ from distributedmnist_tpu_torch.utils.device import (resolve_device,
 
 SPMD_MODES = ("auto", "explicit")
 DATA_PIPELINES = ("device", "stream")
+CLOCK_MARK = "trainer.clock"   # the profiler trace's mark of the span clock
 
 log = logging.getLogger("distributedmnist_tpu_torch")
 
 
 class SimulatedFailure(RuntimeError):
     """Raised by the fail_at_step fault-injection hook."""
+
+
+@contextlib.contextmanager
+def _span(name: str, **tags):
+    """A span of the installed Tracer around the block (none without
+    one)."""
+    sp = trace.begin_span(name, **tags)
+    try:
+        yield
+    finally:
+        trace.end_span(sp)
 
 
 def _decoder(pixel_format: str, dtype=torch.float32):
@@ -273,15 +319,51 @@ def fit(cfg: Config, data: Optional[dict] = None, *,
     the ranks agree at eval and checkpoint boundaries, so all of them
     stop at the same step. Float32 runs with TF32 off, and cuDNN on its
     deterministic algorithms, so that a run at a seed repeats itself bit
-    for bit on the card (utils/device.training_numerics)."""
-    device_type = resolve_device(cfg.device).type
-    multihost = distributed.maybe_initialize(
-        cfg.coordinator_address, cfg.num_processes, cfg.process_id,
-        device_type)
-    device = get_device(cfg.device, cfg.num_devices)
-    with training_numerics():
-        return _fit(cfg, data, device, multihost,
-                    log if log is not None else MetricsLogger(), init_params)
+    for bit on the card (utils/device.training_numerics).
+
+    With a Tracer installed (serve/trace.py) fit records the spans the
+    module's docstring lists; with `profile_dir` and none installed it
+    installs one of its own for the call."""
+    own = (trace.install(trace.Tracer()) if cfg.profile_dir
+           and trace.active() is None else None)
+    clock: dict = {}     # rank 0's profiler clock, filled by _profiler
+    root = trace.begin_span("fit")
+    tags: dict = {}
+    try:
+        device_type = resolve_device(cfg.device).type
+        multihost = distributed.maybe_initialize(
+            cfg.coordinator_address, cfg.num_processes, cfg.process_id,
+            device_type)
+        device = get_device(cfg.device, cfg.num_devices)
+        tags.update(rank=distributed.process_index(),
+                    world=distributed.process_count())
+        with training_numerics():
+            summary = _fit(cfg, data, device, multihost,
+                           log if log is not None else MetricsLogger(),
+                           init_params, clock)
+        tags["steps"] = summary["steps"]
+    finally:
+        trace.end_span(root, **tags)
+        if own is not None:
+            trace.uninstall()
+    if cfg.profile_dir:
+        _write_spans(cfg.profile_dir, root, distributed.broadcast_object(
+            clock.get("shift_us"), device))
+    return summary
+
+
+def _write_spans(profile_dir: str, root, shift_us: Optional[float]) -> None:
+    """This rank's spans of one fit (`root`'s and those begun after it)
+    as a Chrome trace beside the profiler's, pid the rank, shifted by
+    rank 0's `shift_us` onto its profiler trace's clock. Ranks share
+    that shift as they share a host's monotonic clock."""
+    rank = distributed.process_index()
+    path = os.path.join(profile_dir, f"spans-rank{rank}-{os.getpid()}.json")
+    with open(path, "w") as f:
+        json.dump(root.tracer.export_run_chrome(
+            pid=rank, process_name=f"distributedmnist-train rank {rank}",
+            since=root.id, shift_us=shift_us or 0.0), f)
+    log.info("profile: spans written to %s", path)
 
 
 def validate(cfg: Config, world: int) -> None:
@@ -379,7 +461,7 @@ class _Shards:
 
 def _fit(cfg: Config, data: Optional[dict], device: torch.device,
          multihost: bool, mlog: MetricsLogger,
-         init_params: Optional[dict]) -> dict:
+         init_params: Optional[dict], clock: dict) -> dict:
     world = distributed.process_count()
     validate(cfg, world)
     mesh = make_mesh(world, cfg.model_parallel)
@@ -391,43 +473,49 @@ def _fit(cfg: Config, data: Optional[dict], device: torch.device,
             groups.model, mesh.model_parallel, groups.model_index,
             tp_lib.placements(models.full_shapes(cfg.model), cfg.model,
                               mesh.model_parallel))
-    data = data if data is not None else load_mnist(
-        cfg.data_dir, cfg.synthetic, cfg.seed)
     streaming = cfg.data_pipeline == "stream"
-    # streamed batches arrive as bytes: the packed layout exists only on
-    # the card
-    pixel_format = "u8" if streaming else cfg.pixel_format
-    ds = DeviceDataset(data, device,
-                       device_resident_train=not (cfg.eval_only or streaming),
-                       pixel_format=pixel_format)
-    model = models.build(cfg.model, dtype=cfg.dtype, fused=cfg.fused_kernels,
-                         conv=cfg.conv_impl, device=device, tp=tp)
-    shards = _Shards(model, cfg.model, tp)
-    shards.load_params(init_params if init_params is not None
-                       else models.init_params(cfg.model, cfg.seed))
-    steps_per_epoch = ds.train_n // cfg.batch_size
-    total_steps = cfg.steps if cfg.steps is not None \
-        else cfg.epochs * steps_per_epoch
-    schedule = optim.make_schedule(
-        cfg.learning_rate, cfg.lr_schedule, cfg.warmup_steps,
-        total_steps if cfg.lr_decay_steps is None else cfg.lr_decay_steps)
-    optimizer, scheduler = optim.build(cfg.optimizer, model.parameters(),
-                                       schedule, cfg.momentum,
-                                       flat=cfg.flat_optimizer)
+    with _span("fit.setup.data"):
+        data = data if data is not None else load_mnist(
+            cfg.data_dir, cfg.synthetic, cfg.seed)
+        # streamed batches arrive as bytes: the packed layout exists only
+        # on the card
+        pixel_format = "u8" if streaming else cfg.pixel_format
+        ds = DeviceDataset(data, device,
+                           device_resident_train=not (cfg.eval_only
+                                                      or streaming),
+                           pixel_format=pixel_format)
+    with _span("fit.setup.model"):
+        model = models.build(cfg.model, dtype=cfg.dtype,
+                             fused=cfg.fused_kernels, conv=cfg.conv_impl,
+                             device=device, tp=tp)
+        shards = _Shards(model, cfg.model, tp)
+        shards.load_params(init_params if init_params is not None
+                           else models.init_params(cfg.model, cfg.seed))
+        steps_per_epoch = ds.train_n // cfg.batch_size
+        total_steps = cfg.steps if cfg.steps is not None \
+            else cfg.epochs * steps_per_epoch
+        schedule = optim.make_schedule(
+            cfg.learning_rate, cfg.lr_schedule, cfg.warmup_steps,
+            total_steps if cfg.lr_decay_steps is None
+            else cfg.lr_decay_steps)
+        optimizer, scheduler = optim.build(cfg.optimizer, model.parameters(),
+                                           schedule, cfg.momentum,
+                                           flat=cfg.flat_optimizer)
 
     ckpt = Checkpointer(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
     try:
         restored = False
         start_step = 0
         if ckpt and cfg.resume:
-            state = ckpt.maybe_restore(device)
-            if state is not None:
-                shards.load_params(state["params"])
-                shards.load_optimizer(optimizer, state["optimizer"])
-                scheduler.load_state_dict(state["scheduler"])
-                start_step = int(state["step"])
-                restored = True
-                log.info("restored checkpoint at step %d", start_step)
+            with _span("fit.setup.restore"):
+                state = ckpt.maybe_restore(device)
+                if state is not None:
+                    shards.load_params(state["params"])
+                    shards.load_optimizer(optimizer, state["optimizer"])
+                    scheduler.load_state_dict(state["scheduler"])
+                    start_step = int(state["step"])
+                    restored = True
+                    log.info("restored checkpoint at step %d", start_step)
         if cfg.eval_only:
             if not restored:
                 raise ValueError(
@@ -440,7 +528,7 @@ def _fit(cfg: Config, data: Optional[dict], device: torch.device,
                    device, groups, streaming)
         try:
             return _train(run, start_step, total_steps, restored, multihost,
-                          mlog)
+                          mlog, clock)
         finally:
             run.close()
     finally:
@@ -499,13 +587,18 @@ class _Run:
             self.host_stream.close()
 
 
-def _profiler(profile_dir: Optional[str], device: torch.device):
+def _profiler(profile_dir: Optional[str], device: torch.device,
+              clock: dict):
     """Rank 0's torch.profiler over the training loop (CPU and, on the
     card, CUDA activities), exporting a Chrome trace into profile_dir at
     its exit: the port of the JAX trainer's jax.profiler.start_trace on
-    process 0. A null context elsewhere."""
+    process 0. A null context elsewhere. At its start it records one
+    mark, CLOCK_MARK, at a time.monotonic() it keeps; read back from
+    the trace, the two give clock["shift_us"], which moves a span's
+    monotonic microseconds onto the trace's clock."""
     if not profile_dir or distributed.process_index() != 0:
         return contextlib.nullcontext()
+    from torch.autograd.profiler import record_function
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(profile_dir, exist_ok=True)
@@ -517,19 +610,28 @@ def _profiler(profile_dir: Optional[str], device: torch.device):
     @contextlib.contextmanager
     def tracing():
         with profile(activities=activities) as prof:
+            t_mark = time.monotonic()
+            with record_function(CLOCK_MARK):
+                pass
             yield
         prof.export_chrome_trace(path)
+        with open(path) as f:
+            marks = [e["ts"] for e in json.load(f)["traceEvents"]
+                     if e.get("name") == CLOCK_MARK and "ts" in e]
+        if marks:
+            clock["shift_us"] = marks[0] - t_mark * 1e6
         log.info("profile: trace written to %s", path)
     return tracing()
 
 
 def _train(run: _Run, start_step, total_steps, restored, multihost,
-           mlog) -> dict:
+           mlog, clock: dict) -> dict:
     cfg, ds, model, ckpt = run.cfg, run.ds, run.model, run.ckpt
     device, groups = run.device, run.groups
     grouped = dist.is_initialized()
     world = distributed.process_count()
-    step_fn = run.start(start_step)
+    with _span("fit.setup.wrap"):
+        step_fn = run.start(start_step)
 
     def run_block(k: int) -> dict:
         losses = step_fn(k)
@@ -582,21 +684,23 @@ def _train(run: _Run, start_step, total_steps, restored, multihost,
         their training time into `excluded`. The newest block's event
         covers all of them."""
         if inflight:
-            StepTimer.barrier(inflight[-1])
-            inflight.clear()
+            with _span("train.drain"):
+                StepTimer.barrier(inflight[-1])
+                inflight.clear()
 
     n_evals = [0]
 
     def evaluate() -> float:
-        drain_inflight()
-        n_evals[0] += 1
-        with timer.exclude():
-            correct = eval_fn(ds.test_x, ds.test_y, idx_mat, mask_mat)
-            if grouped:
-                # once over the data group: each model rank holds the
-                # same count of its data share
-                dist.all_reduce(correct, group=groups.data)
-            return int(correct) / ds.test_n
+        with _span("train.eval"):
+            drain_inflight()
+            n_evals[0] += 1
+            with timer.exclude():
+                correct = eval_fn(ds.test_x, ds.test_y, idx_mat, mask_mat)
+                if grouped:
+                    # once over the data group: each model rank holds the
+                    # same count of its data share
+                    dist.all_reduce(correct, group=groups.data)
+                return int(correct) / ds.test_n
 
     # ranks sharing a card count it once: per-chip rates are per card
     n_chips = chip_count(device)
@@ -631,8 +735,9 @@ def _train(run: _Run, start_step, total_steps, restored, multihost,
                and start_step < total_steps
                and threading.current_thread() is threading.main_thread())
     if grouped:
-        all_capable = distributed.agree_max(0 if install else 1,
-                                            device) == 0
+        with _span("fit.setup.agree"):
+            all_capable = distributed.agree_max(0 if install else 1,
+                                                device) == 0
         if install and not all_capable:
             log.warning("graceful preemption disabled: not every rank can "
                         "install the SIGTERM handler")
@@ -652,66 +757,74 @@ def _train(run: _Run, start_step, total_steps, restored, multihost,
 
     step = start_step
     first_call = True
-    profiler = _profiler(cfg.profile_dir, device)
+    steady_t0 = None      # monotonic end of the first block: train.steady
+    profiler = _profiler(cfg.profile_dir, device, clock)
     try:
-        with profiler:
+        with profiler, _span("train.loop"):
             while step < total_steps:
                 if stop_requested():
                     log.info("SIGTERM: stopping at step %d to checkpoint",
                              step)
                     break
                 k = min(spc, total_steps - step)
-                # wait BEFORE launching, so that at most max_inflight
-                # blocks are ever queued on the card
-                while len(inflight) >= max_inflight:
-                    StepTimer.barrier(inflight.popleft())
-                metrics = run_block(k)
-                inflight.append(block_done())
-                prev, step = step, step + k
-                if first_call:
-                    # the first block: warm-up
-                    timer.start(sync=inflight[-1])
-                    first_call = False
-                else:
-                    timer.lap(k)
-                if cfg.log_every and crossed(prev, step, cfg.log_every):
-                    mlog.step(step, metrics)
+                with _span("train.block", step=step, k=k):
+                    # wait BEFORE launching, so that at most max_inflight
+                    # blocks are ever queued on the card
+                    with _span("train.block.wait"):
+                        while len(inflight) >= max_inflight:
+                            StepTimer.barrier(inflight.popleft())
+                    with _span("train.block.launch"):
+                        metrics = run_block(k)
+                        inflight.append(block_done())
+                    prev, step = step, step + k
+                    if first_call:
+                        # the first block: warm-up
+                        timer.start(sync=inflight[-1])
+                        steady_t0 = time.monotonic()
+                        first_call = False
+                    else:
+                        timer.lap(k)
+                    if cfg.log_every and crossed(prev, step, cfg.log_every):
+                        mlog.step(step, metrics)
 
-                if (sigterm_installed and grouped
-                        and (crossed(prev, step, cfg.checkpoint_every)
-                             or crossed(prev, step, cfg.eval_every))):
-                    drain_inflight()
-                    with timer.exclude():
-                        preempt_agreed[0] = distributed.agree_max(
-                            0 if preempt_signum[0] is None else 1,
-                            device) == 1
+                    if (sigterm_installed and grouped
+                            and (crossed(prev, step, cfg.checkpoint_every)
+                                 or crossed(prev, step, cfg.eval_every))):
+                        drain_inflight()
+                        with _span("train.agree"), timer.exclude():
+                            preempt_agreed[0] = distributed.agree_max(
+                                0 if preempt_signum[0] is None else 1,
+                                device) == 1
 
-                if ckpt and crossed(prev, step, cfg.checkpoint_every):
-                    # the save's copy to the host waits for the queued
-                    # blocks: finish them on the counted clock, exclude
-                    # only the copy (the write overlaps training)
-                    drain_inflight()
-                    with timer.exclude():
-                        ckpt.save(step, train_state())
+                    if ckpt and crossed(prev, step, cfg.checkpoint_every):
+                        # the save's copy to the host waits for the queued
+                        # blocks: finish them on the counted clock, exclude
+                        # only the copy (the write overlaps training)
+                        drain_inflight()
+                        with _span("train.checkpoint"), timer.exclude():
+                            ckpt.save(step, train_state())
 
-                if (cfg.fail_at_step is not None
-                        and step >= cfg.fail_at_step):
-                    if ckpt:
-                        commit()
-                    raise SimulatedFailure(
-                        f"injected failure at step {step}")
+                    if (cfg.fail_at_step is not None
+                            and step >= cfg.fail_at_step):
+                        if ckpt:
+                            commit()
+                        raise SimulatedFailure(
+                            f"injected failure at step {step}")
 
-                if (crossed(prev, step, cfg.eval_every)
-                        or step == total_steps):
-                    accuracy = evaluate()
-                    mlog.eval(step, accuracy)
-                    if (cfg.target_accuracy is not None
-                            and accuracy >= cfg.target_accuracy):
-                        reached_target_at = time.perf_counter() - t_start
-                        log.info("target accuracy %.3f reached at step "
-                                 "%d (%.2fs)", cfg.target_accuracy, step,
-                                 reached_target_at)
-                        break
+                    if (crossed(prev, step, cfg.eval_every)
+                            or step == total_steps):
+                        accuracy = evaluate()
+                        mlog.eval(step, accuracy)
+                        if (cfg.target_accuracy is not None
+                                and accuracy >= cfg.target_accuracy):
+                            reached_target_at = (time.perf_counter()
+                                                 - t_start)
+                            log.info("target accuracy %.3f reached at "
+                                     "step %d (%.2fs)", cfg.target_accuracy,
+                                     step, reached_target_at)
+                            break
+            if steady_t0 is not None:
+                trace.add_span("train.steady", steady_t0, time.monotonic())
 
         # On preemption skip the closing eval (a collective: every rank
         # skips it, each term below being deterministic or agreed): the
@@ -722,11 +835,15 @@ def _train(run: _Run, start_step, total_steps, restored, multihost,
                      and reached_target_at is None)
         if accuracy == 0.0 and not preempted:
             accuracy = evaluate()
-        throughput = timer.snapshot(sync=inflight[-1] if inflight else None)
+        with _span("fit.close.sync"):
+            throughput = timer.snapshot(sync=inflight[-1] if inflight
+                                        else None)
         wall = time.perf_counter() - t_start
         if ckpt:
-            ckpt.save(step, train_state())
-            commit()
+            with _span("fit.close.save"):
+                ckpt.save(step, train_state())
+            with _span("fit.close.commit"):
+                commit()
     finally:
         # restored only after the force-save: a second SIGTERM during the
         # save is absorbed, not a kill mid-write

@@ -87,13 +87,16 @@ def test_sampling_verdicts_equal_jax(sample, seed):
     assert verdicts == [ref._sampled(rid) for rid in range(2000)]
 
 
-def _drive(mod, slo_ms=2.0, sample=0.5):
+def _drive(mod, slo_ms=2.0, sample=0.5, run_spans=False):
     """The same requests and spans, on fixed clock stamps, through one
     package's tracer: OK, errored and over-SLO requests, a shared batch
-    span, a shed; returns everything the tracer exports."""
+    span, a shed, and with `run_spans` a span with no request id before
+    each request; returns everything the tracer exports."""
     tr = mod.Tracer(capacity=8, sample=sample, slo_ms=slo_ms, seed=5)
     for rid in range(1, 13):
         t0 = 10.0 + rid
+        if run_spans:
+            tr.add_span("train.block", t0 - 0.5, t0 - 0.1, k=rid)
         tr.start_request(rid, rows=rid % 3 + 1, t0=t0)
         tr.add_span("queue.wait", t0, t0 + 2e-4, rids=(rid,))
         tr.add_span("engine.staging", t0 + 2e-4, t0 + 4e-4, rids=(rid,),
@@ -120,6 +123,50 @@ def test_tracer_exports_equal_jax_on_one_clock():
     assert {e["ph"] for e in chrome["traceEvents"]} == {"M", "X"}
     assert all(re.fullmatch(r"([a-z.]+;dur=\d+\.\d{3})(, [a-z.]+;dur="
                             r"\d+\.\d{3})*", t) for t in timings)
+
+
+def test_run_spans_leave_the_request_exports_as_jax_reads_them():
+    """Spans with no request id between the requests change nothing the
+    request path exports: the same as JAX's tracer fed the same."""
+    ours = _drive(ttrace, run_spans=True)
+    assert ours == _drive(jtrace, run_spans=True)
+    assert ours[4]["stages"]["train.block"]["count"] == 12
+
+
+def test_run_spans_are_kept_in_their_own_ring(monkeypatch):
+    monkeypatch.setattr(ttrace, "RUN_CAPACITY", 3)
+    tr = ttrace.Tracer()
+    for i in range(5):
+        tr.add_span("train.block", float(i), i + 0.5, k=i)
+    tr.add_span("engine.fetch", 9.0, 9.5, rids=(1,))
+    sp = tr.begin_span("fit", rank=0)
+    tr.end_span(sp, steps=4)
+    run = tr.run_spans()
+    assert [s["name"] for s in run] == ["train.block"] * 2 + ["fit"]
+    assert [s["tags"] for s in run] == [{"k": 3}, {"k": 4},
+                                        {"rank": 0, "steps": 4}]
+    assert all(s["rids"] == [] and s["parent"] is None for s in run)
+    snap = tr.snapshot()
+    assert snap["stages"]["train.block"]["count"] == 5
+    assert set(snap) == set(jtrace.Tracer().snapshot())
+    assert tr.traces() == [] and snap["open_spans"] == 0
+
+
+def test_run_spans_export_onto_another_clock():
+    tr = ttrace.Tracer()
+    tr.add_span("fit", 1.0, 3.0)
+    root = tr.run_spans()[0]
+    tr.add_span("train.loop", 1.5, 2.5, tid="trainer", step=0)
+    tr.add_span("engine.fetch", 1.6, 1.7, rids=(3,))
+    out = tr.export_run_chrome(pid=2, process_name="train",
+                               since=root["id"] + 1, shift_us=-1e6)
+    x = [e for e in out["traceEvents"] if e["ph"] == "X"]
+    assert [(e["name"], e["ts"], e["dur"], e["pid"], e["cat"]) for e in x] == [
+        ("train.loop", 5e5, 1e6, 2, "train")]
+    assert x[0]["args"] == {"id": root["id"] + 1, "status": "ok",
+                            "parent": None, "step": 0}
+    names = {e["args"]["name"] for e in out["traceEvents"] if e["ph"] == "M"}
+    assert names == {"train", "trainer"}
 
 
 def test_tracer_rejects_degenerate_configs_like_jax():

@@ -554,14 +554,29 @@ def test_train_cli_supervise_forwards_the_summary(tmp_path):
 
 
 def test_profile_dir_writes_a_trace(tmp_path, small_data):
+    """The profiler's trace, and beside it the rank's spans on the
+    trace's clock: the loop's host operations fall inside the spans'
+    `train.loop`."""
     prof = str(tmp_path / "prof")
     trainer.fit(BASE.replace(steps=4, eval_every=4, profile_dir=prof),
                 data=small_data)
-    found = [f for f in os.listdir(prof) if f.endswith(".json")]
-    assert len(found) == 1
-    with open(os.path.join(prof, found[0])) as f:
+    found = sorted(f for f in os.listdir(prof) if f.endswith(".json"))
+    assert [f.split("-")[:2] for f in found] == [["spans", "rank0"],
+                                                 ["trace", "rank0"]]
+    with open(os.path.join(prof, found[1])) as f:
         events = json.load(f)["traceEvents"]
     assert any(ev.get("ph") == "X" for ev in events)
+    with open(os.path.join(prof, found[0])) as f:
+        spans = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+    assert {e["pid"] for e in spans} == {0}
+    assert [e["name"] for e in spans if e["args"]["parent"] is None] == [
+        "fit"]
+    loop = next(e for e in spans if e["name"] == "train.loop")
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    assert ops
+    slack = 2e3      # us: the mark's two stamps, and rounding
+    assert all(loop["ts"] - slack <= e["ts"] and e["ts"] + e["dur"]
+               <= loop["ts"] + loop["dur"] + slack for e in ops)
 
 
 @pytest.mark.parametrize("name,opt", (("mlp", "sgd"), ("lenet", "adam")))
