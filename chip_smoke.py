@@ -340,9 +340,15 @@ TPU_KERNELS = {
 DRYRUN_RANKS = 2
 CALIBRATION_POINT = (0.44, 3)
 CALIBRATION_EPOCHS = 6
-# kernels whose K is split over a thread-block cluster: held to give the
-# same bits on two calls
-SPLIT_K_KERNELS = ("dense_relu", "mlp_megakernel", "quant_dense")
+# the serving path's kernels: the ported TPU kernels
+SERVING_KERNELS = tuple(TPU_KERNELS)
+# kernels that sum across CTAs in a fixed order (K split over a
+# thread-block cluster; conv_wgrad_1ch's blocks' partial sums): held to
+# give the same bits on two calls
+SPLIT_K_KERNELS = ("dense_relu", "mlp_megakernel", "quant_dense",
+                   "conv_wgrad_1ch")
+# conv_wgrad_1ch's case: the rows of a benchmark training step on one card
+CONV_WGRAD_ROWS = 4096
 # The training phase: steps of each recipe, eval cadence, and the
 # test-accuracy floor each must reach. The floors are below what the CPU
 # runs of the same recipes reached (`python -m
@@ -950,19 +956,58 @@ def training_cases(data):
                dict(rtol=1e-5, atol=1e-5))
 
 
+def conv_wgrad_cases(data):
+    """conv_wgrad_1ch at LeNet's conv1 on CONV_WGRAD_ROWS training images
+    and a seeded normal output gradient, beside its plain version (the
+    op autograd runs for F.conv2d, on the card cuDNN's) and, as a
+    yardstick, cuDNN's weight gradient alone
+    (torch.nn.grad.conv2d_weight); the same tuple as kernel_cases. Run it
+    under training_numerics(), as training does: cuDNN's deterministic
+    algorithms, TF32 off."""
+    import numpy as np
+    import torch
+
+    from distributedmnist_tpu_torch.data.packing import normalize
+    from distributedmnist_tpu_torch.ops import fused
+
+    dev = torch.device("cuda")
+    m = CONV_WGRAD_ROWS
+    h, w, _ = fused.CONV_WGRAD_IMAGE
+    kh, kw, _, f = fused.CONV_WGRAD_KERNEL
+    x = normalize(torch.from_numpy(
+        data["train_x"][:m].reshape(m, h, w, 1)).to(dev))
+    g = torch.from_numpy(np.random.default_rng(SEED).normal(
+        size=(m, h, w, f)).astype(np.float32)).to(dev)
+    k = torch.zeros(fused.CONV_WGRAD_KERNEL, device=dev)
+    yield ("conv_wgrad_1ch", f"conv1 b={m}", "float32",
+           lambda: fused.conv_wgrad_1ch(x, g, k),
+           lambda: fused.conv_wgrad_1ch_reference(x, g, k),
+           lambda: torch.nn.grad.conv2d_weight(
+               x.permute(0, 3, 1, 2), (f, 1, kh, kw), g.permute(0, 3, 1, 2),
+               padding=kh // 2),
+           4 * (m * h * w * (1 + f) + kh * kw * f + f),
+           2 * m * h * w * kh * kw * f,
+           # f32 sums of 3.2 M terms in another order
+           dict(rtol=1e-5, atol=1e-5))
+
+
 def check_kernels(cases) -> list:
     """Compare and time every kernel case; return one record per case."""
     import torch
 
+    def flat(out):   # conv_wgrad_1ch gives (dW, db)
+        return (torch.cat([t.reshape(-1) for t in out])
+                if isinstance(out, tuple) else out)
+
     records = []
     for (name, case, kind, kernel, plain, library, nbytes, ops,
          tol) in cases:
-        got, want = kernel(), plain()
+        got, want = flat(kernel()), flat(plain())
         torch.cuda.synchronize()
-        if name in SPLIT_K_KERNELS and not torch.equal(got, kernel()):
+        if name in SPLIT_K_KERNELS and not torch.equal(got, flat(kernel())):
             raise RuntimeError(f"{name} {case}: two calls on the same "
-                               f"inputs differ (the cluster reduction "
-                               f"must sum in a fixed order)")
+                               f"inputs differ (the reduction across "
+                               f"CTAs must sum in a fixed order)")
         err = float((got.float() - want.float()).abs().max())
         # f32 sums of 784 terms in another order: the error scales with
         # the output's magnitude, so atol is relative to it
@@ -1112,14 +1157,16 @@ def drive_training_path(data, lenet_data, lenet_checkpoint_dir) -> dict:
     eval_batches = -(-len(data["test_y"]) // 2048)
     phases = {}
     for name, (cfg, recipe_data) in recipes.items():
-        before = fused.LAUNCHES["dense_relu"]
+        before = dict(fused.LAUNCHES)
         out = trainer.fit(cfg, data=recipe_data)
-        launched = fused.LAUNCHES["dense_relu"] - before
+        launched = fused.LAUNCHES["dense_relu"] - before["dense_relu"]
+        wgrad = fused.LAUNCHES["conv_wgrad_1ch"] - before["conv_wgrad_1ch"]
         keep = ("images_per_sec", "step_ms", "test_accuracy",
                 "wall_clock_s", "elapsed_s", "steps_timed", "steps",
                 "n_evals", "final_loss", "global_batch", "pixel_format")
         phases[name] = {k: out[k] for k in keep}
         phases[name]["dense_relu_launches"] = launched
+        phases[name]["conv_wgrad_1ch_launches"] = wgrad
         phases[name]["learning_rate"] = cfg.learning_rate
         print(f"train {name}: {out['images_per_sec']:.1f} images/s, step "
               f"{out['step_ms']:.4f} ms, test accuracy "
@@ -1134,6 +1181,10 @@ def drive_training_path(data, lenet_data, lenet_checkpoint_dir) -> dict:
             raise RuntimeError(
                 f"{name}: test accuracy {out['test_accuracy']} under the "
                 f"floor {ACCURACY_FLOOR[name]}")
+        # conv1's weight gradient: once a LeNet step, never in eval
+        if wgrad != (out["steps"] if cfg.model == "lenet" else 0):
+            raise RuntimeError(f"{name}: conv_wgrad_1ch launched {wgrad} "
+                               f"times in {out['steps']} steps")
         if cfg.model == "mlp":
             want = out["steps"] + out["n_evals"] * eval_batches
             if launched < want:
@@ -2472,8 +2523,9 @@ def drive_lenet_serving_path(checkpoint_dir: str, lenet_data) -> dict:
             print(f"lenet {dt}: " + json.dumps(rec), flush=True)
 
         # the lifecycle: training goes on and commits a later step (LeNet
-        # training launches none of the three kernels), the registry
-        # loads and promotes it, then rolls back from it
+        # training launches none of the serving kernels, only
+        # conv_wgrad_1ch), the registry loads and promotes it, then rolls
+        # back from it
         more = lenet_recipe(checkpoint_dir).replace(
             steps=TRAIN_STEPS["lenet-adam"] + LIFECYCLE_STEPS)
         trained = trainer.fit(more, data=lenet_data)
@@ -2965,7 +3017,7 @@ def drive_fastlane(params: dict, lenet_params: dict, mlp_rows,
                              par["max_rel_logit_diff"]}
     counts = dict(fused.LAUNCHES)
     print("fastlane launches " + json.dumps(counts), flush=True)
-    missing = [k for k, n in counts.items() if n <= 0]
+    missing = [k for k in SERVING_KERNELS if counts[k] <= 0]
     if missing:
         raise RuntimeError(f"kernels never launched on the fast route: "
                            f"{missing}")
@@ -3716,7 +3768,7 @@ def drive_fleet_and_cascade(params: dict, lenet_checkpoint_dir: str,
         "cascade": {k: cascade_counts[k] + cascade_srv.get(k, 0)
                     + cascade_bench.get(k, 0) for k in cascade_counts}}
     missing = [f"{path} {k}" for path, n in launches.items()
-               for k, c in n.items() if c <= 0]
+               for k in SERVING_KERNELS if n[k] <= 0]
     if missing:
         raise RuntimeError(f"kernels never launched on their path: "
                            f"{missing}")
@@ -4214,7 +4266,7 @@ def drive_tenancy(params: dict, lenet_checkpoint_dir: str,
     bench, bench_launches = drive_tenancy_bench(card)
     launches = {"tenancy": {k: counts[k] + http_launches.get(k, 0)
                             + bench_launches.get(k, 0) for k in counts}}
-    missing = [k for k, n in launches["tenancy"].items() if n <= 0]
+    missing = [k for k in SERVING_KERNELS if launches["tenancy"][k] <= 0]
     if missing:
         raise RuntimeError(f"kernels never launched on the tenancy path: "
                            f"{missing}")
@@ -5188,7 +5240,7 @@ def drive_card_group(params: dict, lenet_params: dict,
                       flush=True)
         finally:
             batcher.stop()
-    missing = [k for k, n in launched.items() if n <= 0]
+    missing = [k for k in SERVING_KERNELS if launched[k] <= 0]
     if missing:
         raise RuntimeError(f"kernels never launched on the card group: "
                            f"{missing}")
@@ -5294,6 +5346,7 @@ def run_phases() -> int:
     from distributedmnist_tpu_torch import checkpoint
     from distributedmnist_tpu_torch.data import synthetic_mnist
     from distributedmnist_tpu_torch.ops import fused, kernel_lib
+    from distributedmnist_tpu_torch.utils.device import training_numerics
 
     card = CHILDREN.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5350,6 +5403,8 @@ def run_phases() -> int:
     records = check_kernels(itertools.chain(
         kernel_cases(params, np.asarray(images)), training_cases(data),
         rest_cases(params, data)))
+    with training_numerics():
+        records += check_kernels(conv_wgrad_cases(data))
     time_forwards("mlp", params, np.asarray(images),
                   ("float32", "bfloat16", "int8", "megakernel"))
     compare_training_step(data)
@@ -5359,7 +5414,7 @@ def run_phases() -> int:
     phases = drive_serving_path(params)
     launches = {"serving": dict(fused.LAUNCHES)}
     print("phases " + json.dumps(phases), flush=True)
-    missing = [k for k, n in launches["serving"].items() if n <= 0]
+    missing = [k for k in SERVING_KERNELS if launches["serving"][k] <= 0]
     if missing:
         raise RuntimeError(f"kernels never launched on the serving path: "
                            f"{missing}")
@@ -5481,7 +5536,7 @@ def run_phases() -> int:
     lap("18 import probe")
 
     line = []
-    for name in ("dense_relu", "quant_dense", "mlp_megakernel"):
+    for name in SERVING_KERNELS:
         timed = next(r for r in records if r["name"] == name
                      and r["case"].endswith(f"b={TIMED_ROWS}"))
         line.append({
@@ -5523,6 +5578,18 @@ def run_phases() -> int:
                  and r["case"].startswith("lenet ")]
         if lenet:
             entry["lenet_shapes"] = lenet
+    # LeNet's conv1 weight gradient, a kernel of training alone
+    name = "conv_wgrad_1ch"
+    timed = next(r for r in records if r["name"] == name)
+    line.append({
+        "name": name, "route": "cuda",
+        "source": f"distributedmnist_tpu_torch/csrc/{name}.cu",
+        "replaces": None,
+        "launches": sum(n.get(name, 0) for n in launches.values()),
+        "launches_by_path": {path: n.get(name, 0)
+                             for path, n in launches.items()},
+        **{k: timed[k] for k in ("case", "max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms")}})
     # the rest of training's new shapes, each case beside its bound
     line[0]["new_shapes"] = [
         {k: r[k] for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -33,7 +33,8 @@ allocator growth on the hot path. Five rules, mirroring JX001-JX005:
    scalar values, no device and no data — is hashed and held against the
    committed snapshot (analysis/graph_fingerprints.json). Each
    ops/fused.py kernel wrapper is recorded as ONE op named after its
-   kernel (kernel.dense_relu, kernel.quant_dense, kernel.mlp_megakernel)
+   kernel (kernel.dense_relu, kernel.quant_dense, kernel.mlp_megakernel,
+   and in training's LeNet backward kernel.conv_wgrad_1ch)
    and its plain version's interior is not recorded, so one key gives
    one fingerprint on the CPU basis and on the card, where the wrapper
    launches the kernel. Refresh the snapshot with
@@ -110,7 +111,8 @@ _IMAGE_SHAPE = (28, 28, 1)
 # ops/fused.py's kernel wrappers, recorded as one op each
 _KERNEL_WRAPPERS = {"dense_relu_inference": "kernel.dense_relu",
                     "quant_dense": "kernel.quant_dense",
-                    "mlp_megakernel": "kernel.mlp_megakernel"}
+                    "mlp_megakernel": "kernel.mlp_megakernel",
+                    "conv_wgrad_1ch": "kernel.conv_wgrad_1ch"}
 _KEY_COMPONENTS = ("model", "infer_dtype", "bucket")
 # the training audit: each model's preset optimizer and rate (configs 1
 # and 2), and JAX's canonical geometry (a device-resident set of

@@ -11,6 +11,13 @@ matmuls; neither is a Pallas kernel. The port has both, in plain torch:
 - "im2col": the kh*kw shifted slices stacked into one patch matmul, and
   a 2x2 pool as a reshape and a mean (`im2col_conv`, `avg_pool2_reshape`).
 
+In training, a float32 SAME convolution of one-channel images whose
+kernel needs a gradient and whose input does not (LeNet's conv1) goes
+through `Conv1chWgrad`: the same forward, and a backward that computes
+the weight and bias gradients by ops/fused.conv_wgrad_1ch, on the card
+in one hand-written kernel in place of cuDNN's deterministic weight-
+gradient engine, on the CPU in the op autograd runs for F.conv2d.
+
 Every function keeps the JAX package's layouts at its interface:
 activations NHWC, conv kernels HWIO (flax's nn.Conv tree, {kernel (kh,
 kw, cin, f), bias (f,)}), so both take the same parameters. "auto" is
@@ -24,6 +31,42 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from distributedmnist_tpu_torch.ops import fused
+
+
+def _conv(x, kernel, bias, padding: str):
+    out = F.conv2d(x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1),
+                   bias, padding="same" if padding == "SAME" else 0)
+    return out.permute(0, 2, 3, 1)
+
+
+class Conv1chWgrad(torch.autograd.Function):
+    """conv2d(x, kernel, bias, "SAME") whose backward gives the kernel's
+    and the bias's gradients from fused.conv_wgrad_1ch (dW already HWIO)
+    and none for x, which must need none."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias):
+        ctx.save_for_backward(x, kernel)
+        return _conv(x, kernel, bias, "SAME")
+
+    @staticmethod
+    def backward(ctx, g):
+        x, kernel = ctx.saved_tensors
+        dw, db = fused.conv_wgrad_1ch(x, g, kernel)
+        return None, dw, db
+
+
+def takes_conv1ch_wgrad(x, kernel, padding: str) -> bool:
+    """Whether conv2d's backward goes through Conv1chWgrad: float32, one
+    input channel, an odd square kernel, SAME, the kernel needing a
+    gradient and x none (a training step's first convolution)."""
+    kh, kw, cin, _ = kernel.shape
+    return (padding == "SAME" and x.dtype == torch.float32
+            and kernel.dtype == torch.float32 and cin == 1 and kh == kw
+            and kh % 2 == 1 and torch.is_grad_enabled()
+            and kernel.requires_grad and not x.requires_grad)
+
 
 def conv2d(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
            padding: str = "VALID") -> torch.Tensor:
@@ -32,9 +75,9 @@ def conv2d(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     kernel dims, which LeNet's 5x5 are)."""
     if padding not in ("VALID", "SAME"):
         raise ValueError(f"unsupported padding {padding!r}")
-    out = F.conv2d(x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1),
-                   bias, padding="same" if padding == "SAME" else 0)
-    return out.permute(0, 2, 3, 1)
+    if takes_conv1ch_wgrad(x, kernel, padding):
+        return Conv1chWgrad.apply(x, kernel, bias)
+    return _conv(x, kernel, bias, padding)
 
 
 def avg_pool2(x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""The three fused dense kernels of the MLP path, each beside its plain
-PyTorch version.
+"""The port's hand-written kernels, each beside its plain PyTorch
+version: the three fused dense kernels of the MLP path and LeNet's
+conv1 weight gradient.
 
 - `dense_relu`: relu(x @ w + b), f32 or bf16, f32 accumulation; training
   goes through the `DenseReLU` autograd Function, whose backward is plain
@@ -7,6 +8,9 @@ PyTorch version.
 - `quant_dense`: int8 x int8 -> int32, then `acc * scale + b` in f32,
   optionally relu'd.
 - `mlp_megakernel`: relu(x @ w1 + b1) @ w2 + b2 in one launch.
+- `conv_wgrad_1ch`: dW and db of a SAME convolution of one-channel
+  images (LeNet's conv1), for the backward of ops/conv.py's
+  `Conv1chWgrad`.
 
 Dense kernels keep flax's (in, out) orientation: x is (m, k), w is (k, n).
 
@@ -31,7 +35,8 @@ KERNEL = "kernel"      # hand-written CUDA kernel (a CUDA device)
 PLAIN = "plain"        # plain PyTorch version (the CPU)
 
 # Kernel launches since the last reset_launches(), by kernel name.
-LAUNCHES = {"dense_relu": 0, "quant_dense": 0, "mlp_megakernel": 0}
+LAUNCHES = {"dense_relu": 0, "quant_dense": 0, "mlp_megakernel": 0,
+            "conv_wgrad_1ch": 0}
 
 
 def reset_launches() -> None:
@@ -240,3 +245,62 @@ def mlp_megakernel(x, w1, b1, w2, b2):
             out.data_ptr(), m, k, hidden, n2, _stream(x))
     LAUNCHES["mlp_megakernel"] += 1
     return out
+
+
+# -- conv_wgrad_1ch -----------------------------------------------------------
+
+# The one shape csrc/conv_wgrad_1ch.cu is compiled for: LeNet's conv1,
+# images (H, W, 1), kernel (kh, kw, 1, F) HWIO; and its scratch, one row
+# of partial sums (dW's and db's elements) a block of its first pass.
+CONV_WGRAD_IMAGE = (28, 28, 1)
+CONV_WGRAD_KERNEL = (5, 5, 1, 6)
+CONV_WGRAD_MAX_BLOCKS = 512
+
+
+def conv_wgrad_1ch_reference(x, g, kernel):
+    """(dW, db) of a stride-1 SAME convolution, x (B, H, W, C) NHWC,
+    kernel (kh, kw, C, F) HWIO, output gradient g (B, H, W, F): the one
+    op autograd runs for F.conv2d's weight and bias when its input needs
+    no gradient, on the NCHW views ops/conv.conv2d convolves, so the
+    numbers are F.conv2d's own bit for bit. dW comes back HWIO."""
+    kh, kw = kernel.shape[:2]
+    _, dw, db = torch.ops.aten.convolution_backward(
+        g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2),
+        kernel.permute(3, 2, 0, 1), [kernel.shape[3]], [1, 1],
+        [kh // 2, kw // 2], [1, 1], False, [0, 0], 1, [False, True, True])
+    return dw.permute(2, 3, 1, 0), db
+
+
+def conv_wgrad_1ch(x, g, kernel):
+    """(dW (5, 5, 1, 6) HWIO, db (6,)) of LeNet's conv1, float32: x
+    (B, 28, 28, 1) its input, g (B, 28, 28, 6) its output gradient,
+    `kernel` its weights (read for their shape). The kernel on a CUDA
+    tensor, which raises on any other shape or dtype, and on x or g not
+    16-byte aligned (a fresh allocation is); the plain version on a CPU
+    one. Two calls on the same inputs give the same bits."""
+    if resolve(x.device) == PLAIN:
+        return conv_wgrad_1ch_reference(x, g, kernel)
+    dev = x.device
+    x, g = x.contiguous(), g.contiguous()
+    for name, t in (("x", x), ("g", g), ("kernel", kernel)):
+        _check(name, t, (torch.float32,), 4, dev)
+    rows = x.shape[0]
+    filters = CONV_WGRAD_KERNEL[3]
+    if (rows < 1 or tuple(x.shape[1:]) != CONV_WGRAD_IMAGE
+            or tuple(kernel.shape) != CONV_WGRAD_KERNEL
+            or tuple(g.shape) != (rows, *CONV_WGRAD_IMAGE[:2], filters)):
+        raise ValueError(
+            f"conv_wgrad_1ch takes x (B, 28, 28, 1), g (B, 28, 28, 6) and "
+            f"a (5, 5, 1, 6) kernel, B >= 1: got x {tuple(x.shape)}, g "
+            f"{tuple(g.shape)}, kernel {tuple(kernel.shape)}")
+    dw = torch.empty(CONV_WGRAD_KERNEL, dtype=torch.float32, device=dev)
+    db = torch.empty((filters,), dtype=torch.float32, device=dev)
+    part = torch.empty((CONV_WGRAD_MAX_BLOCKS, dw.numel() + filters),
+                       dtype=torch.float32, device=dev)
+    h, w, _ = CONV_WGRAD_IMAGE
+    _launch(x, "conv_wgrad_1ch.cu", "conv_wgrad_1ch_f32", x.data_ptr(),
+            g.data_ptr(), part.data_ptr(), dw.data_ptr(), db.data_ptr(),
+            rows, h, w, CONV_WGRAD_KERNEL[0], filters,
+            CONV_WGRAD_MAX_BLOCKS, _stream(x))
+    LAUNCHES["conv_wgrad_1ch"] += 1
+    return dw, db

@@ -41,6 +41,10 @@ SIGNATURES = {
     "mlp_megakernel.cu": {
         "mlp_megakernel_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
+    "conv_wgrad_1ch.cu": {
+        "conv_wgrad_1ch_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _P],
+    },
 }
 
 _lock = threading.Lock()

@@ -240,6 +240,12 @@ def test_train_fingerprints_are_stable_under_jaxchecks_keys():
     assert sum(ln.startswith("kernel.dense_relu(") for ln in lines) == 1
     assert any(ln.startswith("aten::_foreach_add_") for ln in lines)
     assert not any(ln.startswith("profiler::") for ln in lines)
+    # LeNet's conv1 weight and bias gradients are one kernel op; conv2's
+    # backward is autograd's convolution_backward
+    lines = tc.record_train_step("lenet", "cpu").lines
+    assert sum(ln.startswith("kernel.conv_wgrad_1ch(") for ln in lines) == 1
+    assert sum(ln.startswith("aten::convolution_backward(")
+               for ln in lines) == 1
 
 
 def test_planted_extra_op_in_the_train_step_is_tx005(monkeypatch):

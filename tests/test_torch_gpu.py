@@ -63,7 +63,9 @@ the logits' scale: float32 1e-4 (cuDNN's sums in other orders, TF32
 off); bfloat16 3e-2 (cuDNN and the CPU round the bf16 convolutions at
 other points); int8 5e-3 (a float32 trunk summed in another order can
 move a quantized activation across a rounding boundary), its dense stack
-on a shared input exact.
+on a shared input exact. LeNet's conv1 weight gradient: within 1e-6 of
+the sum of its terms' magnitudes of the float64 plain version (float32
+sums of up to 3.2 M terms in another, fixed, order).
 """
 
 import json
@@ -80,6 +82,7 @@ from distributedmnist_tpu_torch.ops.loss import cross_entropy
 from distributedmnist_tpu_torch.utils.device import training_numerics
 
 K, HIDDEN, CLASSES = 784, 128, 10
+SERVING_KERNELS = ("dense_relu", "quant_dense", "mlp_megakernel")
 
 
 def _rng(seed):
@@ -282,14 +285,87 @@ def test_mlp_megakernel_shapes_on_card(m, k):
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5 * scale)
 
 
+def _wgrad_inputs(m, seed):
+    """LeNet conv1's input (pixel-like, [0, 1)), a normal output gradient
+    and a kernel of conv1's shape, on the card."""
+    r = _rng(seed)
+    return _cuda(r.random((m, 28, 28, 1), dtype=np.float32),
+                 r.normal(size=(m, 28, 28, 6)).astype(np.float32),
+                 np.zeros(fused.CONV_WGRAD_KERNEL, np.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", (1, 7, 128, 4096))
+def test_conv_wgrad_kernel_on_card(m):
+    """dW and db against the plain version in float64 on the card. The
+    kernel sums float32 products in another order, a fixed one: each
+    element may be off by rounding, which no order of float32 sums
+    exceeds by much more than eps times the sum of the terms' magnitudes
+    (the plain version on |x| and |g|); 1e-6 of it is a hundredfold
+    margin over what blocked sums of 3.2 M terms give, and a missing
+    or doubled row of 4,096 is 2.4e-4 of it."""
+    _need_card()
+    x, g, k = _wgrad_inputs(m, seed=m)
+    before = fused.LAUNCHES["conv_wgrad_1ch"]
+    dw, db = fused.conv_wgrad_1ch(x, g, k)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["conv_wgrad_1ch"] == before + 1
+    assert dw.shape == (5, 5, 1, 6) and db.shape == (6,)
+    assert dw.is_contiguous() and dw.dtype == torch.float32
+    with training_numerics():
+        exact = fused.conv_wgrad_1ch_reference(x.double(), g.double(),
+                                               k.double())
+        mags = fused.conv_wgrad_1ch_reference(x.double().abs(),
+                                              g.double().abs(), k.double())
+    for got, want, mag in zip((dw, db), exact, mags):
+        err = (got.double() - want).abs()
+        assert bool((err <= 1e-6 * mag).all()), float((err / mag).max())
+
+
+@pytest.mark.gpu
+def test_lenet_conv1_gradient_at_the_benchmark_batch_on_card():
+    """One LeNet-5 backward at 4,096 rows (a benchmark training step's)
+    on the card against the CPU: conv1's gradients through the kernel,
+    one launch, and every gradient at the LeNet step's tolerance."""
+    _need_card()
+    data = mnist.synthetic_mnist(seed=2, train_n=4096, test_n=16)
+    x = packing.normalize(_t(data["train_x"]))
+    y = _t(data["train_y"]).long()
+    grads = []
+    with training_numerics():
+        for dev in ("cuda", "cpu"):
+            net = models.build("lenet", device=dev)
+            net.load_state_dict(models.init_params("lenet", 0))
+            before = fused.LAUNCHES["conv_wgrad_1ch"]
+            cross_entropy(net(x.to(dev)), y.to(dev)).backward()
+            assert fused.LAUNCHES["conv_wgrad_1ch"] - before == (
+                1 if dev == "cuda" else 0)
+            grads.append({k: p.grad.cpu() for k, p in
+                          net.named_parameters()})
+    gc, gh = grads
+    for k in gh:
+        scale = max(1e-3, float(gh[k].abs().max()))
+        torch.testing.assert_close(gc[k], gh[k], rtol=0, atol=1e-4 * scale)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("m", (1, 128, 512))
 @pytest.mark.parametrize("kernel", ("dense_relu_f32", "dense_relu_bf16",
-                                    "mlp_megakernel", "quant_dense"))
+                                    "mlp_megakernel", "quant_dense",
+                                    "conv_wgrad_1ch"))
 def test_split_k_kernels_deterministic_on_card(kernel, m):
-    """The cluster reduction sums partials in a fixed rank order: two calls
-    on the same inputs give the same bits."""
+    """The cluster reduction (conv_wgrad_1ch: its blocks' partial sums)
+    sums partials in a fixed order: two calls on the same inputs give the
+    same bits."""
     _need_card()
+    if kernel == "conv_wgrad_1ch":
+        args = _wgrad_inputs(m, seed=m)
+        first, second = (torch.cat([t.reshape(-1) for t in
+                                    fused.conv_wgrad_1ch(*args)])
+                         for _ in range(2))
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+        return
     if kernel == "mlp_megakernel":
         args = _cuda(*_mega_inputs(m, K, seed=m))
         fn = fused.mlp_megakernel
@@ -920,7 +996,9 @@ def test_two_replica_fleet_on_one_card_is_each_routers_dispatch():
         a, b = (rep.router.infer(x) for rep in fleet.replicas)
         assert a.tobytes() == b.tobytes(), dt
     launched = {k: fused.LAUNCHES[k] - before[k] for k in before}
-    assert all(n > 0 for n in launched.values()), launched
+    # every serving kernel, and never training's conv1 weight gradient
+    assert all(launched[k] > 0 for k in SERVING_KERNELS), launched
+    assert launched["conv_wgrad_1ch"] == 0, launched
 
 
 @pytest.mark.gpu

@@ -79,7 +79,7 @@ def test_cpu_tensors_never_count_launches():
                          _t(np.zeros(3, np.float32)))
     fused.quant_dense(x.to(torch.int8), w.to(torch.int8), b, b)
     assert fused.LAUNCHES == {"dense_relu": 0, "quant_dense": 0,
-                              "mlp_megakernel": 0}
+                              "mlp_megakernel": 0, "conv_wgrad_1ch": 0}
 
 
 def test_launch_line_is_one_write_and_parses_past_glued_output(
@@ -96,7 +96,8 @@ def test_launch_line_is_one_write_and_parses_past_glued_output(
     monkeypatch.setattr(sys, "stderr", Stderr())
     monkeypatch.setitem(fused.LAUNCHES, "dense_relu", 3)
     fused.print_launches("serve: launches ")
-    want = {"dense_relu": 3, "quant_dense": 0, "mlp_megakernel": 0}
+    want = {"dense_relu": 3, "quant_dense": 0, "mlp_megakernel": 0,
+            "conv_wgrad_1ch": 0}
     assert writes == ["serve: launches " + json.dumps(want) + "\n"]
     line = writes[0].rstrip("\n")
     # another process's write landing before or after it on the same

@@ -323,7 +323,8 @@ def test_torchcheck_audits_a_group_target():
 def test_dry_run_serves_over_n_devices():
     assert dryrun.serve_group(3, "cpu") == [CPU] * 3
     launched = dryrun.serve_reload(2, "cpu")
-    assert set(launched) == {"dense_relu", "quant_dense", "mlp_megakernel"}
+    assert set(launched) == {"dense_relu", "quant_dense", "mlp_megakernel",
+                             "conv_wgrad_1ch"}
 
 
 # -- the CLIs -----------------------------------------------------------------------

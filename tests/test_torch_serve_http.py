@@ -1156,7 +1156,8 @@ def test_serve_http_end_to_end():
                if r.get("metric") == "serve_summary"]
     assert summary and summary[-1]["requests"] >= 1
     assert done.launches == [{"dense_relu": 0, "quant_dense": 0,
-                              "mlp_megakernel": 0}]   # plain versions here
+                              "mlp_megakernel": 0,
+                              "conv_wgrad_1ch": 0}]   # plain versions here
 
 
 def test_serve_admin_model_lifecycle(tmp_path):
